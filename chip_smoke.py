@@ -1,0 +1,457 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the four CUDA kernels from `src/repro_torch/csrc/` and prints the
+   seconds and ptxas's register and spill lines;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   shapes of BERT-base 8x128, with its tolerance, its time, its bound and,
+   where one PyTorch call computes the same product, that call's time;
+4. serves full-width BERT-base (L=12, D=768, V=30720, bf16) through
+   `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8 and NPE-16;
+   counts the kernel launches of one NPE-8 forward (checked: 73 quant_matmul,
+   25 nvu_layernorm, 12 nvu_softmax, 12 pwl_eval); holds every launch of one
+   NPE-8 forward to its plain version on its own operands; profiles one NPE-8
+   forward; and holds the kernel route at full width (2 layers, float32)
+   against the port's plain route on the CPU;
+5. prints the kernel list, one JSON line of per-kernel numbers, the card, and
+   last `{"ok": true, "device": {...}}`.
+
+Any failure exits non-zero before the last line.  Details go to
+`chiprun_out/chip_smoke.json`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.quant import quantize  # noqa: E402
+from repro_torch.data.pipeline import SyntheticRequests  # noqa: E402
+from repro_torch.kernels import KERNELS, build, launches, ops, reset_launches  # noqa: E402
+from repro_torch.kernels import nvu_layernorm as ln_mod  # noqa: E402
+from repro_torch.kernels import nvu_softmax as sm_mod  # noqa: E402
+from repro_torch.kernels import pwl_eval as pe_mod  # noqa: E402
+from repro_torch.kernels import quant_matmul as qm_mod  # noqa: E402
+from repro_torch.core.pwl import get_table  # noqa: E402
+from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
+from repro_torch.models import bert  # noqa: E402
+from repro_torch.models.bert import Bert  # noqa: E402
+
+# H100 SXM data sheet, dense: HBM 3.35 TB/s, int8 tensor cores 1979 TOP/s,
+# float32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+
+BATCH, SEQ, BATCHES = 8, 128, 3
+EXPECTED_LAUNCHES = {"quant_matmul": 73, "nvu_layernorm": 25, "nvu_softmax": 12,
+                     "pwl_eval": 12}
+BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative to the value
+NPE16_TOL = 5e-3               # the reference's NPE-mode gate
+FLOAT_TOL = 1e-3               # float32 route on the card vs the CPU, 2 layers
+NOISE_FACTOR, TOP1_MARGIN = 2.0, 0.02
+REPLACES = {
+    "pwl_eval": "src/repro/kernels/pwl_eval.py:79",
+    "quant_matmul": "src/repro/kernels/quant_matmul.py:73",
+    "nvu_softmax": "src/repro/kernels/nvu_softmax.py:76",
+    "nvu_layernorm": "src/repro/kernels/nvu_layernorm.py:70",
+}
+# (atol, rtol) of each kernel against its plain version: the f32 values are
+# those of tests/test_kernels.py (gather vs prefix-delta PWL, sums in another
+# order); a bf16 result may round to the neighbouring bf16 value as well.
+TOLS = {
+    ("pwl_eval", torch.float32): (1e-5, 1e-5),
+    ("pwl_eval", torch.bfloat16): (1e-5, BF16_RTOL),
+    ("quant_matmul", torch.float32): (1e-5, 1e-5),
+    ("quant_matmul", torch.bfloat16): (1e-5, BF16_RTOL),
+    ("nvu_softmax", torch.float32): (2e-5, 2e-5),
+    ("nvu_layernorm", torch.float32): (3e-5, 3e-5),
+    ("nvu_layernorm", torch.bfloat16): (3e-5, BF16_RTOL),
+}
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def compare(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
+    """(max-abs error, whether every element is within atol + rtol*|want|)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
+
+
+def _kernel_times(prof):
+    """(name, device us) of every kernel and copy the card ran in the window.
+    Only device-side events count: an aten op also reports the device time
+    of the kernels it launched, and counting both would count them twice."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            out.append((e.key, us))
+    return out
+
+
+def measure(fn, reps: int = 20):
+    """(device ms per call from torch.profiler, or None if it saw no device
+    time; ms per call between CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(us for _, us in _kernel_times(prof))
+    return (dev_us / 1e3 / reps if dev_us > 0 else None), event_ms
+
+
+def bound(bytes_moved: float, ops: float, ops_rate: float):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_rate
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def pwl_ops(name: str) -> int:
+    """Operations of one PWL evaluation: a compare and two adds for each
+    interior knot, then a multiply and an add."""
+    return 3 * (get_table(name, 16).num_segments - 1) + 2
+
+
+# --- phase 3: each kernel against its plain version -------------------------
+
+def kernel_rows(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, ops, rate,
+            library_fn=None):
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        atol, rtol = TOLS[(kernel, dtype)]
+        err, ok = compare(got, want, atol, rtol)
+        ms, ev = measure(kernel_fn)
+        pms, pev = measure(plain_fn)
+        lms, lev = measure(library_fn) if library_fn else (None, None)
+        bms, by = bound(bytes_moved, ops, rate)
+        r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
+                 max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
+                 ms=ms if ms is not None else ev, ms_source="profiler" if ms else "events",
+                 event_ms=ev, plain_ms=pms if pms is not None else pev,
+                 library_ms=(lms if lms is not None else lev) if library_fn else None,
+                 bound_ms=bms, bound_by=by)
+        rows.append(r)
+        lib = f"  torch._int_mm {r['library_ms']:.4f}" if library_fn else ""
+        say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
+            f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}  "
+            f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
+            f"(not a yardstick)  bound {bms:.4f} ({by}){lib}")
+        if not ok:
+            raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain")
+
+    # pwl_eval: the GELU of each FFN, (8*128, 3072)
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn(1024, 3072, generator=g, device=dev) * 4).to(dt)
+        row("pwl_eval", "(1024, 3072) gelu", dt,
+            lambda: pe_mod.pwl_eval(x, "gelu"),
+            lambda: pe_mod.pwl_eval_plain(x, get_table("gelu", 16)),
+            x.numel() * 2 * x.element_size(), x.numel() * pwl_ops("gelu"), F32_OPS_PER_S)
+
+    # quant_matmul: every NPE-8 projection and the logits head, bf16 out
+    for m, k, n, act, dt in [(1024, 768, 768, None, torch.bfloat16),
+                             (1024, 768, 3072, None, torch.bfloat16),
+                             (1024, 3072, 768, None, torch.bfloat16),
+                             (1024, 768, 30720, None, torch.bfloat16),
+                             (1024, 768, 3072, "gelu", torch.float32)]:
+        xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
+        a, b = xq.q.contiguous(), wq.q.contiguous()
+        table = get_table(act, 16) if act else None
+        out_bytes = torch.empty((), dtype=dt).element_size()
+        row("quant_matmul", f"({m}, {k}) @ ({k}, {n})" + (" +gelu" if act else ""), dt,
+            lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale, act, out_dtype=dt),
+            lambda: qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale, table, dt),
+            m * k + k * n + 4 + 4 * n + m * n * out_bytes, 2 * m * n * k, INT8_OPS_PER_S,
+            library_fn=None if act else (lambda: torch._int_mm(a, b)))
+
+    # nvu_softmax: the attention scores, (B*H*S, S) float32
+    x = torch.randn(12288, 128, generator=g, device=dev) * 3
+    # max, subtract, clamp, PWL exp, floor, sum, scale; one PWL 1/sum a row
+    sm_ops = x.numel() * (pwl_ops("exp") + 6) + x.shape[0] * (pwl_ops("recip") + 6)
+    for causal in (0, 128):
+        row("nvu_softmax", "(12288, 128)" + (" causal" if causal else ""), torch.float32,
+            lambda: sm_mod.nvu_softmax(x, causal_rows=causal),
+            lambda: sm_mod.nvu_softmax_plain(x, causal_rows=causal),
+            x.numel() * 8, sm_ops, F32_OPS_PER_S)
+
+    # nvu_layernorm: the embedding and both post-norms, (1024, 768), eps 1e-12
+    gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
+    bet = 0.1 * torch.randn(768, generator=g, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn(1024, 768, generator=g, device=dev) * 3 + 0.7).to(dt)
+        row("nvu_layernorm", "(1024, 768)", dt,
+            lambda: ln_mod.nvu_layernorm(x, gam, bet, eps=1e-12),
+            lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=1e-12),
+            x.numel() * 2 * x.element_size() + 2 * 768 * 4,
+            # sum, subtract, square-add, subtract, two multiplies, add; one PWL a row
+            x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)
+    return rows
+
+
+# --- phase 4: full-width BERT-base ------------------------------------------
+
+class Audit:
+    """Wrap the four kernel wrappers that `ops` calls so that every launch is
+    also computed by its plain version on the same operands."""
+
+    def __init__(self):
+        self.stats = {k: [0, 0.0, True] for k in KERNELS}
+        self.saved = {}
+
+    def _check(self, name, got, want, dtype):
+        atol, rtol = TOLS[(name, dtype)]
+        err, ok = compare(got, want, atol, rtol)
+        st = self.stats[name]
+        st[0] += 1
+        st[1] = max(st[1], err)
+        st[2] = st[2] and ok
+
+    def __enter__(self):
+        def pwl(x, name, segments=16):
+            y = pe_mod.pwl_eval(x, name, segments)
+            self._check("pwl_eval", y, pe_mod.pwl_eval_plain(x, get_table(name, segments)), x.dtype)
+            return y
+
+        def qm(xq, wq, xs, ws, activation=None, segments=16, out_dtype=torch.float32):
+            y = qm_mod.quant_matmul(xq, wq, xs, ws, activation, segments, out_dtype)
+            t = get_table(activation, segments) if activation else None
+            self._check("quant_matmul", y,
+                        qm_mod.quant_matmul_plain(xq, wq, xs, ws, t, out_dtype), out_dtype)
+            return y
+
+        def sm(x, segments=16, causal_rows=0):
+            y = sm_mod.nvu_softmax(x, segments, causal_rows)
+            self._check("nvu_softmax", y, sm_mod.nvu_softmax_plain(x, segments, causal_rows),
+                        x.dtype)
+            return y
+
+        def ln(x, gamma, beta, eps=1e-5, segments=16, rms_only=False):
+            y = ln_mod.nvu_layernorm(x, gamma, beta, eps, segments, rms_only)
+            self._check("nvu_layernorm", y, ln_mod.nvu_layernorm_plain(
+                x, gamma, beta, eps, segments, rms_only), x.dtype)
+            return y
+
+        for attr, fn in [("pwl_eval", pwl), ("quant_matmul", qm),
+                         ("nvu_softmax", sm), ("nvu_layernorm", ln)]:
+            self.saved[attr] = getattr(ops, attr)
+            setattr(ops, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(ops, attr, fn)
+
+
+def nudge(model: Bert) -> Bert:
+    """A copy of `model` with every weight moved up by one ulp."""
+    other = Bert(model.cfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(model.named_parameters(), other.named_parameters()):
+            q.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    return other
+
+
+def route_check(dev, results):
+    """The kernel route on the card against the port's plain route on the CPU,
+    full width cut to 2 layers, float32, 2 x 128 tokens."""
+    cfg = dataclasses.replace(get_config("bert_base"), num_layers=2, dtype="float32")
+    cpu_model = Bert(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    card_model = Bert(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    noisy = nudge(cpu_model)
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=SEQ, seed=2)
+    tok = BertServer(cfg, seq=SEQ, device="cpu", model=cpu_model).tokens(
+        [reqs.request(i) for i in range(2)])
+    out = {}
+    for mode in ("float", "npe-16bit", "npe-8bit"):
+        c = MODES[mode](cfg)
+        want = bert.apply(c, cpu_model, tok)
+        got = bert.apply(c, card_model, tok.to(dev)).cpu()
+        err = float((got - want).abs().max())
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if mode == "npe-8bit":
+            ref2 = bert.apply(c, noisy, tok)
+            noise = float((ref2 - want).abs().max())
+            noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
+            gate = max(NOISE_FACTOR * noise, NPE16_TOL)
+            gate_top1 = noise_top1 - TOP1_MARGIN
+        else:
+            noise = noise_top1 = None
+            gate, gate_top1 = (FLOAT_TOL if mode == "float" else NPE16_TOL), 0.99
+        ok = err <= gate and top1 >= gate_top1 and bool(torch.isfinite(got).all())
+        out[mode] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
+                         noise_max_abs=noise, noise_top1=noise_top1, ok=ok)
+        say(f"  {mode:10s} card kernels vs CPU plain route (float32, 2 layers): "
+            f"max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} (gate {gate_top1:.4f})"
+            + (f"; CPU plain route under 1-ulp weights: max-abs {noise:.3e}, "
+               f"top-1 {noise_top1:.4f}" if noise is not None else "")
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{mode}: the kernel route disagrees with the plain route")
+    results["route_check"] = out
+
+
+def profile_forward(server, work, reps: int = 5):
+    """Host ms of one forward (median of `reps`, no profiler), and the device
+    busy ms and kernels of one more forward under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    server.answer(work)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        server.answer(work)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = sorted(host)[reps // 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.answer(work)
+        torch.cuda.synchronize()
+    by_kernel = sorted(((k[:90], us / 1e3) for k, us in _kernel_times(prof)),
+                       key=lambda t: -t[1])
+    busy = sum(ms for _, ms in by_kernel)
+    return dict(host_ms=host_ms, host_ms_runs=host, device_busy_ms=busy,
+                idle_share=(1 - busy / host_ms) if busy > 0 else None,
+                kernels=len(by_kernel), top=by_kernel[:12])
+
+
+def serve_phase(dev, card, results):
+    cfg = get_config("bert_base")
+    say(f"  bert_base L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}, {BATCHES} batches of "
+        f"{BATCH} x {SEQ}")
+    timed, servers, work = serve(BATCH, SEQ, BATCHES, seed=0, device=dev)
+    serve_out = {}
+    for mode, (ms, agree) in timed.items():
+        logits, _ = servers[mode].answer(work[0])
+        if logits.shape != (BATCH, SEQ, cfg.vocab_size) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise SystemExit(f"{mode}: logits of shape {tuple(logits.shape)} "
+                             "or not finite")
+        serve_out[mode] = dict(ms_per_batch=ms, agreement=agree)
+        say(f"  {mode:10s} {ms:9.3f} ms/batch on {card}, top-1 agreement vs float "
+            f"{agree:.4f}")
+    results["serve"] = serve_out
+
+    # the main path: one NPE-8 forward, its launches counted
+    reset_launches()
+    servers["npe-8bit"].answer(work[0])
+    torch.cuda.synchronize()
+    counts = launches()
+    results["launches"] = counts
+    say(f"  launches of one NPE-8 forward: {counts} (expected {EXPECTED_LAUNCHES})")
+    if {k: counts[k] for k in EXPECTED_LAUNCHES} != EXPECTED_LAUNCHES:
+        raise SystemExit("launch counts of the NPE-8 forward differ from expected")
+
+    with Audit() as audit:
+        servers["npe-8bit"].answer(work[0])
+        torch.cuda.synchronize()
+    results["audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
+                        for k, (n, e, ok) in audit.stats.items()}
+    say("  one NPE-8 forward, every launch vs its plain version on its operands: " +
+        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+                  for k, (n, e, ok) in audit.stats.items()))
+    if any(not ok for _, _, ok in audit.stats.values()) or \
+            {k: audit.stats[k][0] for k in EXPECTED_LAUNCHES} != EXPECTED_LAUNCHES:
+        raise SystemExit("a launch of the NPE-8 forward disagrees with its plain version")
+
+    prof = profile_forward(servers["npe-8bit"], work[0])
+    results["profile"] = prof
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    say(f"  one NPE-8 forward: {prof['host_ms']:.3f} ms host clock (median of "
+        f"{len(prof['host_ms_runs'])}), {prof['device_busy_ms']:.3f} ms device busy "
+        f"(torch.profiler), idle share {idle}; device ms by kernel:")
+    for name, ms in prof["top"]:
+        say(f"      {ms:8.4f}  {name}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    card = card_info()
+    say(f"[1] card: {card}")
+    results = {"card": card}
+
+    res = build.build()
+    build.library()
+    say(f"[2] built {len(list(build.CSRC.glob('*.cu')))} CUDA sources into {res.path.name} "
+        f"in {res.seconds:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})"
+        + (" [found built]" if res.cached else ""))
+    for line in res.log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            say("    " + line.strip())
+    results["build_seconds"] = res.seconds
+
+    say("[3] kernels vs plain versions on the card (ms per call: device time "
+        "from torch.profiler, CUDA events in brackets)")
+    rows = kernel_rows(dev)
+    results["rows"] = rows
+
+    say("[4] full-width BERT-base serving through the kernels")
+    serve_phase(dev, card, results)
+    route_check(dev, results)
+
+    kernels = []
+    main_rows = {"pwl_eval": "(1024, 3072) gelu", "quant_matmul": "(1024, 768) @ (768, 3072)",
+                 "nvu_softmax": "(12288, 128)", "nvu_layernorm": "(1024, 768)"}
+    for name in KERNELS:
+        r = next(r for r in rows if r["kernel"] == name and r["shape"] == main_rows[name])
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=results["launches"][name],
+            shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    say("[5] summary")
+    say("kernels: " + " ".join(KERNELS))
+    say(json.dumps({"kernels": kernels}))
+    say(f"card: {card}")
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The MMU's number formats in plain torch (counterpart of `repro/core/quant.py`).
+
+Symmetric linear quantization: per-tensor activation scales, per-output-
+column weight scales, integer products accumulated exactly, dequantized as
+`acc * (x_scale * w_scale)`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class QTensor(NamedTuple):
+    """Symmetric-quantized tensor: values in int8/int16, float32 scale."""
+    q: torch.Tensor        # int8 or int16
+    scale: torch.Tensor    # f32; per tensor () or per channel (keepdim)
+
+    @property
+    def bits(self) -> int:
+        return 8 if self.q.dtype == torch.int8 else 16
+
+    def dequantize(self) -> torch.Tensor:
+        return self.q.to(torch.float32) * self.scale
+
+
+_QDTYPE = {8: torch.int8, 16: torch.int16}
+
+
+def quantize(x: torch.Tensor, bits: int = 8,
+             axis: Optional[int] = None) -> QTensor:
+    """Symmetric quantization; `axis` is the channel axis of per-channel
+    scales (None: per tensor).  torch.round rounds half to even, as jnp does,
+    and x is divided by the scale, not multiplied by its reciprocal."""
+    xf = x.to(torch.float32)
+    if axis is None:
+        amax = xf.abs().amax()
+    else:
+        red = tuple(i for i in range(x.ndim) if i != (axis % x.ndim))
+        amax = xf.abs().amax(dim=red, keepdim=True)
+    qmax = float(2 ** (bits - 1) - 1)
+    scale = torch.clamp(amax, min=1e-12) / qmax
+    q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(_QDTYPE[bits])
+    return QTensor(q, scale)
+
+
+def fake_quantize(x: torch.Tensor, bits: int = 8,
+                  axis: Optional[int] = None) -> torch.Tensor:
+    """Quantize-dequantize, straight-through in the backward pass."""
+    y = quantize(x, bits, axis).dequantize().to(x.dtype)
+    return x + (y - x).detach()
+
+
+def int_matmul(aq: torch.Tensor, bq: torch.Tensor) -> torch.Tensor:
+    """Integer matmul (..., M, K) @ (K, N) with exact int32 results.
+
+    Accumulates in float64, which holds every integer below 2^53 and has a
+    matmul on the CPU and the card alike.  A float32 product would not be
+    exact: at K=3072 the sums reach 127^2 * 3072 > 2^24."""
+    return torch.matmul(aq.to(torch.float64), bq.to(torch.float64)).to(torch.int32)
+
+
+def quant_dense(x: torch.Tensor, w: QTensor, bias: Optional[torch.Tensor] = None,
+                act_bits: int = 8, act_axis: Optional[int] = None) -> torch.Tensor:
+    """The MMU primitive: quantize activations, integer matmul, dequantize."""
+    dt = x.dtype
+    xa = quantize(x, act_bits, axis=act_axis)
+    acc = int_matmul(xa.q, w.q)
+    out = acc.to(torch.float32) * (xa.scale * w.scale.reshape(1, -1))
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(dt)
+
+
+def dense_maybe_quant(x: torch.Tensor, w: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      npe_quant: bool = False, bits: int = 8,
+                      act_axis: Optional[int] = None) -> torch.Tensor:
+    """Dense layer through the MMU when the NPE mode is on.
+
+    At 8 bits: int8 x int8 products into int32.  At 16 bits: fake-quantization
+    to the int16 grid with a float32 product, as the reference models it."""
+    if not npe_quant:
+        return x @ w if bias is None else x @ w + bias
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k)
+    if bits == 8:
+        wq = quantize(w, bits, axis=1)
+        y = quant_dense(x2, wq, bias, act_bits=bits, act_axis=act_axis)
+    else:
+        xq = fake_quantize(x2.to(torch.float32), bits, axis=act_axis)
+        wq = fake_quantize(w.to(torch.float32), bits, axis=1)
+        y = xq @ wq
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+        y = y.to(x.dtype)
+    return y.reshape(*lead, w.shape[1])

@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Each kernel module has a public wrapper that launches the CUDA kernel for a
+tensor on the card and runs the plain version for a tensor on the CPU.  The
+wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
+nowhere else, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+KERNELS = ("pwl_eval", "quant_matmul", "nvu_softmax", "nvu_layernorm")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)

@@ -1,0 +1,149 @@
+"""Build and load the CUDA C++ kernels of `repro_torch/csrc/`.
+
+Every `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, for `sm_90a`, and the objects are linked into one shared library
+with a plain C interface that `ctypes` loads.  The library goes into
+`repro_torch/_build/<hash of the sources and flags>/` at first use, so a
+changed source builds anew and an unchanged one is loaded as it is.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check()` raises if that is not 0.  A failed build
+raises with nvcc's output.  Nothing here falls back to another route.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libnpe_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# C entry points: name -> argument types (every one returns a cudaError_t).
+SIGNATURES = {
+    # x, y, n, x_bf16, y_bf16, table, segments, stream
+    "npe_pwl_eval": (P, P, LL, I, I, P, I, P),
+    # xq, wq, x_scale, w_scale, out, m, n, k, out_bf16, table, segments, stream
+    "npe_quant_matmul": (P, P, P, P, P, I, I, I, I, P, I, P),
+    # x, y, rows, n, causal_rows, exp_table, exp_segments,
+    # recip_table, recip_segments, stream
+    "npe_nvu_softmax": (P, P, I, I, I, P, I, P, I, P),
+    # x, y, gamma, beta, rows, n, bf16, eps, rms_only, table, segments, stream
+    "npe_nvu_layernorm": (P, P, P, P, I, I, I, F, I, P, I, P),
+}
+
+
+@dataclass(frozen=True)
+class BuildResult:
+    path: Path
+    seconds: float
+    log: str          # nvcc's output, with ptxas's register and spill lines
+    cached: bool
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for p in cus + cuhs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildResult:
+    """Compile the kernels (or find them built) and return the library."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildResult(lib, 0.0, log, cached=True)
+    nvcc = _nvcc()
+    cus, _ = _sources()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for cu in cus:
+            obj = Path(tmp) / (cu.stem + ".o")
+            logf = open(Path(tmp) / (cu.stem + ".log"), "w+")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+            procs.append((cu, obj, logf, subprocess.Popen(
+                cmd, stdout=logf, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for cu, _, logf, proc in procs:
+            rc = proc.wait()
+            logf.seek(0)
+            text = logf.read()
+            logf.close()
+            logs.append(f"== {cu.name}\n{text}")
+            if rc != 0:
+                failed.append(cu.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _, _ in procs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}{link.stderr}")
+        log = "\n".join(logs)
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib)   # atomic: a concurrent loader sees all or nothing
+    return BuildResult(lib, time.perf_counter() - t0, log, cached=False)
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library.  Raises when there is no CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the repro_torch kernels run only on the card")
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, name: str) -> None:
+    """Wrappers take CPU tensors (plain route) or CUDA tensors (kernel)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {t.device}, expected cuda or cpu")

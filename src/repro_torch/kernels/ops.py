@@ -1,0 +1,51 @@
+"""Model-facing wrappers around the kernels (counterpart of `repro/kernels/ops.py`).
+
+They take tensors of any leading shape, reshape them to the 2-D operands the
+kernels take and back, and quantize the MMU's operands (activations per
+tensor, weights per column) outside the kernel, as the reference does.
+Each kernel wrapper launches its kernel for a tensor on the card and runs
+its plain version for a tensor on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quant import quantize
+from repro_torch.kernels.nvu_layernorm import nvu_layernorm
+from repro_torch.kernels.nvu_softmax import nvu_softmax
+from repro_torch.kernels.pwl_eval import pwl_eval
+from repro_torch.kernels.quant_matmul import quant_matmul
+
+
+def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:
+    """Elementwise PWL nonlinearity (edge segments extrapolate)."""
+    return pwl_eval(x.reshape(-1, x.shape[-1]), name, segments).reshape(x.shape)
+
+
+def quant_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 8-bit MMU: int8-quantize x per tensor and w (K, N) per column,
+    multiply into int32 and dequantize to x's dtype."""
+    *lead, k = x.shape
+    xq = quantize(x.reshape(-1, k), 8)
+    wq = quantize(w, 8, axis=1)
+    out = quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=x.dtype)
+    return out.reshape(*lead, w.shape[1])
+
+
+def softmax(x: torch.Tensor, segments: int = 16, causal: bool = False) -> torch.Tensor:
+    """NVU softmax over the last axis; `causal` masks each (q, n) matrix of
+    the last two axes with the last query aligned to the last key."""
+    causal_rows = x.shape[-2] if causal else 0
+    out = nvu_softmax(x.reshape(-1, x.shape[-1]), segments, causal_rows)
+    return out.reshape(x.shape)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor,
+              beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
+              segments: int = 16, rms_only: bool = False) -> torch.Tensor:
+    """NVU LayerNorm (or RMSNorm) over the last axis."""
+    out = nvu_layernorm(x.reshape(-1, x.shape[-1]), gamma, beta, eps, segments,
+                        rms_only)
+    return out.reshape(x.shape)

@@ -1,0 +1,70 @@
+"""Elementwise PWL kernel (counterpart of `repro/kernels/pwl_eval.py`).
+
+`pwl_eval(x, name)` launches `csrc/pwl_eval.cu` for a tensor on the card and
+runs `pwl_eval_plain` for one on the CPU.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import nvu
+from repro_torch.core.pwl import PWLTable, get_table
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.build import check, library, require_cuda, stream_handle
+
+MAX_TABLE_COLS = 128   # NPE_MAX_TABLE_COLS in csrc/pwl.cuh
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def pack_table(table: PWLTable) -> np.ndarray:
+    """Pack a PWLTable into the (3, S+1) prefix-delta form the kernels read:
+    row 0 the interior knots, rows 1 and 2 slope_0 / icept_0 followed by
+    their deltas."""
+    s = int(table.num_segments)
+    z = np.zeros((1,), np.float32)
+    knots = np.concatenate([z, np.asarray(table.knots)[1:-1], z])
+    dslopes = np.concatenate([np.asarray(table.slopes)[:1],
+                              np.diff(np.asarray(table.slopes)), z])
+    dicepts = np.concatenate([np.asarray(table.intercepts)[:1],
+                              np.diff(np.asarray(table.intercepts)), z])
+    return np.stack([knots[:s + 1], dslopes[:s + 1], dicepts[:s + 1]])
+
+
+@functools.lru_cache(maxsize=None)
+def device_table(name: str, segments: int, device: torch.device) -> torch.Tensor:
+    """The packed table of `name` on `device`, copied there once."""
+    packed = pack_table(get_table(name, segments))
+    if packed.shape[1] > MAX_TABLE_COLS:
+        raise ValueError(f"{name} table has {packed.shape[1]} columns; "
+                         f"the kernels take at most {MAX_TABLE_COLS}")
+    return torch.as_tensor(np.ascontiguousarray(packed), device=device)
+
+
+def pwl_eval_plain(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
+    """The same function with torch ops, as `core/nvu.py` computes it."""
+    return nvu.pwl_eval(x, table)
+
+
+def pwl_eval(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:
+    """PWL-evaluate `name` elementwise over a 2-D f32 or bf16 tensor; the
+    result has x's dtype."""
+    if x.ndim != 2:
+        raise ValueError(f"pwl_eval takes a 2-D tensor, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return pwl_eval_plain(x, get_table(name, segments))
+    require_cuda(x, "pwl_eval")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"pwl_eval: dtype {x.dtype} not in {KERNEL_DTYPES}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    tab = device_table(name, segments, x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
+    err = library().npe_pwl_eval(x.data_ptr(), y.data_ptr(), x.numel(), bf16,
+                                 bf16, tab.data_ptr(), tab.shape[1] - 1,
+                                 stream_handle(x))
+    check(err, "pwl_eval")
+    LAUNCHES["pwl_eval"] += 1
+    return y

@@ -1,0 +1,74 @@
+"""The MMU kernel: int8 x int8 -> int32 with a dequantizing epilogue
+(counterpart of `repro/kernels/quant_matmul.py`).
+
+`quant_matmul(...)` launches `csrc/quant_matmul.cu` for tensors on the card
+and runs `quant_matmul_plain` for tensors on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import nvu
+from repro_torch.core.pwl import PWLTable, get_table
+from repro_torch.core.quant import int_matmul
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.build import check, library, require_cuda, stream_handle
+from repro_torch.kernels.pwl_eval import device_table
+
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def quant_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                       w_scale: torch.Tensor, table: Optional[PWLTable] = None,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """acc = xq @ wq exactly, then acc * (x_scale * w_scale[col]) as
+    `core/quant.py`'s quant_dense orders it, then the optional PWL."""
+    acc = int_matmul(xq, wq)
+    out = acc.to(torch.float32) * (x_scale.reshape(()) * w_scale.reshape(1, -1))
+    if table is not None:
+        out = nvu.pwl_eval(out, table)
+    return out.to(out_dtype)
+
+
+def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                 w_scale: torch.Tensor, activation: Optional[str] = None,
+                 segments: int = 16,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M,K) int8 @ (K,N) int8 -> (M,N) out_dtype, dequantized by the
+    per-tensor x_scale (one value) and per-column w_scale (N values), with
+    the PWL function `activation` fused into the epilogue if given."""
+    if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
+        raise ValueError(f"quant_matmul: shapes {tuple(xq.shape)} @ {tuple(wq.shape)}")
+    m, k = xq.shape
+    n = wq.shape[1]
+    if x_scale.numel() != 1 or w_scale.numel() != n:
+        raise ValueError(f"quant_matmul: scales of {x_scale.numel()} and "
+                         f"{w_scale.numel()} values for N={n}")
+    if xq.device.type == "cpu":
+        table = get_table(activation, segments) if activation else None
+        return quant_matmul_plain(xq, wq, x_scale, w_scale, table, out_dtype)
+    require_cuda(xq, "quant_matmul")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"quant_matmul: int8 operands, got {xq.dtype}, {wq.dtype}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"quant_matmul: out_dtype {out_dtype} not in {OUT_DTYPES}")
+    xq, wq = xq.contiguous(), wq.contiguous()
+    xs = x_scale.to(torch.float32).contiguous()
+    ws = w_scale.to(torch.float32).contiguous()
+    for t in (wq, xs, ws):
+        if t.device != xq.device:
+            raise ValueError(f"quant_matmul: operands on {xq.device} and {t.device}")
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    tab_ptr, segs = None, 0
+    if activation:
+        tab = device_table(activation, segments, xq.device)
+        tab_ptr, segs = tab.data_ptr(), tab.shape[1] - 1
+    err = library().npe_quant_matmul(
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16), tab_ptr,
+        segs, stream_handle(xq))
+    check(err, "quant_matmul")
+    LAUNCHES["quant_matmul"] += 1
+    return out

@@ -1,0 +1,95 @@
+"""Shared model pieces BERT uses (counterpart of `repro/models/common.py`).
+
+In NPE mode the 8-bit projections go through the MMU kernel, and the
+softmax, the layernorms and GELU through the NVU kernels (kernels/ops.py);
+on the CPU those wrappers run their plain versions.  The 16-bit MMU is
+fake-quantization with a float32 product, outside any kernel, as in the
+reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import nvu
+from repro_torch.core.quant import dense_maybe_quant
+from repro_torch.kernels import ops
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def layernorm_exact(x, gamma, beta=None, eps: float = 1e-6):
+    """Float-mode LayerNorm with f32 statistics."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * gamma
+    if beta is not None:
+        y = y + beta
+    return y.to(x.dtype)
+
+
+def norm(cfg: ModelConfig, x, gamma, beta=None, eps: float = 1e-6):
+    if cfg.norm != "layernorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    if cfg.npe_pwl:
+        return ops.layernorm(x, gamma, beta, eps=eps, segments=cfg.npe_pwl_segments)
+    return layernorm_exact(x, gamma, beta, eps)
+
+
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+    """`p` holds `gamma` and, with a bias, `beta` (a Norm module)."""
+    return norm(cfg, x, p.gamma, getattr(p, "beta", None), eps=eps)
+
+
+def dense(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All projections route here: float matmul, or the MMU.  The bias is
+    added after the product is cast to x's dtype, as the reference does."""
+    w = w.to(x.dtype)
+    if cfg.npe_quant and cfg.npe_quant_bits == 8:
+        y = ops.quant_dense(x, w)
+    else:
+        y = dense_maybe_quant(x, w, None, npe_quant=cfg.npe_quant,
+                              bits=cfg.npe_quant_bits)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def activation_fn(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.npe_pwl:
+        return ops.pwl_activation(x, cfg.activation, cfg.npe_pwl_segments)
+    return nvu.activation(cfg.activation, False)(x)
+
+
+def attention_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Bidirectional attention with GQA.  q: (B, S, Hq, D); k, v: (B, S, Hkv, D).
+
+    Scores are f32 (the operands are cast up, which is exact, so the product
+    accumulates in f32 as the reference's preferred_element_type asks); the
+    probabilities are cast to v's dtype for the second product."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)      # b h g q d
+    kh = k.permute(0, 2, 1, 3).unsqueeze(2)                       # b h 1 k d
+    vh = v.permute(0, 2, 1, 3).unsqueeze(2)                       # b h 1 k d
+    scores = torch.matmul(qg.to(torch.float32),
+                          kh.to(torch.float32).transpose(-1, -2)) * (d ** -0.5)
+    if cfg.npe_pwl:
+        probs = ops.softmax(scores.contiguous(), segments=cfg.npe_pwl_segments)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype), vh)                     # b h g q d
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+def logits_out(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Final projection with a (D, V) table."""
+    return dense(cfg, x, table)

@@ -20,6 +20,11 @@ NPE_TOL = 5e-3
 RESULTS_DIR = Path(__file__).resolve().parent.parent / "results"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
+
+
 def assert_cycle_record(filename: str, schema: str, rows_fn_name: str):
     """Shared bit-exact guard for the committed compiler cycle records
     (results/*.json): recompute `benchmarks.paper_tables.<rows_fn_name>()`

@@ -1,0 +1,147 @@
+"""Each CUDA kernel against its plain PyTorch version on the card.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc: every test is marked `cuda` and skips
+without a card.  On the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
+
+Tolerances (atol, rtol): those of tests/test_kernels.py for f32 results, as
+the kernels evaluate the PWL in prefix-delta form and the plain versions by
+gather, and sums run in another order; a bf16 result may also round to the
+neighbouring bf16 value (rtol 2^-7).  The int8 product is exact.
+"""
+import pytest
+import torch
+
+from repro_torch.core.pwl import get_table
+from repro_torch.core.quant import quantize
+from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import nvu_layernorm as ln
+from repro_torch.kernels import nvu_softmax as sm
+from repro_torch.kernels import pwl_eval as pe
+from repro_torch.kernels import quant_matmul as qm
+
+pytestmark = pytest.mark.cuda
+
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _close(got, want, atol, rtol):
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), float(err.max())
+
+
+def _launched(name, before):
+    assert LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("shape", [(7, 1), (33, 130), (1024, 3072)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["gelu", "exp"])
+def test_pwl_eval(dev, shape, dtype, fn):
+    x = (torch.randn(shape, generator=_gen(dev), device=dev) * 4).to(dtype)
+    before = LAUNCHES["pwl_eval"]
+    got = pe.pwl_eval(x, fn)
+    _launched("pwl_eval", before)
+    assert got.dtype == dtype and got.device == x.device
+    want = pe.pwl_eval_plain(x, get_table(fn, 16))
+    _close(got, want, 1e-5, BF16_RTOL if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 128, 64), (100, 300, 70), (17, 5, 3),
+                                   (1024, 768, 768), (1024, 3072, 768),
+                                   (1024, 768, 30720)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_exact(dev, m, k, n, out_dtype):
+    g = _gen(dev, 1)
+    xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+    wq = quantize(torch.randn(k, n, generator=g, device=dev), 8, axis=1)
+    before = LAUNCHES["quant_matmul"]
+    got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
+    _launched("quant_matmul", before)
+    want = qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
+    assert torch.equal(got, want)
+
+
+def test_quant_matmul_extremes_exact(dev):
+    """All -128 operands at K=3072: sums of 5e7, beyond float32's 2^24."""
+    a = torch.full((64, 3072), -128, dtype=torch.int8, device=dev)
+    b = torch.full((3072, 64), -128, dtype=torch.int8, device=dev)
+    one = torch.ones(1, device=dev)
+    got = qm.quant_matmul(a, b, one, torch.ones(64, device=dev))
+    assert bool((got == 128 * 128 * 3072).all())
+
+
+def test_quant_matmul_fused_gelu(dev):
+    g = _gen(dev, 2)
+    xq = quantize(torch.randn(64, 256, generator=g, device=dev), 8)
+    wq = quantize(torch.randn(256, 128, generator=g, device=dev) / 16, 8, axis=1)
+    got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale, "gelu")
+    want = qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale, get_table("gelu", 16))
+    _close(got, want, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("rows,cols,causal", [(8, 128, 0), (100, 512, 0), (256, 1000, 0),
+                                              (128, 128, 128), (12288, 128, 0),
+                                              (12288, 128, 128), (96, 40, 16)])
+def test_nvu_softmax(dev, rows, cols, causal):
+    x = torch.randn(rows, cols, generator=_gen(dev, 3), device=dev) * 3
+    before = LAUNCHES["nvu_softmax"]
+    got = sm.nvu_softmax(x, causal_rows=causal)
+    _launched("nvu_softmax", before)
+    _close(got, sm.nvu_softmax_plain(x, causal_rows=causal), 2e-5, 2e-5)
+
+
+@pytest.mark.parametrize("rows,cols,rms", [(16, 768, False), (100, 512, False),
+                                           (64, 1024, True), (3, 256, True),
+                                           (1024, 768, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nvu_layernorm(dev, rows, cols, rms, dtype):
+    g = _gen(dev, 4)
+    x = (torch.randn(rows, cols, generator=g, device=dev) * 3 + 0.7).to(dtype)
+    gam = 1 + 0.1 * torch.randn(cols, generator=g, device=dev)
+    bet = None if rms else 0.1 * torch.randn(cols, generator=g, device=dev)
+    eps = 1e-6 if rms else 1e-12
+    before = LAUNCHES["nvu_layernorm"]
+    got = ln.nvu_layernorm(x, gam, bet, eps=eps, rms_only=rms)
+    _launched("nvu_layernorm", before)
+    want = ln.nvu_layernorm_plain(x, gam, bet, eps=eps, rms_only=rms)
+    _close(got, want, 3e-5, BF16_RTOL if dtype == torch.bfloat16 else 3e-5)
+
+
+def test_layernorm_rsqrt_over_the_f32_range(dev):
+    """The layernorm kernel's integer frexp/ldexp on variances from about
+    1e-18 to 1e18 (rows scaled by 1e-9 .. 1e9), odd and even exponents."""
+    for scale in (1e-9, 1e-3, 1.0, 1e3, 1e9):
+        x = torch.randn(8, 256, generator=_gen(dev, 5), device=dev) * scale
+        ones = torch.ones(256, device=dev)
+        got = ln.nvu_layernorm(x, ones, None, eps=0.0)
+        want = ln.nvu_layernorm_plain(x, ones, None, eps=0.0)
+        _close(got, want, 3e-5, 3e-5)
+
+
+def test_ops_on_the_card_match_the_cpu_route(dev):
+    """The wrappers' CUDA route against their CPU route on the same values."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 16, 64, generator=g)
+    w = torch.randn(64, 48, generator=g) / 8
+    gam, bet = torch.ones(64), torch.zeros(64)
+    for f, atol in [(lambda t: ops.pwl_activation(t, "gelu"), 1e-5),
+                    (lambda t: ops.softmax(t), 2e-5),
+                    (lambda t: ops.softmax(t, causal=True), 2e-5),
+                    (lambda t: ops.layernorm(t, gam.to(t.device), bet.to(t.device),
+                                             eps=1e-12), 3e-5)]:
+        _close(f(x.to(dev)).cpu(), f(x), atol, atol)
+    q_card, q_cpu = ops.quant_dense(x.to(dev), w.to(dev)).cpu(), ops.quant_dense(x, w)
+    _close(q_card, q_cpu, 1e-5, 1e-5)

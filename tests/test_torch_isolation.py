@@ -1,0 +1,48 @@
+"""The port stands alone: no module of `repro_torch`, and not `chip_smoke.py`,
+imports `jax` or anything of the reference package `repro`.
+
+A child process installs an import hook that refuses those top-level names
+(exactly those names, so `repro_torch` itself passes), imports every module
+of the port and `chip_smoke` (without running it), and lists what reached
+sys.modules."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+CHILD = r"""
+import importlib, importlib.util, pkgutil, sys
+
+BLOCKED = {"jax", "jaxlib", "repro"}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+print("modules", len(names))
+print("leaked", leaked)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", CHILD, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
+    assert lines["leaked"] == "[]"
+    assert int(lines["modules"]) >= 18
