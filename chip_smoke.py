@@ -3,19 +3,28 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels from `src/repro_torch/csrc/` and prints the
-   seconds and ptxas's register and spill lines;
+2. builds the five CUDA kernels from `src/repro_torch/csrc/`, one nvcc each,
+   in parallel, and prints the seconds and ptxas's register and spill lines;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of BERT-base 8x128, with its tolerance, its time, its bound and,
-   where one PyTorch call computes the same product, that call's time;
-4. serves full-width BERT-base (L=12, D=768, V=30720, bf16) through
-   `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8 and NPE-16;
-   counts the kernel launches of one NPE-8 forward (checked: 73 quant_matmul,
-   25 nvu_layernorm, 12 nvu_softmax, 12 pwl_eval); holds every launch of one
-   NPE-8 forward to its plain version on its own operands; profiles one NPE-8
-   forward; and holds the kernel route at full width (2 layers, float32)
-   against the port's plain route on the CPU;
-5. prints the kernel list, one JSON line of per-kernel numbers, the card, and
+   shapes of BERT-base 8x128 encoding and of 8-slot decode over a 256-row
+   cache, with its tolerance, its time, its bound and, where one PyTorch
+   call computes the same function, that call's time;
+4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
+   through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
+   and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
+   quant_matmul, 25 nvu_layernorm, 12 nvu_softmax, 12 pwl_eval); holds every
+   launch of one NPE-8 forward to its plain version on its own operands;
+   profiles one NPE-8 forward; and holds the kernel route at full width
+   (2 layers, float32) against the port's plain route on the CPU;
+5. serves KV-cache decode: full-width BERT-base through `launch.serve.Server`,
+   8 slots, prompts of up to 128 tokens, 64 greedy tokens, a 256-row cache,
+   in float, NPE-8 and NPE-16; counts the launches of one decode step and of
+   one one-slot prefill in each mode (checked exactly); holds every launch of
+   one NPE-8 step to its plain version; profiles one NPE-8 step; prints the
+   top-1 agreement of each mode with float, all fed the float route's
+   tokens; and holds the kernel route (float32, 2 layers, full width,
+   prefill plus 4 steps) against the port's plain route on the CPU;
+6. prints the kernel list, one JSON line of per-kernel numbers, the card, and
    last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before the last line.  Details go to
@@ -32,19 +41,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.quant import quantize  # noqa: E402
 from repro_torch.data.pipeline import SyntheticRequests  # noqa: E402
 from repro_torch.kernels import KERNELS, build, launches, ops, reset_launches  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import nvu_layernorm as ln_mod  # noqa: E402
 from repro_torch.kernels import nvu_softmax as sm_mod  # noqa: E402
 from repro_torch.kernels import pwl_eval as pe_mod  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm_mod  # noqa: E402
 from repro_torch.core.pwl import get_table  # noqa: E402
+from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
-from repro_torch.models import bert  # noqa: E402
+from repro_torch.models import bert, registry  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
 
 # H100 SXM data sheet, dense: HBM 3.35 TB/s, int8 tensor cores 1979 TOP/s,
@@ -55,7 +67,18 @@ F32_OPS_PER_S = 67e12
 
 BATCH, SEQ, BATCHES = 8, 128, 3
 EXPECTED_LAUNCHES = {"quant_matmul": 73, "nvu_layernorm": 25, "nvu_softmax": 12,
-                     "pwl_eval": 12}
+                     "pwl_eval": 12, "flash_attention": 0}
+# decode serving: 8 slots, prompts of up to 128 tokens, 64 steps, 256 rows
+SLOTS, MAX_PROMPT, GEN, MAX_SEQ = 8, 128, 64, 256
+# launches of one decode step, and of one one-slot prefill, in each mode
+DECODE_LAUNCHES = {
+    "npe-8bit": {"quant_matmul": 73, "pwl_eval": 12, "nvu_layernorm": 25,
+                 "nvu_softmax": 0, "flash_attention": 12},
+    "npe-16bit": {"quant_matmul": 0, "pwl_eval": 12, "nvu_layernorm": 25,
+                  "nvu_softmax": 0, "flash_attention": 12},
+    "float": {"quant_matmul": 0, "pwl_eval": 0, "nvu_layernorm": 0,
+              "nvu_softmax": 0, "flash_attention": 12},
+}
 BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative to the value
 NPE16_TOL = 5e-3               # the reference's NPE-mode gate
 FLOAT_TOL = 1e-3               # float32 route on the card vs the CPU, 2 layers
@@ -65,6 +88,7 @@ REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul.py:73",
     "nvu_softmax": "src/repro/kernels/nvu_softmax.py:76",
     "nvu_layernorm": "src/repro/kernels/nvu_layernorm.py:70",
+    "flash_attention": "src/repro/kernels/flash_attention.py:130",
 }
 # (atol, rtol) of each kernel against its plain version: the f32 values are
 # those of tests/test_kernels.py (gather vs prefix-delta PWL, sums in another
@@ -77,6 +101,8 @@ TOLS = {
     ("nvu_softmax", torch.float32): (2e-5, 2e-5),
     ("nvu_layernorm", torch.float32): (3e-5, 3e-5),
     ("nvu_layernorm", torch.bfloat16): (3e-5, BF16_RTOL),
+    ("flash_attention", torch.float32): (2e-5, 2e-5),
+    ("flash_attention", torch.bfloat16): (2e-5, BF16_RTOL),
 }
 
 
@@ -148,7 +174,7 @@ def kernel_rows(dev):
     rows = []
 
     def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, ops, rate,
-            library_fn=None):
+            library_fn=None, library_name="torch._int_mm"):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         atol, rtol = TOLS[(kernel, dtype)]
@@ -162,20 +188,20 @@ def kernel_rows(dev):
                  ms=ms if ms is not None else ev, ms_source="profiler" if ms else "events",
                  event_ms=ev, plain_ms=pms if pms is not None else pev,
                  library_ms=(lms if lms is not None else lev) if library_fn else None,
-                 bound_ms=bms, bound_by=by)
+                 bound_ms=bms, bound_by=by, library=library_name if library_fn else None)
         rows.append(r)
-        lib = f"  torch._int_mm {r['library_ms']:.4f}" if library_fn else ""
+        lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
         say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
             f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}  "
             f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
-            f"(not a yardstick)  bound {bms:.4f} ({by}){lib}")
+            f"(not a yardstick)  bound {bms:.6f} ({by}){lib}")
         if not ok:
             raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain")
 
-    # pwl_eval: the GELU of each FFN, (8*128, 3072)
-    for dt in (torch.bfloat16, torch.float32):
-        x = (torch.randn(1024, 3072, generator=g, device=dev) * 4).to(dt)
-        row("pwl_eval", "(1024, 3072) gelu", dt,
+    # pwl_eval: the GELU of each FFN, (8*128, 3072) encoding, (8, 3072) a decode step
+    for m, dt in ((1024, torch.bfloat16), (1024, torch.float32), (8, torch.bfloat16)):
+        x = (torch.randn(m, 3072, generator=g, device=dev) * 4).to(dt)
+        row("pwl_eval", f"({m}, 3072) gelu", dt,
             lambda: pe_mod.pwl_eval(x, "gelu"),
             lambda: pe_mod.pwl_eval_plain(x, get_table("gelu", 16)),
             x.numel() * 2 * x.element_size(), x.numel() * pwl_ops("gelu"), F32_OPS_PER_S)
@@ -185,7 +211,11 @@ def kernel_rows(dev):
                              (1024, 768, 3072, None, torch.bfloat16),
                              (1024, 3072, 768, None, torch.bfloat16),
                              (1024, 768, 30720, None, torch.bfloat16),
-                             (1024, 768, 3072, "gelu", torch.float32)]:
+                             (1024, 768, 3072, "gelu", torch.float32),
+                             (8, 768, 768, None, torch.bfloat16),
+                             (8, 768, 3072, None, torch.bfloat16),
+                             (8, 3072, 768, None, torch.bfloat16),
+                             (8, 768, 30720, None, torch.bfloat16)]:
         xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
         wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
         a, b = xq.q.contiguous(), wq.q.contiguous()
@@ -195,7 +225,8 @@ def kernel_rows(dev):
             lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale, act, out_dtype=dt),
             lambda: qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale, table, dt),
             m * k + k * n + 4 + 4 * n + m * n * out_bytes, 2 * m * n * k, INT8_OPS_PER_S,
-            library_fn=None if act else (lambda: torch._int_mm(a, b)))
+            # torch._int_mm takes M > 16 only: no library call at decode rows
+            library_fn=None if act or m <= 16 else (lambda: torch._int_mm(a, b)))
 
     # nvu_softmax: the attention scores, (B*H*S, S) float32
     x = torch.randn(12288, 128, generator=g, device=dev) * 3
@@ -210,21 +241,90 @@ def kernel_rows(dev):
     # nvu_layernorm: the embedding and both post-norms, (1024, 768), eps 1e-12
     gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
     bet = 0.1 * torch.randn(768, generator=g, device=dev)
-    for dt in (torch.bfloat16, torch.float32):
-        x = (torch.randn(1024, 768, generator=g, device=dev) * 3 + 0.7).to(dt)
-        row("nvu_layernorm", "(1024, 768)", dt,
+    for m, dt in ((1024, torch.bfloat16), (1024, torch.float32), (8, torch.bfloat16)):
+        x = (torch.randn(m, 768, generator=g, device=dev) * 3 + 0.7).to(dt)
+        row("nvu_layernorm", f"({m}, 768)", dt,
             lambda: ln_mod.nvu_layernorm(x, gam, bet, eps=1e-12),
             lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=1e-12),
             x.numel() * 2 * x.element_size() + 2 * 768 * 4,
             # sum, subtract, square-add, subtract, two multiplies, add; one PWL a row
             x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)
+
+    flash_rows(dev, g, row)
     return rows
+
+
+def visible_pairs(sq: int, kv_len: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, for one head."""
+    n = 0
+    for i in range(sq):
+        p = kv_len - sq + i
+        hi = p if causal else kv_len - 1
+        lo = max(0, p - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def end_aligned_mask(sq, kv_len, causal, window, dev):
+    """The same mask as a (Sq, kv_len) bool for scaled_dot_product_attention."""
+    p = torch.arange(sq, device=dev)[:, None] + (kv_len - sq)
+    c = torch.arange(kv_len, device=dev)[None, :]
+    m = torch.ones(sq, kv_len, dtype=torch.bool, device=dev)
+    if causal:
+        m &= c <= p
+    if window > 0:
+        m &= c > p - window
+    return m
+
+
+# flash rows: (name, b, hq, hkv, sq, skv, kv_len, causal, window, block_q,
+# block_kv, PWL settings); operands bf16, as the decode path hands them over
+FLASH_ROWS = [
+    ("decode", 8, 12, 12, 1, 256, 192, True, 0, 256, 256, (True, False)),
+    ("prefill", 1, 12, 12, 128, 256, 128, True, 0, 256, 256, (True, False)),
+    ("several blocks", 2, 12, 12, 64, 512, 512, True, 0, 64, 256, (True, False)),
+    ("gqa window", 2, 8, 2, 64, 256, 256, True, 48, 64, 64, (True,)),
+]
+
+
+def flash_rows(dev, g, row):
+    """The flash kernel at the decode path's shapes: q (B, Hq, Sq, 64) and a
+    (B, Hkv, max_seq, 64) cache, bf16 permuted views of (B, S, H, D) memory,
+    bf16 out.  Bytes: q, the kv_len visible cache rows of k and v, and the
+    output, once each.  Operations: for each visible score a 64-long dot
+    product and a 64-long P.V row (4 x 64), the exp (PWL: its table walk),
+    the mask, the max, the subtract and the sum; f32 on the CUDA cores."""
+    import torch.nn.functional as F
+    for name, b, hq, hkv, sq, skv, kv_len, causal, window, bq, bkv, pwls in FLASH_ROWS:
+        d = 64
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        pairs = b * hq * visible_pairs(sq, kv_len, causal, window)
+        nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
+        mask = end_aligned_mask(sq, kv_len, causal, window, dev)
+        kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        for use_pwl in pwls:
+            kw = dict(causal=causal, window=window, use_pwl=use_pwl, block_q=bq,
+                      block_kv=bkv, kv_len=kv_len, out_dtype=torch.bfloat16)
+            exp_ops = pwl_ops("exp") + 2 if use_pwl else 1
+            lib = None
+            if not use_pwl:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
+            row("flash_attention",
+                f"{name} ({b}, {hq}, {sq}, {d}) kv {kv_len}/{skv}" + (" pwl" if use_pwl else ""),
+                torch.bfloat16,
+                lambda: fa_mod.flash_attention(q, k, v, **kw),
+                lambda: fa_mod.flash_attention_plain(q, k, v, **kw),
+                nbytes, pairs * (4 * d + exp_ops + 4), F32_OPS_PER_S,
+                library_fn=lib, library_name="scaled_dot_product_attention")
 
 
 # --- phase 4: full-width BERT-base ------------------------------------------
 
 class Audit:
-    """Wrap the four kernel wrappers that `ops` calls so that every launch is
+    """Wrap the five kernel wrappers that `ops` calls so that every launch is
     also computed by its plain version on the same operands."""
 
     def __init__(self):
@@ -264,8 +364,15 @@ class Audit:
                 x, gamma, beta, eps, segments, rms_only), x.dtype)
             return y
 
+        def flash(q, k, v, **kw):
+            y = fa_mod.flash_attention(q, k, v, **kw)
+            self._check("flash_attention", y, fa_mod.flash_attention_plain(q, k, v, **kw),
+                        y.dtype)
+            return y
+
         for attr, fn in [("pwl_eval", pwl), ("quant_matmul", qm),
-                         ("nvu_softmax", sm), ("nvu_layernorm", ln)]:
+                         ("nvu_softmax", sm), ("nvu_layernorm", ln),
+                         ("flash_attention_kernel", flash)]:
             self.saved[attr] = getattr(ops, attr)
             setattr(ops, attr, fn)
         return self
@@ -398,6 +505,172 @@ def serve_phase(dev, card, results):
         say(f"      {ms:8.4f}  {name}")
 
 
+# --- phase 5: KV-cache decode serving --------------------------------------
+
+def decode_prompts(vocab: int, seed: int = 1, n: int = SLOTS):
+    reqs = SyntheticRequests(vocab, max_prompt=MAX_PROMPT, seed=seed)
+    return [reqs.request(i) for i in range(n)]
+
+
+def counted(fn):
+    """The kernel launches of fn(), counted from 0."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return launches(), out
+
+
+def teacher_forced(server, prompts, feed):
+    """Greedy tokens of `server` fed `feed` (B, n): prefill every slot, then
+    step i takes the feed's token i-1 (the first re-feeds the last prompt
+    token, as `generate` does)."""
+    server.cache = registry.init_cache(server.cfg, server.batch, server.max_seq,
+                                       server.device)
+    for slot, p in enumerate(prompts):
+        server.prefill_prompt(slot, p)
+    start = max(len(p) for p in prompts)
+    cur = torch.tensor([[int(p[-1])] for p in prompts], device=server.device)
+    out = []
+    for i in range(feed.shape[1]):
+        nxt, server.cache = server.decode(server.model, server.cache, cur, start + i)
+        out.append(nxt)
+        cur = torch.as_tensor(feed[:, i:i + 1], device=server.device)
+    return torch.cat(out, 1).cpu().numpy()
+
+
+def decode_phase(dev, card, results):
+    cfg = get_config("bert_base")
+    prompts = decode_prompts(cfg.vocab_size)
+    start = max(len(p) for p in prompts)
+    say(f"  bert_base L={cfg.num_layers} D={cfg.d_model} V={cfg.vocab_size} {cfg.dtype}, "
+        f"{SLOTS} slots, prompts of {[len(p) for p in prompts]} tokens, {GEN} steps "
+        f"from position {start}, cache of {MAX_SEQ} rows")
+    servers, out, model = {}, {}, None
+    for mode in MODES:
+        srv = servers[mode] = Server("bert_base", batch=SLOTS, max_seq=MAX_SEQ, mode=mode,
+                                     device=dev, model=model, seed=0)
+        model = srv.model
+        srv.generate(prompts, gen_tokens=2)                 # warm-up
+        srv.cache = registry.init_cache(srv.cfg, SLOTS, MAX_SEQ, dev)
+        counts, stats = counted(lambda: srv.generate(prompts, gen_tokens=GEN))
+        rep = stats.report()
+        toks = stats.generated
+        if toks.shape != (SLOTS, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"{mode}: generated tokens of shape {toks.shape} or out of range")
+        # one more step, its launches counted and its logits checked
+        cur = torch.as_tensor(toks[:, -1:], device=dev)
+        step, (logits, _) = counted(lambda: registry.decode_step(
+            srv.cfg, srv.model, srv.cache, cur, start + GEN))
+        if logits.shape != (SLOTS, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise SystemExit(f"{mode}: step logits of shape {tuple(logits.shape)} or not finite")
+        prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
+        out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts,
+                         step_launches=step, prefill_launches=prefill, step_ms=stats.step_ms)
+        say(f"  {mode:10s} prefill {rep['prefill_ms_per_slot']:8.3f} ms per slot, decode "
+            f"{rep['decode_ms_per_step']:8.3f} ms per step (median of {GEN}), "
+            f"{rep['tokens_per_sec']:9.1f} tokens/s, on {card}")
+        say(f"             launches of one step {step}, of one one-slot prefill {prefill}")
+        want = DECODE_LAUNCHES[mode]
+        if step != want or prefill != want:
+            raise SystemExit(f"{mode}: launches of a step or a prefill differ from {want}")
+        runs = len(prompts) + GEN
+        if counts != {k: n * runs for k, n in want.items()}:
+            raise SystemExit(f"{mode}: launches of the served run {counts} differ from "
+                             f"{runs} x {want}")
+    results["decode"] = out
+    results["decode_launches"] = out["npe-8bit"]["run_launches"]
+
+    npe8 = servers["npe-8bit"]
+    cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
+    with Audit() as audit:
+        registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, start + GEN)
+        torch.cuda.synchronize()
+    results["decode_audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
+                               for k, (n, e, ok) in audit.stats.items()}
+    say("  one NPE-8 decode step, every launch vs its plain version on its operands: " +
+        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+                  for k, (n, e, ok) in audit.stats.items()))
+    if any(not ok for _, _, ok in audit.stats.values()) or \
+            {k: audit.stats[k][0] for k in KERNELS} != DECODE_LAUNCHES["npe-8bit"]:
+        raise SystemExit("a launch of the NPE-8 decode step disagrees with its plain version")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, start + GEN)
+        torch.cuda.synchronize()
+    by_kernel = sorted(((k[:90], us / 1e3) for k, us in _kernel_times(prof)),
+                       key=lambda t: -t[1])
+    busy = sum(ms for _, ms in by_kernel)
+    host = out["npe-8bit"]["decode_ms_per_step"]
+    results["decode_profile"] = dict(host_ms=host, device_busy_ms=busy,
+                                     idle_share=(1 - busy / host) if busy > 0 else None,
+                                     top=by_kernel[:12])
+    idle = "not measured" if busy <= 0 else f"{1 - busy / host:.3f}"
+    say(f"  one NPE-8 decode step: {host:.3f} ms host clock (median of the served run), "
+        f"{busy:.3f} ms device busy (torch.profiler), idle share {idle}; device ms by kernel:")
+    for name, ms in by_kernel[:12]:
+        say(f"      {ms:8.4f}  {name}")
+
+    feed = np.asarray(out["float"]["generated"])
+    agree = {}
+    for mode, srv in servers.items():
+        agree[mode] = float((teacher_forced(srv, prompts, feed) == feed).mean())
+    results["decode_agreement"] = agree
+    say("  top-1 agreement with the float route's tokens, every mode fed them: " +
+        ", ".join(f"{m} {a:.4f}" for m, a in agree.items()))
+
+
+def decode_route_check(dev, results):
+    """The decode path's kernel route on the card against the port's plain
+    route on the CPU: full width cut to 2 layers, float32 weights, bf16
+    cache, two slots prefilled alone, then 4 steps fed the same tokens."""
+    cfg = dataclasses.replace(get_config("bert_base"), num_layers=2, dtype="float32")
+    cpu_model = Bert(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    card_model = Bert(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    noisy = nudge(cpu_model)
+    prompts = decode_prompts(cfg.vocab_size, seed=2, n=2)
+    start = max(len(p) for p in prompts)
+    feed = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 4))
+
+    def run(c, model, device):
+        cache = registry.init_cache(c, 2, MAX_SEQ, device)
+        logits = []
+        for slot, p in enumerate(prompts):
+            sub = {"full": {k: t[:, slot:slot + 1] for k, t in cache["full"].items()}}
+            toks = torch.as_tensor(p, device=device).long()[None]
+            logits.append(registry.decode_step(c, model, sub, toks, 0)[0][0])
+        cur = torch.tensor([[int(p[-1])] for p in prompts], device=device)
+        for i in range(feed.shape[1]):
+            lg, cache = registry.decode_step(c, model, cache, cur, start + i)
+            logits.append(lg[:, -1])
+            cur = torch.as_tensor(feed[:, i:i + 1], device=device)
+        return torch.cat(logits).float().cpu()
+
+    out = {}
+    for mode in ("float", "npe-16bit", "npe-8bit"):
+        c = MODES[mode](cfg)
+        want, got, ref2 = run(c, cpu_model, "cpu"), run(c, card_model, dev), run(c, noisy, "cpu")
+        err = float((got - want).abs().max())
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        noise = float((ref2 - want).abs().max())
+        noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
+        gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
+        gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if mode == "npe-8bit" else 0.99
+        ok = err <= gate and top1 >= gate_top1 and bool(torch.isfinite(got).all())
+        out[mode] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
+                         noise_max_abs=noise, noise_top1=noise_top1, ok=ok)
+        say(f"  {mode:10s} decode, card kernels vs CPU plain route (float32, 2 layers, "
+            f"prefill + 4 steps): max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} "
+            f"(gate {gate_top1:.4f}); CPU plain route under 1-ulp weights: max-abs "
+            f"{noise:.3e}, top-1 {noise_top1:.4f}" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{mode}: the decode kernel route disagrees with the plain route")
+    results["decode_route_check"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -425,25 +698,42 @@ def main() -> int:
     rows = kernel_rows(dev)
     results["rows"] = rows
 
-    say("[4] full-width BERT-base serving through the kernels")
+    say("[4] full-width BERT-base encoder serving through the kernels")
     serve_phase(dev, card, results)
     route_check(dev, results)
 
+    say("[5] full-width BERT-base KV-cache decode serving through the kernels")
+    decode_phase(dev, card, results)
+    decode_route_check(dev, results)
+
+    # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
+    # decode does not run, at the encoder's); launches from the run of that
+    # path: the served NPE-8 decode run, or the NPE-8 encoder forward
     kernels = []
-    main_rows = {"pwl_eval": "(1024, 3072) gelu", "quant_matmul": "(1024, 768) @ (768, 3072)",
-                 "nvu_softmax": "(12288, 128)", "nvu_layernorm": "(1024, 768)"}
+    main_rows = {"pwl_eval": ("decode", "(8, 3072) gelu"),
+                 "quant_matmul": ("decode", "(8, 768) @ (768, 3072)"),
+                 "nvu_softmax": ("encoder", "(12288, 128)"),
+                 "nvu_layernorm": ("decode", "(8, 768)"),
+                 "flash_attention": ("decode", "decode (8, 12, 1, 64) kv 192/256 pwl")}
+    exact_decode = next(r for r in rows if r["shape"] == "decode (8, 12, 1, 64) kv 192/256")
     for name in KERNELS:
-        r = next(r for r in rows if r["kernel"] == name and r["shape"] == main_rows[name])
+        path, shape = main_rows[name]
+        r = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
+        counts = results["decode_launches" if path == "decode" else "launches"]
+        if counts[name] == 0:
+            raise SystemExit(f"{name} was not launched on the {path} path")
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=results["launches"][name],
+            replaces=REPLACES[name], launches=counts[name], path=path,
             shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["library_ms_exact_exp"] = exact_decode["library_ms"]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    say("[5] summary")
+    say("[6] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -9,26 +9,17 @@
 // and the sum are warp-shuffle reductions, with no shared memory and no
 // __syncthreads after the tables are staged.  The PWL exp walks the table
 // once for all of a lane's values, so each shared-memory read of the table
-// serves VPT of them.  1/sum is the PWL reciprocal of
-// the mantissa with the exponent handled by integer bit operations, as on
-// the TPU, so the kernel has no divide.  The causal option masks column c of
-// row r when c > r % q + (n - q): the last query of each (q, n) matrix sees
-// the last key, as the reference oracle (kernels/ref.py) has it.
+// serves VPT of them.  1/sum is the PWL reciprocal of the mantissa with the
+// exponent handled by integer bit operations, as on the TPU
+// (npe_recip_via_pwl in pwl.cuh), so the kernel has no divide.  The causal
+// option masks column c of row r when c > r % q + (n - q): the last query
+// of each (q, n) matrix sees the last key, as the reference oracle
+// (kernels/ref.py) has it.
 #include "pwl.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;   // rows per block
-
-// 1/s for s > 0: s = m * 2^e with m in [0.5, 1), 1/s = pwl(m) * 2^-e.
-__device__ __forceinline__ float recip_via_pwl(float s, const float* tab, int segs) {
-  const int bits = __float_as_int(s);
-  const int e_biased = (bits >> 23) & 0xff;          // e_biased - 126 = e
-  const float m = __int_as_float((bits & 0x007fffff) | (126 << 23));
-  const float r = npe_pwl(m, tab, segs);
-  const int pow_field = min(max(253 - e_biased, 1), 254);
-  return __fmul_rn(r, __int_as_float(pow_field << 23));
-}
 
 template <int VPT>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -73,7 +64,7 @@ nvu_softmax_kernel(const float* __restrict__ x, float* __restrict__ y, int rows,
     s = __fadd_rn(s, v[j]);
   }
   s = npe_warp_sum(s);
-  const float inv = recip_via_pwl(fmaxf(s, 1e-30f), rtab, recip_segs);
+  const float inv = npe_recip_via_pwl(fmaxf(s, 1e-30f), rtab, recip_segs);
 
   float* yr = y + (size_t)row * n;
 #pragma unroll

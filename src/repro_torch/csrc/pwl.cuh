@@ -71,6 +71,19 @@ __device__ __forceinline__ void npe_pwl_n(float (&v)[N], const float* tab, int s
   for (int j = 0; j < N; ++j) v[j] = __fadd_rn(__fmul_rn(slope[j], v[j]), icept[j]);
 }
 
+// 1/s for s > 0 without a divide (recip_via_pwl in
+// src/repro/kernels/nvu_softmax.py): s = m * 2^e with m in [0.5, 1), so
+// 1/s = pwl_recip(m) * 2^-e, the exponent taken and put back by integer
+// bit operations.
+__device__ __forceinline__ float npe_recip_via_pwl(float s, const float* tab, int segs) {
+  const int bits = __float_as_int(s);
+  const int e_biased = (bits >> 23) & 0xff;          // e_biased - 126 = e
+  const float m = __int_as_float((bits & 0x007fffff) | (126 << 23));
+  const float r = npe_pwl(m, tab, segs);
+  const int pow_field = min(max(253 - e_biased, 1), 254);
+  return __fmul_rn(r, __int_as_float(pow_field << 23));
+}
+
 __device__ __forceinline__ float npe_to_f32(float v) { return v; }
 __device__ __forceinline__ float npe_to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("pwl_eval", "quant_matmul", "nvu_softmax", "nvu_layernorm")
+KERNELS = ("pwl_eval", "quant_matmul", "nvu_softmax", "nvu_layernorm",
+           "flash_attention")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -44,6 +44,12 @@ SIGNATURES = {
     "npe_nvu_softmax": (P, P, I, I, I, P, I, P, I, P),
     # x, y, gamma, beta, rows, n, bf16, eps, rms_only, table, segments, stream
     "npe_nvu_layernorm": (P, P, P, P, I, I, I, F, I, P, I, P),
+    # q, k, v, out, 16 element strides (q, k, v, out; each B, H, S, D),
+    # batch, hq, hkv, sq, skv, d, kv_len, q_bf16, kv_bf16, out_bf16, causal,
+    # window, scale, use_pwl, block_q, block_kv, exp_table, exp_segments,
+    # recip_table, recip_segments, stream
+    "npe_flash_attention": (P, P, P, P, *(LL,) * 16, *(I,) * 12, F, I, I, I,
+                            P, I, P, I, P),
 }
 
 

@@ -3,6 +3,7 @@
 They take tensors of any leading shape, reshape them to the 2-D operands the
 kernels take and back, and quantize the MMU's operands (activations per
 tensor, weights per column) outside the kernel, as the reference does.
+Flash attention takes (B, H, S, D) operands and the reference's blocking.
 Each kernel wrapper launches its kernel for a tensor on the card and runs
 its plain version for a tensor on the CPU.
 """
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import quantize
+from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm
 from repro_torch.kernels.nvu_softmax import nvu_softmax
 from repro_torch.kernels.pwl_eval import pwl_eval
@@ -49,3 +51,19 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor,
     out = nvu_layernorm(x.reshape(-1, x.shape[-1]), gamma, beta, eps, segments,
                         rms_only)
     return out.reshape(x.shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None, use_pwl: bool = True,
+                    segments: int = 16, block_q: int = 256, block_kv: int = 256,
+                    kv_len: Optional[int] = None,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Flash attention with the NVU (PWL) softmax over (B, H, S, D) operands,
+    blocked as the reference's `ops.flash_attention` blocks it: q blocks of
+    min(block_q, Sq) rows, kv blocks of min(block_kv, Skv) keys."""
+    sq, skv = q.shape[2], k.shape[2]
+    return flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale,
+                                  use_pwl=use_pwl, segments=segments,
+                                  block_q=min(block_q, sq), block_kv=min(block_kv, skv),
+                                  kv_len=kv_len, out_dtype=out_dtype)

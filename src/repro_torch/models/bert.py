@@ -1,12 +1,20 @@
-"""BERT encoder (counterpart of `repro/models/bert.py`, bidirectional path).
+"""BERT (counterpart of `repro/models/bert.py`): the bidirectional encoder
+(`apply`, `encode`) and the causal KV-cache serving step (`decode_step`).
 
 Post-norm blocks, as in the paper's Table 1:
     X1 = MultiHeadAttention(X);      X2 = LayerNorm(X + X1)
     X3 = GELU(X2 W1 + b1);  X4 = X3 W2 + b2;  X5 = LayerNorm(X2 + X4)
 Weights are held in cfg.dtype (the reference casts its float32 masters to
 cfg.dtype once per call); the unused pooler is not carried.
+
+`decode_step` is not equivalent to `apply`: BERT attends both ways, the
+decode step only to cached positions <= its own.  It is the stream an
+overlay runs when serving BERT-style stacks autoregressively, as in the
+reference.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -15,6 +23,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
 
 LN_EPS = 1e-12
+KV = Tuple[torch.Tensor, torch.Tensor]
 
 
 class Norm(nn.Module):
@@ -42,22 +51,34 @@ class BertLayer(nn.Module):
         self.w2, self.b2 = _param(F, D, **kw), _param(D, **kw)
         self.ln2 = Norm(D, cfg.norm_bias, **kw)
 
-    def attn(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-        """`transformer._attn` without a cache: dense q/k/v, attention, dense out."""
+    def attn(self, cfg: ModelConfig, x: torch.Tensor, cache: Optional[KV] = None,
+             pos: Optional[int] = None) -> Tuple[torch.Tensor, Optional[KV]]:
+        """`transformer._attn`: dense q/k/v, attention, dense out.
+
+        Without a cache, bidirectional attention over x.  With `cache`, this
+        layer's (B, max_seq, Hkv, D) k and v: the new k/v are written in
+        place at `pos` and x's queries attend causally over the cache.
+        Returns the output and the cache (None without one)."""
         b, s, _ = x.shape
         q = cm.dense(cfg, x, self.wq, self.bq).reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = cm.dense(cfg, x, self.wk, self.bk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = cm.dense(cfg, x, self.wv, self.bv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        out = cm.attention_scores(cfg, q, k, v).reshape(b, s, cfg.q_dim())
-        return cm.dense(cfg, out, self.wo)
+        if cache is None:
+            out = cm.attention_scores(cfg, q, k, v)
+        else:
+            cache = cm.update_cache_layer(cache[0], cache[1], k, v, pos)
+            out = cm.attention_over_cache(cfg, q, cache[0], cache[1], pos)
+        return cm.dense(cfg, out.reshape(b, s, cfg.q_dim()), self.wo), cache
 
     def mlp(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         """`transformer._mlp`, plain type: GELU(x W1 + b1) W2 + b2."""
         h = cm.activation_fn(cfg, cm.dense(cfg, x, self.w1, self.b1))
         return cm.dense(cfg, h, self.w2, self.b2)
 
-    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-        x = cm.apply_norm(cfg, self.ln1, x + self.attn(cfg, x), eps=LN_EPS)
+    def forward(self, cfg: ModelConfig, x: torch.Tensor, cache: Optional[KV] = None,
+                pos: Optional[int] = None) -> torch.Tensor:
+        a, _ = self.attn(cfg, x, cache, pos)
+        x = cm.apply_norm(cfg, self.ln1, x + a, eps=LN_EPS)
         return cm.apply_norm(cfg, self.ln2, x + self.mlp(cfg, x), eps=LN_EPS)
 
 
@@ -103,10 +124,11 @@ class Bert(nn.Module):
         return apply(self.cfg, self, tokens)
 
 
-def _embed(cfg: ModelConfig, model: Bert, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, model: Bert, tokens: torch.Tensor,
+           pos: int = 0) -> torch.Tensor:
     s = tokens.shape[1]
     x = cm.embed(tokens, model.embed)
-    x = x + model.pos_embed[:s][None].to(x.dtype)
+    x = x + model.pos_embed[pos:pos + s][None].to(x.dtype)
     x = x + model.type_embed[0][None, None].to(x.dtype)
     return cm.apply_norm(cfg, model.ln_embed, x, eps=LN_EPS)
 
@@ -124,3 +146,30 @@ def encode(cfg: ModelConfig, model: Bert, tokens: torch.Tensor) -> torch.Tensor:
 def apply(cfg: ModelConfig, model: Bert, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> MLM logits (B, S, V) through the tied embedding."""
     return cm.logits_out(cfg, encode(cfg, model, tokens), model.embed.T)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Dict]:
+    """Shapes and dtypes of the full-attention KV cache of every layer (BERT
+    has no window layers), keyed as the reference's cache tree."""
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"full": {name: (shape, cm.CACHE_DTYPE) for name in ("k", "v")}}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """A zeroed cache of `cache_specs`' layout."""
+    return {"full": cm.kv_cache(cfg, cfg.num_layers, batch, max_seq, device)}
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, model: Bert, cache, tokens: torch.Tensor,
+                pos: int):
+    """tokens (B, S) at positions pos..pos+S-1 (S > 1 is a prefill); pos is
+    the current cache length.  Returns (logits (B, S, V), cache): the new
+    k/v are written into `cache` in place, and each token attends to the
+    cached positions <= its own."""
+    x = _embed(cfg, model, tokens, pos)
+    ck, cv = cache["full"]["k"], cache["full"]["v"]
+    for li, layer in enumerate(model.layers):
+        x = layer(cfg, x, cache=(ck[li], cv[li]), pos=pos)
+    return cm.logits_out(cfg, x, model.embed.T), cache

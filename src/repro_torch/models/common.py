@@ -4,11 +4,12 @@ In NPE mode the 8-bit projections go through the MMU kernel, and the
 softmax, the layernorms and GELU through the NVU kernels (kernels/ops.py);
 on the CPU those wrappers run their plain versions.  The 16-bit MMU is
 fake-quantization with a float32 product, outside any kernel, as in the
-reference.
+reference.  Attention over the KV cache goes through the flash-attention
+kernel in every mode.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -90,6 +91,52 @@ def attention_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
+def attention_over_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+    """Causal attention of q (B, S, Hq, D), at positions pos..pos+S-1, over a
+    (B, max_seq, Hkv, D) cache that holds the keys and values of positions
+    < pos + S (the cache case of the reference's `attention_scores`,
+    q_offset=pos).  The flash kernel reads the cache in place through
+    permuted views and masks keys at or past pos + S; PWL exp and reciprocal
+    when cfg.npe_pwl.  The result is (B, S, Hq, D) in the cache's dtype, as
+    the reference casts its probabilities to v's dtype before P.V."""
+    out = ops.flash_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
+                              cache_v.permute(0, 2, 1, 3), causal=True,
+                              use_pwl=cfg.npe_pwl, segments=cfg.npe_pwl_segments,
+                              kv_len=pos + q.shape[1], out_dtype=cache_v.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
 def logits_out(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Final projection with a (D, V) table."""
     return dense(cfg, x, table)
+
+
+# ---------------------------------------------------------------------------
+# KV cache helpers
+# ---------------------------------------------------------------------------
+
+CACHE_DTYPE = torch.bfloat16     # the reference's kv_cache_specs default
+
+
+def kv_cache(cfg: ModelConfig, layers: int, batch: int, max_seq: int,
+             device) -> Dict[str, torch.Tensor]:
+    """Zeroed k and v caches, (layers, batch, max_seq, Hkv, Dh) in bf16 (the
+    reference keeps them in bf16 whatever the model's dtype)."""
+    shape = (layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+            for name in ("k", "v")}
+
+
+def update_cache_layer(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write (B, S_new, H, D) at time offset `pos`, in place (the reference
+    returns updated copies), cast to the cache's dtype."""
+    s = k_new.shape[1]
+    if not 0 <= pos <= cache_k.shape[1] - s:
+        raise ValueError(f"update_cache_layer: {s} rows at {pos} in a cache of "
+                         f"{cache_k.shape[1]}")
+    cache_k[:, pos:pos + s] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + s] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v

@@ -4,6 +4,7 @@
 The tree arrives as nested dicts of numpy arrays, with each block weight
 stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
 (L, QD), `blocks.mlp.w1` (L, D, F), `blocks.ln1.gamma` (L, D), ...
+KV caches convert both ways, so that tests can compare them.
 """
 from __future__ import annotations
 
@@ -39,3 +40,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
             for k, v in blocks[ln].items():
                 state[f"layers.{i}.{ln}.{k}"] = t(v[i])
     return state
+
+
+def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """A KV cache tree of numpy arrays (the reference's bf16 `{"full": {"k",
+    "v"}}`, each (L, B, S, Hkv, D)) as bf16 tensors on `device`; the values
+    pass through float32, which holds every bf16 value exactly."""
+    return {group: {name: torch.from_numpy(np.array(a, np.float32, copy=True))
+                    .to(device=device, dtype=torch.bfloat16)
+                    for name, a in kv.items()}
+            for group, kv in tree.items()}
+
+
+def cache_to_numpy(cache: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The cache as float32 numpy arrays, for comparison with the reference's."""
+    return {group: {name: t.detach().to("cpu", torch.float32).numpy()
+                    for name, t in kv.items()}
+            for group, kv in cache.items()}

@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.pwl import get_table
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import nvu_layernorm as ln
 from repro_torch.kernels import nvu_softmax as sm
 from repro_torch.kernels import pwl_eval as pe
@@ -145,3 +146,61 @@ def test_ops_on_the_card_match_the_cpu_route(dev):
         _close(f(x.to(dev)).cpu(), f(x), atol, atol)
     q_card, q_cpu = ops.quant_dense(x.to(dev), w.to(dev)).cpu(), ops.quant_dense(x, w)
     _close(q_card, q_cpu, 1e-5, 1e-5)
+
+
+# (b, hq, hkv, sq, skv, d, kv_len, causal, window, block_q, block_kv)
+FLASH_CASES = [
+    (8, 12, 12, 1, 256, 64, 192, True, 0, 256, 256),      # BERT-base decode step
+    (1, 12, 12, 128, 256, 64, 128, True, 0, 128, 256),    # one-slot prefill
+    (2, 12, 12, 64, 512, 64, 512, True, 0, 64, 256),      # several KV blocks
+    (2, 8, 2, 64, 256, 64, 200, True, 48, 32, 64),        # GQA, window, ragged kv_len
+    (2, 4, 2, 37, 96, 32, 77, False, 0, 16, 32),          # D=32, no mask
+    (1, 4, 4, 20, 1024, 128, 1000, True, 0, 8, 1024),     # D=128, largest block
+]
+
+
+def _flash_inputs(dev, b, hq, hkv, sq, skv, d, q_dtype, kv_dtype, seed=7):
+    """q as a permuted view of (B, Sq, Hq, D) and k, v of a (B, Skv, Hkv, D)
+    cache, as the decode path hands them over."""
+    g = _gen(dev, seed)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(q_dtype).permute(0, 2, 1, 3)
+    k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(kv_dtype).permute(0, 2, 1, 3)
+    v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(kv_dtype).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("use_pwl", [True, False])
+@pytest.mark.parametrize("q_dtype,kv_dtype,out_dtype", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.bfloat16)])
+def test_flash_attention(dev, case, use_pwl, q_dtype, kv_dtype, out_dtype):
+    b, hq, hkv, sq, skv, d, kv_len, causal, window, bq, bkv = case
+    q, k, v = _flash_inputs(dev, b, hq, hkv, sq, skv, d, q_dtype, kv_dtype)
+    kw = dict(causal=causal, window=window, use_pwl=use_pwl, block_q=bq,
+              block_kv=bkv, kv_len=kv_len, out_dtype=out_dtype)
+    before = LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kw)
+    _launched("flash_attention", before)
+    assert got.shape == (b, hq, sq, d) and got.dtype == out_dtype
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    _close(got, want, 2e-5, BF16_RTOL if out_dtype == torch.bfloat16 else 2e-5)
+
+
+def test_flash_attention_never_reads_past_kv_len(dev):
+    q, k, v = _flash_inputs(dev, 2, 4, 4, 3, 128, 64, torch.float32, torch.bfloat16)
+    k[:, :, 70:], v[:, :, 70:] = float("nan"), float("nan")
+    got = fa.flash_attention(q, k, v, kv_len=70, block_kv=32)
+    assert bool(torch.isfinite(got).all())
+    want = fa.flash_attention_plain(q, k[:, :, :70], v[:, :, :70], block_kv=32)
+    _close(got, want, 2e-5, 2e-5)
+
+
+def test_flash_ops_on_the_card_match_the_cpu_route(dev):
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(2, 4, 5, 64, generator=g)
+    k, v = torch.randn(2, 2, 40, 64, generator=g), torch.randn(2, 2, 40, 64, generator=g)
+    for kw in (dict(), dict(use_pwl=False), dict(kv_len=33, block_kv=16)):
+        got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
+        _close(got, ops.flash_attention(q, k, v, **kw), 2e-5, 2e-5)

@@ -33,6 +33,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print("modules", len(names))
+print("names", " ".join(names))
 print("leaked", leaked)
 """
 
@@ -45,4 +46,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert lines["leaked"] == "[]"
-    assert int(lines["modules"]) >= 18
+    assert int(lines["modules"]) >= 22
+    names = set(lines["names"].split())
+    for new in ("kernels.flash_attention", "models.registry", "launch.steps", "launch.serve"):
+        assert "repro_torch." + new in names
