@@ -4,11 +4,14 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the five CUDA kernels from `src/repro_torch/csrc/`, one nvcc each,
-   in parallel, and prints the seconds and ptxas's register and spill lines;
+   in parallel, and prints the seconds, ptxas's register and spill lines,
+   and the HMMA/IMMA (tensor-core) instructions in each kernel's SASS;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of BERT-base 8x128 encoding and of 8-slot decode over a 256-row
    cache, with its tolerance, its time, its bound and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time (`torch._int_mm` on
+   decode rows zero-padded to 32; the flash decode rows once more with the
+   L2 flushed before each launch);
 4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
    through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
    and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
@@ -34,6 +37,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -60,10 +66,12 @@ from repro_torch.models import bert, registry  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
 
 # H100 SXM data sheet, dense: HBM 3.35 TB/s, int8 tensor cores 1979 TOP/s,
-# float32 outside the tensor cores 67 TFLOP/s.
+# bf16 tensor cores 989 TFLOP/s, float32 outside the tensor cores 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+L2_FLUSH_BYTES = 2 * 50 * 2 ** 20   # twice the H100's 50 MB L2
 
 BATCH, SEQ, BATCHES = 8, 128, 3
 EXPECTED_LAUNCHES = {"quant_matmul": 73, "nvu_layernorm": 25, "nvu_softmax": 12,
@@ -117,10 +125,11 @@ def compare(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
     return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
 
 
-def _kernel_times(prof):
-    """(name, device us) of every kernel and copy the card ran in the window.
-    Only device-side events count: an aten op also reports the device time
-    of the kernels it launched, and counting both would count them twice."""
+def _kernel_times(prof, with_counts: bool = False):
+    """(name, device us) of every kernel and copy the card ran in the window
+    (with `with_counts`, (name, device us, launches)).  Only device-side
+    events count: an aten op also reports the device time of the kernels it
+    launched, and counting both would count them twice."""
     from torch.autograd import DeviceType
     out = []
     for e in prof.key_averages():
@@ -130,13 +139,14 @@ def _kernel_times(prof):
         if us is None:
             us = e.self_cuda_time_total
         if us > 0:
-            out.append((e.key, us))
+            out.append((e.key, us, e.count) if with_counts else (e.key, us))
     return out
 
 
 def measure(fn, reps: int = 20):
     """(device ms per call from torch.profiler, or None if it saw no device
-    time; ms per call between CUDA events)."""
+    time; ms per call between CUDA events).  A trace that holds fewer device
+    launches than calls has lost events: it is taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -148,17 +158,108 @@ def measure(fn, reps: int = 20):
     end.record()
     end.synchronize()
     event_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(us for _, us in _kernel_times(prof))
-    return (dev_us / 1e3 / reps if dev_us > 0 else None), event_ms
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = _kernel_times(prof, with_counts=True)
+        if sum(n for _, _, n in times) >= reps:
+            dev_us = sum(us for _, us, _ in times)
+            return dev_us / 1e3 / reps, event_ms
+    return None, event_ms
 
 
-def bound(bytes_moved: float, ops: float, ops_rate: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_rate
+def measure_cold(fn, reps: int = 20):
+    """ms per call between CUDA events around each launch, with the L2 cache
+    flushed (a buffer twice its size overwritten) before each: the state in
+    which a decode step finds the next layer's cache.  A sleep kernel ahead
+    of each flush keeps the host's queueing out of the events' interval."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)   # the card waits while the host queues the rest
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(bytes_moved: float, *work):
+    """The least time for the work: the larger of the bytes over the memory
+    rate and, for each (operations, rate) pair, the operations over their
+    rate.  (ms, "bytes" or "operations")"""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(ops / rate for ops, rate in work)
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_table(log: str):
+    """{mangled kernel: [registers, static smem bytes, spill store bytes,
+    spill load bytes]} from nvcc's -Xptxas -v output."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [0, 0, 0, 0]
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn][2:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out[fn][:2] = [int(m.group(1)), int(m.group(2))]
+    return out
+
+
+def demangle(names):
+    """{mangled: short readable name} by c++filt where it exists."""
+    same = {n: n for n in names}
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return same
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or len(lines) != len(names):
+        return same
+    short = {}
+    for n, d in zip(names, lines):
+        d = d.replace("(anonymous namespace)::", "").removeprefix("void ")
+        short[n] = d.split("(", 1)[0]
+    return short
+
+
+def sass_counts(lib: Path):
+    """{kernel function: (HMMA, IMMA) instruction count} in the SASS of the
+    built library, by cuobjdump from the CUDA toolkit; None where the tool
+    is missing or fails."""
+    tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    try:
+        res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if res.returncode != 0:
+        return None
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, [0, 0])
+        elif fn is not None:
+            counts[fn][0] += "HMMA" in line
+            counts[fn][1] += "IMMA" in line
+    return counts
 
 
 def pwl_ops(name: str) -> int:
@@ -173,19 +274,27 @@ def kernel_rows(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, ops, rate,
-            library_fn=None, library_name="torch._int_mm"):
+    def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
+            library_fn=None, library_name="torch._int_mm", cold=False):
+        """`work`: (operations, rate) pairs of the bound.  With `cold`, the
+        kernel and library times are taken with the L2 flushed before each
+        launch (events), the plain version's as usual."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         atol, rtol = TOLS[(kernel, dtype)]
         err, ok = compare(got, want, atol, rtol)
-        ms, ev = measure(kernel_fn)
+        if cold:
+            ms = ev = measure_cold(kernel_fn)
+            lms = lev = measure_cold(library_fn) if library_fn else None
+        else:
+            ms, ev = measure(kernel_fn)
+            lms, lev = measure(library_fn) if library_fn else (None, None)
         pms, pev = measure(plain_fn)
-        lms, lev = measure(library_fn) if library_fn else (None, None)
-        bms, by = bound(bytes_moved, ops, rate)
+        bms, by = bound(bytes_moved, *work)
         r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
-                 ms=ms if ms is not None else ev, ms_source="profiler" if ms else "events",
+                 ms=ms if ms is not None else ev,
+                 ms_source="events, L2 flushed" if cold else ("profiler" if ms else "events"),
                  event_ms=ev, plain_ms=pms if pms is not None else pev,
                  library_ms=(lms if lms is not None else lev) if library_fn else None,
                  bound_ms=bms, bound_by=by, library=library_name if library_fn else None)
@@ -204,7 +313,7 @@ def kernel_rows(dev):
         row("pwl_eval", f"({m}, 3072) gelu", dt,
             lambda: pe_mod.pwl_eval(x, "gelu"),
             lambda: pe_mod.pwl_eval_plain(x, get_table("gelu", 16)),
-            x.numel() * 2 * x.element_size(), x.numel() * pwl_ops("gelu"), F32_OPS_PER_S)
+            x.numel() * 2 * x.element_size(), [(x.numel() * pwl_ops("gelu"), F32_OPS_PER_S)])
 
     # quant_matmul: every NPE-8 projection and the logits head, bf16 out
     for m, k, n, act, dt in [(1024, 768, 768, None, torch.bfloat16),
@@ -221,12 +330,15 @@ def kernel_rows(dev):
         a, b = xq.q.contiguous(), wq.q.contiguous()
         table = get_table(act, 16) if act else None
         out_bytes = torch.empty((), dtype=dt).element_size()
+        # torch._int_mm takes M > 16 only: at decode rows it multiplies the
+        # rows zero-padded to 32
+        lib_a = a if m > 16 else torch.cat([a, a.new_zeros(32 - m, k)])
         row("quant_matmul", f"({m}, {k}) @ ({k}, {n})" + (" +gelu" if act else ""), dt,
             lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale, act, out_dtype=dt),
             lambda: qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale, table, dt),
-            m * k + k * n + 4 + 4 * n + m * n * out_bytes, 2 * m * n * k, INT8_OPS_PER_S,
-            # torch._int_mm takes M > 16 only: no library call at decode rows
-            library_fn=None if act or m <= 16 else (lambda: torch._int_mm(a, b)))
+            m * k + k * n + 4 + 4 * n + m * n * out_bytes, [(2 * m * n * k, INT8_OPS_PER_S)],
+            library_fn=None if act else (lambda: torch._int_mm(lib_a, b)),
+            library_name="torch._int_mm" if m > 16 else "torch._int_mm, rows zero-padded to 32")
 
     # nvu_softmax: the attention scores, (B*H*S, S) float32
     x = torch.randn(12288, 128, generator=g, device=dev) * 3
@@ -236,7 +348,7 @@ def kernel_rows(dev):
         row("nvu_softmax", "(12288, 128)" + (" causal" if causal else ""), torch.float32,
             lambda: sm_mod.nvu_softmax(x, causal_rows=causal),
             lambda: sm_mod.nvu_softmax_plain(x, causal_rows=causal),
-            x.numel() * 8, sm_ops, F32_OPS_PER_S)
+            x.numel() * 8, [(sm_ops, F32_OPS_PER_S)])
 
     # nvu_layernorm: the embedding and both post-norms, (1024, 768), eps 1e-12
     gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
@@ -248,7 +360,7 @@ def kernel_rows(dev):
             lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=1e-12),
             x.numel() * 2 * x.element_size() + 2 * 768 * 4,
             # sum, subtract, square-add, subtract, two multiplies, add; one PWL a row
-            x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)
+            [(x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)])
 
     flash_rows(dev, g, row)
     return rows
@@ -291,9 +403,11 @@ def flash_rows(dev, g, row):
     """The flash kernel at the decode path's shapes: q (B, Hq, Sq, 64) and a
     (B, Hkv, max_seq, 64) cache, bf16 permuted views of (B, S, H, D) memory,
     bf16 out.  Bytes: q, the kv_len visible cache rows of k and v, and the
-    output, once each.  Operations: for each visible score a 64-long dot
-    product and a 64-long P.V row (4 x 64), the exp (PWL: its table walk),
-    the mask, the max, the subtract and the sum; f32 on the CUDA cores."""
+    output, once each.  Operations: for each visible (query, key) pair the
+    4 x 64 of its Q.K^T and P.V products, at the bf16 tensor-core rate, and
+    its exp (PWL: the table walk), mask, max, subtract and sum at the f32
+    rate.  The decode rows are timed once more with the L2 flushed before
+    each launch, as a decode step finds the cache of the next layer."""
     import torch.nn.functional as F
     for name, b, hq, hkv, sq, skv, kv_len, causal, window, bq, bkv, pwls in FLASH_ROWS:
         d = 64
@@ -312,13 +426,15 @@ def flash_rows(dev, g, row):
             if not use_pwl:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
-            row("flash_attention",
-                f"{name} ({b}, {hq}, {sq}, {d}) kv {kv_len}/{skv}" + (" pwl" if use_pwl else ""),
-                torch.bfloat16,
-                lambda: fa_mod.flash_attention(q, k, v, **kw),
-                lambda: fa_mod.flash_attention_plain(q, k, v, **kw),
-                nbytes, pairs * (4 * d + exp_ops + 4), F32_OPS_PER_S,
-                library_fn=lib, library_name="scaled_dot_product_attention")
+            for cold in (False, True) if name == "decode" else (False,):
+                row("flash_attention",
+                    f"{name} ({b}, {hq}, {sq}, {d}) kv {kv_len}/{skv}" + (" pwl" if use_pwl else "")
+                    + (" cold L2" if cold else ""),
+                    torch.bfloat16,
+                    lambda: fa_mod.flash_attention(q, k, v, **kw),
+                    lambda: fa_mod.flash_attention_plain(q, k, v, **kw),
+                    nbytes, [(pairs * 4 * d, BF16_OPS_PER_S), (pairs * (exp_ops + 4), F32_OPS_PER_S)],
+                    library_fn=lib, library_name="scaled_dot_product_attention", cold=cold)
 
 
 # --- phase 4: full-width BERT-base ------------------------------------------
@@ -688,10 +804,23 @@ def main() -> int:
     say(f"[2] built {len(list(build.CSRC.glob('*.cu')))} CUDA sources into {res.path.name} "
         f"in {res.seconds:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})"
         + (" [found built]" if res.cached else ""))
-    for line in res.log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            say("    " + line.strip())
     results["build_seconds"] = res.seconds
+    ptx, sass = ptxas_table(res.log), sass_counts(res.path)
+    results["ptxas"], results["sass"] = ptx, sass
+    names = demangle(sorted(ptx))
+    say("    kernel function: registers, static smem bytes, spill store/load bytes (ptxas); "
+        "HMMA, IMMA in its SASS (cuobjdump)")
+    for fn in sorted(ptx, key=names.get):
+        regs, smem, st, ld = ptx[fn]
+        mma = ("HMMA %4d IMMA %4d" % tuple(sass[fn]) if sass and fn in sass
+               else "HMMA/IMMA not available")
+        say(f"    {names[fn][:58]:58s} {regs:3d} regs {smem:5d} B  spills {st}/{ld}  {mma}")
+    if sass is None:
+        say("    SASS tensor-core instructions: not available (no cuobjdump)")
+    else:
+        for name, key, col in (("flash_attention", "flash", 0), ("quant_matmul", "qmm", 1)):
+            n = sum(c[col] for f, c in sass.items() if key in f)
+            say(f"    SASS of {name}: {n} {'HMMA' if col == 0 else 'IMMA'} instructions")
 
     say("[3] kernels vs plain versions on the card (ms per call: device time "
         "from torch.profiler, CUDA events in brackets)")
@@ -727,7 +856,7 @@ def main() -> int:
             replaces=REPLACES[name], launches=counts[name], path=path,
             shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"]))
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["library_ms_exact_exp"] = exact_decode["library_ms"]
     out_dir = ROOT / "chiprun_out"

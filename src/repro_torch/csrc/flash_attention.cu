@@ -2,37 +2,64 @@
 //
 // Replaces: flash_attention / _flash_kernel in
 // src/repro/kernels/flash_attention.py (the Pallas call at :130).
+//
+// What the function is.  `_flash_kernel` streams each row over KV blocks of
+// `block_kv` keys with a running max m, sum l and accumulator acc, rescaled
+// by exp(m_prev - m_new) at each block.  With PWL exp, pwl_exp(0) is 0.999,
+// so the result depends on the blocking: every kernel here updates m, l and
+// acc once per `block_kv` block, with the reference's corr, and skips a
+// block for a row exactly when the TPU kernel skips it for the row's
+// logical q block (`block_q` rows; `block_runs` in the wrapper).  Inside a
+// block the keys may be split among warps in any way: only the order of f32
+// sums changes.  The mask is end-aligned (query i at position
+// kv_len - Sq + i); keys at or past kv_len are never read, so decode reads
+// the (B, S, H, D) cache in place through permuted views.
+//
 // Bound on this card: bytes at the serving shapes.  A decode step reads the
-// whole visible cache (2 x kv_len x D values a head) for one query, one
-// multiply-add per value; a 128-token prefill does 128 times the work on
-// the same bytes and is still below the f32 rate's line with PWL exp (some
-// fifty operations a score).
-// Design, simple and right first: one block of 128 threads for each
-// (batch x q-head, tile of 16 query rows); each warp owns 4 rows and keeps
-// their running max, sum and accumulator in registers (every lane the
-// same max and sum, D/32 accumulator columns a lane).  Keys are taken one
-// KV block of `block_kv` at a time, exactly as the TPU kernel blocks them:
-// with PWL exp the online rescale by pwl_exp(m_prev - m_new) makes the
-// result depend on the blocking, so the kernel never re-blocks.  In a
-// block, K tiles of 64 keys are staged in shared memory as f32 (rows padded
-// to D+1 floats, so the lanes of a warp, one key each, hit distinct banks),
-// the block's scores go to shared memory, each warp takes the max, the
-// exp and the sum of its rows, and V tiles are staged the same way for the
-// P.V product.  A block that a row's logical q block (`block_q` rows) does
-// not see is skipped for that row, by the TPU kernel's rule, so the
-// arithmetic is the reference's row for row.  The mask is end-aligned (query
-// i at position kv_len - Sq + i) and keys at or past kv_len are never read,
-// so decode reads the cache in place; q, k, v and out are addressed through
-// element strides, so the caller hands permuted views without a copy.
-// CUDA cores only: the tensor cores (wgmma) are later work.
+// visible cache (2 x kv_len x D bf16 a kv head) for one query a head; a
+// 128-token prefill does 128 times the products on the same bytes, which on
+// the bf16 tensor cores is still below the byte time, while the exp of each
+// score (a PWL table walk of some fifty operations) runs on the CUDA cores.
+//
+// Three instances, chosen by dtype and shape, never as a fallback:
+// * bf16 K/V, at most 8 query rows a kv head (decode: Sq x group <= 8):
+//   `flash_decode_kernel`.  One block of 8 warps for each (batch, kv head)
+//   takes every q head of its GQA group, so K and V are read once a group.
+//   The threads split each KV block's keys: D/8 lanes a key row, 16-byte
+//   loads of 8 bf16 straight from the strided cache, several in flight a
+//   thread, V of the first chunk fetched before the softmax.  Scores go to
+//   shared memory; the block's max and sum are reduced across warps; each
+//   thread keeps acc_t = corr * acc_t + P.V over its own keys, and these
+//   partial accumulators are summed across threads at the end: the
+//   reference's acc up to the order of f32 sums.  f32 products
+//   on the CUDA cores: a decode row has one query, nothing for a tensor core.
+// * bf16 K/V, more rows: `flash_mma_kernel`, FlashAttention-2 style on the
+//   tensor cores.  A block of 8 warps takes 16 query rows of one head (so a
+//   128-token prefill of 12 heads is 96 blocks); the warps split each
+//   128-key chunk, 16 keys a warp.  K and V chunks stream through a
+//   four-stage cp.async ring in shared memory, three chunks in flight (rows
+//   padded by 16 bytes, so ldmatrix reads no bank twice).  S = Q.K^T by mma.sync m16n8k16 bf16
+//   with f32 accumulation, K by ldmatrix; the scores stay in the
+//   accumulator fragments (and a shared-memory copy in fragment order while
+//   the block's max is reduced: the max over a quad of lanes, then across
+//   warps); p is computed in the fragments, which are the A operand of P.V,
+//   and V comes by ldmatrix.trans.  Numerics:
+//   - a bf16 x bf16 product is exact in f32, so only sums change order;
+//   - q*scale is rounded to f32 as in the reference and split into three
+//     bf16 pieces (exact); when q is bf16 and scale a power of two
+//     (D = 64: 0.125) q*scale is itself a bf16 and one piece is used;
+//   - p is f32 in the reference: it is split into three bf16 pieces
+//     (exact) before P.V, so P.V differs by the order of f32 sums only;
+//   - rows of the 16-row tile whose logical q block skips a KV block
+//     (block_q < 16) keep m, l and acc: their p is 0 and corr is 1.
+// * f32 K/V (no main path hands the kernel f32 K/V): `flash_f32kv_kernel`,
+//   the CUDA-core kernel of the first port, one warp for 4 of 16 query rows
+//   of a head, K and V tiles staged as f32 in padded shared memory.
+#include "hopper.cuh"
 #include "pwl.cuh"
 
 namespace {
 
-constexpr int BQ = 16;           // query rows a block
-constexpr int WARPS = 4;
-constexpr int RPW = BQ / WARPS;  // rows a warp
-constexpr int TK = 64;           // keys a staged tile
 constexpr float NEG_BIG = -1e30f;
 
 struct Args {
@@ -45,6 +72,7 @@ struct Args {
   int q_bf16, kv_bf16, out_bf16;
   int causal, window, use_pwl, block_q, block_kv;
   float scale;
+  int q_pieces;                           // bf16 pieces of q*scale (mma kernel)
   const float* exp_table;
   int exp_segs;
   const float* recip_table;
@@ -56,15 +84,93 @@ __device__ __forceinline__ float load(const void* p, long long i, int bf16) {
               : static_cast<const float*>(p)[i];
 }
 
+__device__ __forceinline__ void store(const Args& a, long long o, float y) {
+  if (a.out_bf16)
+    static_cast<__nv_bfloat16*>(a.out)[o] = npe_from_f32<__nv_bfloat16>(y);
+  else
+    static_cast<float*>(a.out)[o] = y;
+}
+
 // `_exp_fn`: clamp at -18, PWL exp floored at 0; or expf.
 __device__ __forceinline__ float attn_exp(float z, const Args& a, const float* etab) {
   if (a.use_pwl) return fmaxf(npe_pwl(fmaxf(z, -18.f), etab, a.exp_segs), 0.f);
   return expf(z);
 }
 
+// attn_exp on 8 values in place; with PWL each table entry is read once for all 8.
+__device__ __forceinline__ void attn_exp8(float (&z)[8], const Args& a, const float* etab) {
+  if (a.use_pwl) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) z[i] = fmaxf(z[i], -18.f);
+    npe_pwl_n<8>(z, etab, a.exp_segs);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) z[i] = fmaxf(z[i], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) z[i] = expf(z[i]);
+  }
+}
+
+// 1 / max(l, 1e-30): the PWL reciprocal or a divide.
+__device__ __forceinline__ float attn_recip(float l, const Args& a, const float* rtab) {
+  const float ls = fmaxf(l, 1e-30f);
+  return a.use_pwl ? npe_recip_via_pwl(ls, rtab, a.recip_segs) : __fdiv_rn(1.f, ls);
+}
+
+__device__ __forceinline__ bool key_masked(int col, int pos, const Args& a) {
+  return (a.causal && col > pos) || (a.window > 0 && col <= pos - a.window);
+}
+
+// Query row i (0..Sq-1): its position and the first and last position of
+// its logical q block.
+struct Row {
+  int pos, lo, hi;
+};
+
+__device__ __forceinline__ Row row_of(int i, const Args& a) {
+  const int off = a.kv_len - a.sq;
+  const int qb = i / a.block_q;
+  return Row{off + i, off + qb * a.block_q, off + min(qb * a.block_q + a.block_q, a.sq) - 1};
+}
+
+// `_flash_kernel`'s rule: whether a row of this logical q block computes the
+// KV block at kb0.
+__device__ __forceinline__ bool row_runs(const Row& r, int kb0, const Args& a) {
+  if (!a.causal) return true;
+  bool run = kb0 <= r.hi;
+  if (a.window > 0) run = run && kb0 + a.block_kv - 1 >= r.lo - a.window + 1;
+  return run;
+}
+
+__device__ __forceinline__ void load_tables(const Args& a, float* etab, float* rtab) {
+  if (a.use_pwl) {
+    npe_load_table(etab, a.exp_table, a.exp_segs + 1);
+    npe_load_table(rtab, a.recip_table, a.recip_segs + 1);
+  }
+}
+
+// 8 bf16 of a 16-byte load as f32 (exact).
+__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 K/V: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 16;           // query rows a block
+constexpr int WARPS = 4;
+constexpr int RPW = BQ / WARPS;  // rows a warp
+constexpr int TK = 64;           // keys a staged tile
+
 template <int D>
 __global__ void __launch_bounds__(32 * WARPS)
-flash_attention_kernel(const Args a) {
+flash_f32kv_kernel(const Args a) {
   constexpr int DP = D + 1;        // padded row of a staged K or V tile
   constexpr int CPL = D / 32;      // accumulator columns a lane
   extern __shared__ float smem[];
@@ -73,16 +179,12 @@ flash_attention_kernel(const Args a) {
   float* s_s = kv_s + TK * DP;     // BQ x block_kv: a block's scores, then p
   __shared__ float etab[3 * NPE_MAX_TABLE_COLS];
   __shared__ float rtab[3 * NPE_MAX_TABLE_COLS];
-  if (a.use_pwl) {
-    npe_load_table(etab, a.exp_table, a.exp_segs + 1);
-    npe_load_table(rtab, a.recip_table, a.recip_segs + 1);
-  }
+  load_tables(a, etab, rtab);
 
   const int bh = blockIdx.y;
   const int b = bh / a.hq, h = bh % a.hq;
   const int hk = h / (a.hq / a.hkv);
   const int q0 = blockIdx.x * BQ;
-  const int off = a.kv_len - a.sq;  // position of query 0
   const long long qbase = b * a.qs[0] + h * a.qs[1];
   const long long kbase = b * a.ks[0] + hk * a.ks[1];
   const long long vbase = b * a.vs[0] + hk * a.vs[1];
@@ -96,17 +198,14 @@ flash_attention_kernel(const Args a) {
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int pos[RPW], q_lo[RPW], q_hi[RPW];
+  Row row[RPW];
   bool valid[RPW];
   float m[RPW], l[RPW], corr[RPW], acc[RPW][CPL];
 #pragma unroll
   for (int j = 0; j < RPW; ++j) {
     const int i = q0 + warp * RPW + j;
     valid[j] = i < a.sq;
-    pos[j] = off + i;
-    const int qb = i / a.block_q;      // the row's logical q block
-    q_lo[j] = off + qb * a.block_q;
-    q_hi[j] = off + min(qb * a.block_q + a.block_q, a.sq) - 1;
+    row[j] = row_of(i, a);
     m[j] = NEG_BIG;
     l[j] = 0.f;
     corr[j] = 1.f;
@@ -119,13 +218,8 @@ flash_attention_kernel(const Args a) {
     int any = 0;
 #pragma unroll
     for (int j = 0; j < RPW; ++j) {
-      bool r = valid[j];
-      if (a.causal) {
-        r = r && kb0 <= q_hi[j];
-        if (a.window > 0) r = r && kb0 + a.block_kv - 1 >= q_lo[j] - a.window + 1;
-      }
-      run[j] = r;
-      any |= r;
+      run[j] = valid[j] && row_runs(row[j], kb0, a);
+      any |= run[j];
     }
     if (!__syncthreads_or(any)) continue;   // no row of the tile sees this block
     const int nk = min(kb0 + a.block_kv, a.kv_len) - kb0;
@@ -137,7 +231,7 @@ flash_attention_kernel(const Args a) {
       for (int i = threadIdx.x; i < TK * D; i += blockDim.x) {
         const int t = i / D, c = i % D;
         kv_s[t * DP + c] = t < nt ? load(a.k, kbase + (long long)(kb0 + t0 + t) * a.ks[2] +
-                                                  c * a.ks[3], a.kv_bf16)
+                                                  c * a.ks[3], 0)
                                   : 0.f;
       }
       __syncthreads();
@@ -152,9 +246,7 @@ flash_attention_kernel(const Args a) {
 #pragma unroll 16
           for (int c = 0; c < D; ++c) dot = fmaf(qr[c], kr[c], dot);
           const int col = kb0 + t0 + t;
-          const bool masked = (a.causal && col > pos[j]) ||
-                              (a.window > 0 && col <= pos[j] - a.window);
-          sr[t0 + t] = masked ? NEG_BIG : dot;
+          sr[t0 + t] = key_masked(col, row[j].pos, a) ? NEG_BIG : dot;
         }
       }
     }
@@ -171,10 +263,8 @@ flash_attention_kernel(const Args a) {
       corr[j] = attn_exp(__fsub_rn(m[j], m_new), a, etab);
       float sum = 0.f;
       for (int t = lane; t < nk; t += 32) {
-        const int col = kb0 + t;
-        const bool masked = (a.causal && col > pos[j]) ||
-                            (a.window > 0 && col <= pos[j] - a.window);
-        const float p = masked ? 0.f : attn_exp(__fsub_rn(sr[t], m_new), a, etab);
+        const float p = key_masked(kb0 + t, row[j].pos, a)
+                            ? 0.f : attn_exp(__fsub_rn(sr[t], m_new), a, etab);
         sr[t] = p;
         sum = __fadd_rn(sum, p);
       }
@@ -194,7 +284,7 @@ flash_attention_kernel(const Args a) {
       for (int i = threadIdx.x; i < TK * D; i += blockDim.x) {
         const int t = i / D, c = i % D;
         kv_s[t * DP + c] = t < nt ? load(a.v, vbase + (long long)(kb0 + t0 + t) * a.vs[2] +
-                                                  c * a.vs[3], a.kv_bf16)
+                                                  c * a.vs[3], 0)
                                   : 0.f;
       }
       __syncthreads();
@@ -218,40 +308,554 @@ flash_attention_kernel(const Args a) {
     }
   }
 
-  // out = acc / max(l, 1e-30), by the PWL reciprocal or a divide
+  // out = acc / max(l, 1e-30)
 #pragma unroll
   for (int j = 0; j < RPW; ++j) {
     if (!valid[j]) continue;
-    const float ls = fmaxf(l[j], 1e-30f);
-    const float inv = a.use_pwl ? npe_recip_via_pwl(ls, rtab, a.recip_segs)
-                                : __fdiv_rn(1.f, ls);
+    const float inv = attn_recip(l[j], a, rtab);
     const int i = q0 + warp * RPW + j;
     const long long obase = b * a.os[0] + h * a.os[1] + i * a.os[2];
 #pragma unroll
-    for (int e = 0; e < CPL; ++e) {
-      const float y = __fmul_rn(acc[j][e], inv);
-      const long long o = obase + (lane + 32 * e) * a.os[3];
-      if (a.out_bf16)
-        static_cast<__nv_bfloat16*>(a.out)[o] = npe_from_f32<__nv_bfloat16>(y);
-      else
-        static_cast<float*>(a.out)[o] = y;
+    for (int e = 0; e < CPL; ++e)
+      store(a, obase + (lane + 32 * e) * a.os[3], __fmul_rn(acc[j][e], inv));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 K/V, at most DEC_ROWS query rows a kv head: decode
+// ---------------------------------------------------------------------------
+
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_ROWS = 8;
+
+template <int D, int ROWS>
+__global__ void __launch_bounds__(DEC_THREADS, 1)
+flash_decode_kernel(const Args a) {
+  constexpr int LPK = D / 8;               // lanes a key row, 8 bf16 a lane
+  constexpr int KPI = DEC_THREADS / LPK;   // keys a pass of the block
+  constexpr int U = ROWS > 1 ? 2 : (D == 32 ? 4 : 8);  // 16-byte loads in flight a thread
+  constexpr int CH = KPI * U;              // keys a chunk
+  extern __shared__ float smem[];          // ROWS x block_kv scores; at the end the partials
+  __shared__ float red[ROWS][DEC_WARPS];
+  __shared__ float inv_s[ROWS];
+  __shared__ float etab[3 * NPE_MAX_TABLE_COLS];
+  __shared__ float rtab[3 * NPE_MAX_TABLE_COLS];
+  load_tables(a, etab, rtab);
+
+  const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
+  const int group = a.hq / a.hkv;
+  const int nrows = group * a.sq;          // row r: q head hk*group + r / sq, query r % sq
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = tid % LPK, slot = tid / LPK;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] +
+                            hk * a.ks[1] + sub * 8;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] +
+                            hk * a.vs[1] + sub * 8;
+
+  Row row[ROWS];
+  float qv[ROWS][8], m[ROWS], l[ROWS], acc[ROWS][8];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int i = r < nrows ? r % a.sq : 0, h = hk * group + (r < nrows ? r / a.sq : 0);
+    row[r] = row_of(i, a);
+    const long long qb = b * a.qs[0] + h * a.qs[1] + i * a.qs[2];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      // q * scale before the product, as the TPU kernel
+      qv[r][c] = r < nrows ? __fmul_rn(load(a.q, qb + (sub * 8 + c) * a.qs[3], a.q_bf16), a.scale)
+                           : 0.f;
+      acc[r][c] = 0.f;
+    }
+    m[r] = NEG_BIG;
+    l[r] = 0.f;
+  }
+
+  auto load_chunk = [&](uint4 (&w)[U], const __nv_bfloat16* base, long long stride, int kb0,
+                        int t0, int nk) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * KPI + slot;
+      w[u] = t < nk ? __ldg(reinterpret_cast<const uint4*>(base + (long long)(kb0 + t) * stride))
+                    : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  for (int kb0 = 0; kb0 < a.kv_len; kb0 += a.block_kv) {
+    bool run[ROWS];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      run[r] = r < nrows && row_runs(row[r], kb0, a);
+      any = any || run[r];
+    }
+    if (!any) continue;                    // the same for every thread
+    const int nk = min(kb0 + a.block_kv, a.kv_len) - kb0;
+    __syncthreads();                       // the last block's readers of smem are done
+
+    // scores, masked at NEG_BIG, into smem; each thread's max
+    float mx[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) mx[r] = NEG_BIG;
+    uint4 w[U];
+    for (int t0 = 0; t0 < nk; t0 += CH) {
+      load_chunk(w, kp, a.ks[2], kb0, t0, nk);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * KPI + slot;
+        float kf[8];
+        unpack8(w[u], kf);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) dot = fmaf(qv[r][c], kf[c], dot);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (t < nk) {
+            const float s = (!run[r] || key_masked(kb0 + t, row[r].pos, a)) ? NEG_BIG : dot;
+            if (sub == 0) smem[r * a.block_kv + t] = s;
+            mx[r] = fmaxf(mx[r], s);
+          }
+        }
+      }
+    }
+    load_chunk(w, vp, a.vs[2], kb0, 0, nk);   // V of the first chunk, in flight over the softmax
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      mx[r] = npe_warp_max(mx[r]);
+      if (lane == 0) red[r][warp] = mx[r];
+    }
+    __syncthreads();
+    float m_new[ROWS], corr[ROWS], ps[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float bm = red[r][0];
+#pragma unroll
+      for (int j = 1; j < DEC_WARPS; ++j) bm = fmaxf(bm, red[r][j]);
+      m_new[r] = fmaxf(m[r], bm);
+      corr[r] = run[r] ? attn_exp(__fsub_rn(m[r], m_new[r]), a, etab) : 1.f;
+      ps[r] = 0.f;
+    }
+    // p = exp(s - m_new), masked to 0, in place; each thread's sums
+    for (int t = tid; t < nk; t += DEC_THREADS) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (!run[r]) continue;
+        float* s = smem + r * a.block_kv + t;
+        const float p = key_masked(kb0 + t, row[r].pos, a)
+                            ? 0.f : attn_exp(__fsub_rn(*s, m_new[r]), a, etab);
+        *s = p;
+        ps[r] = __fadd_rn(ps[r], p);
+      }
+    }
+    __syncthreads();                       // every thread has read the maxima
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      ps[r] = npe_warp_sum(ps[r]);
+      if (lane == 0) red[r][warp] = ps[r];
+    }
+    __syncthreads();                       // p and the sums are in smem
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (!run[r]) continue;
+      float bs = red[r][0];
+#pragma unroll
+      for (int j = 1; j < DEC_WARPS; ++j) bs = __fadd_rn(bs, red[r][j]);
+      l[r] = __fadd_rn(__fmul_rn(corr[r], l[r]), bs);
+      m[r] = m_new[r];
+    }
+
+    // P.V of this thread's keys into acc_t = corr * acc_t + p . v
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (!run[r]) continue;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = __fmul_rn(corr[r], acc[r][c]);
+    }
+    for (int t0 = 0; t0 < nk; t0 += CH) {
+      if (t0 > 0) load_chunk(w, vp, a.vs[2], kb0, t0, nk);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * KPI + slot;
+        if (t >= nk) continue;
+        float vf[8];
+        unpack8(w[u], vf);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (!run[r]) continue;
+          const float p = smem[r * a.block_kv + t];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(p, vf[c], acc[r][c]);
+        }
+      }
     }
   }
+
+  // sum the partial accumulators: over the lanes of a warp that share `sub`,
+  // then across warps in smem
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        acc[r][c] = __fadd_rn(acc[r][c], __shfl_xor_sync(0xffffffffu, acc[r][c], o));
+  __syncthreads();                         // smem's scores are read
+  if (lane < LPK) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) smem[(warp * ROWS + r) * D + sub * 8 + c] = acc[r][c];
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    if (tid == r) inv_s[r] = attn_recip(l[r], a, rtab);
+  __syncthreads();
+  for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
+    const int r = idx / D, c = idx % D;
+    float s = smem[r * D + c];
+#pragma unroll
+    for (int j = 1; j < DEC_WARPS; ++j) s = __fadd_rn(s, smem[(j * ROWS + r) * D + c]);
+    const int i = r % a.sq, h = hk * group + r / a.sq;
+    store(a, b * a.os[0] + h * a.os[1] + i * a.os[2] + c * a.os[3], __fmul_rn(s, inv_s[r]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 K/V, 16-row query tiles on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 8;
+constexpr int KC = 16 * MMA_WARPS;       // keys a staged chunk, 16 a warp
+constexpr int RING = 4;                  // stages of the K/V ring
+constexpr int Q_PIECES_MAX = 3;
+
+template <int D>
+struct MmaLayout {
+  static constexpr int DS = D + 8;       // bf16 a smem row: 16 bytes of padding
+  static constexpr int RING_ELEMS = RING * KC * DS;
+  static constexpr int QP = Q_PIECES_MAX * 16 * DS;
+  static size_t bytes(int block_kv) {    // ring, q pieces, scores in fragment order
+    const int chunks = (block_kv + KC - 1) / KC;
+    return sizeof(__nv_bfloat16) * (RING_ELEMS + QP) + sizeof(float) * MMA_WARPS * chunks * 32 * 8;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(32 * MMA_WARPS)
+flash_mma_kernel(const Args a) {
+  using L = MmaLayout<D>;
+  constexpr int DS = L::DS;
+  constexpr int NT = D / 8;              // n8 tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qp = ring + L::RING_ELEMS;
+  float* s_s = reinterpret_cast<float*>(qp + L::QP);
+  __shared__ float red[MMA_WARPS][16];
+  __shared__ float inv_s[16];
+  __shared__ float etab[3 * NPE_MAX_TABLE_COLS];
+  __shared__ float rtab[3 * NPE_MAX_TABLE_COLS];
+  load_tables(a, etab, rtab);
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.hq, h = bh % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int q0 = blockIdx.x * 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+
+  // q * scale in f32, as the reference, split into bf16 pieces; staged once
+  // the first K/V copies are in flight
+  const long long qbase = b * a.qs[0] + h * a.qs[1];
+  auto stage_q = [&]() {
+    for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
+      const int r = idx / D, c = idx % D;
+      float x = 0.f;
+      if (q0 + r < a.sq)
+        x = __fmul_rn(load(a.q, qbase + (q0 + r) * a.qs[2] + c * a.qs[3], a.q_bf16), a.scale);
+      float p[3];
+      npe_split3(x, p);
+#pragma unroll
+      for (int j = 0; j < Q_PIECES_MAX; ++j) qp[(j * 16 + r) * DS + c] = __float2bfloat16_rn(p[j]);
+    }
+    __syncthreads();                       // q pieces and tables in smem
+  };
+  bool q_staged = false;
+
+  // this lane's rows of the tile: g and g + 8
+  Row row[2];
+  bool valid[2];
+  float m[2], lw[2], acc[NT][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = q0 + g + 8 * e;
+    valid[e] = i < a.sq;
+    row[e] = row_of(i, a);
+    m[e] = NEG_BIG;
+    lw[e] = 0.f;                           // this warp's part of l
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kb0 = 0; kb0 < a.kv_len; kb0 += a.block_kv) {
+    const int kb_end = min(kb0 + a.block_kv, a.kv_len);
+    // which rows run, and the keys that some running row of the tile sees
+    int lo = kb_end, hi = kb0 - 1;
+    bool any = false;
+    for (int r = 0; r < 16 && q0 + r < a.sq; ++r) {
+      const Row rr = row_of(q0 + r, a);
+      if (!row_runs(rr, kb0, a)) continue;
+      any = true;
+      lo = min(lo, a.window > 0 ? max(kb0, rr.pos - a.window + 1) : kb0);
+      hi = max(hi, a.causal ? min(rr.pos, kb_end - 1) : kb_end - 1);
+    }
+    if (!any) continue;                    // the same for every thread
+    bool run[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) run[e] = valid[e] && row_runs(row[e], kb0, a);
+    const int c_lo = (lo - kb0) / KC;
+    const int nc = hi >= lo ? (hi - kb0) / KC - c_lo + 1 : 0;   // chunks of keys to visit
+
+    // items 0..nc-1 stage K chunks, nc..2nc-1 V chunks, through the ring
+    // (RING - 1 of them in flight)
+    auto issue = [&](int it) {
+      const bool is_k = it < nc;
+      const __nv_bfloat16* src = is_k ? kg : vg;
+      const long long stride = is_k ? a.ks[2] : a.vs[2];
+      const int key0 = kb0 + (c_lo + (is_k ? it : it - nc)) * KC;
+      __nv_bfloat16* dst = ring + (it % RING) * KC * DS;
+      for (int x = tid; x < KC * (D / 8); x += blockDim.x) {
+        const int kr = x / (D / 8), piece = x % (D / 8);
+        const int key = key0 + kr;
+        const bool ok = key < kb_end;      // never past kv_len
+        npe_cp_async16(dst + kr * DS + piece * 8, ok ? src + key * stride + piece * 8 : src,
+                       ok ? 16 : 0);
+      }
+    };
+
+    float mloc[2] = {NEG_BIG, NEG_BIG}, psum[2] = {0.f, 0.f}, m_new[2], corr[2];
+    auto rescale = [&](float bm0, float bm1) {
+      const float bm[2] = {bm0, bm1};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m_new[e] = fmaxf(m[e], bm[e]);
+        corr[e] = run[e] ? attn_exp(__fsub_rn(m[e], m_new[e]), a, etab) : 1.f;
+        lw[e] = __fmul_rn(corr[e], lw[e]);
+        if (run[e]) m[e] = m_new[e];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = __fmul_rn(corr[e >> 1], acc[n][e]);
+    };
+    const int items = 2 * nc;
+#pragma unroll
+    for (int it = 0; it < RING - 1; ++it) {
+      if (it < items) issue(it);
+      npe_cp_async_commit();
+    }
+    if (!q_staged) {
+      stage_q();
+      q_staged = true;
+    }
+    if (nc == 0) rescale(NEG_BIG, NEG_BIG);   // every key of the block masked
+    for (int it = 0; it < items; ++it) {
+      npe_cp_async_wait<RING - 2>();
+      __syncthreads();        // item `it` staged; every warp is done with item it-1's stage
+      if (it + RING - 1 < items) issue(it + RING - 1);
+      npe_cp_async_commit();
+      const __nv_bfloat16* tile = ring + (it % RING) * KC * DS;
+      const int j = it < nc ? it : it - nc;
+      const int kc = kb0 + (c_lo + j) * KC + warp * 16;   // this warp's first key
+      float* sfrag = s_s + ((warp * ((a.block_kv + KC - 1) / KC) + j) * 32 + lane) * 8;
+      if (it < nc) {
+        // S = (q*scale) . K^T over this warp's 16 keys
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t bk[4];
+          npe_ldsm_x4(bk, tile + (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          for (int pc = 0; pc < a.q_pieces; ++pc) {
+            uint32_t aq[4];
+            npe_ldsm_x4(aq, qp + (pc * 16 + (lane & 15)) * DS + kk * 16 + (lane >> 4) * 8);
+            npe_mma_bf16(s[0], aq, bk[0], bk[1]);
+            npe_mma_bf16(s[1], aq, bk[2], bk[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, col = kc + n * 8 + 2 * t4 + (e & 1);
+            const bool msk = !run[r] || col >= kb_end || key_masked(col, row[r].pos, a);
+            s[n][e] = msk ? NEG_BIG : s[n][e];
+            mloc[r] = fmaxf(mloc[r], s[n][e]);
+          }
+        reinterpret_cast<float4*>(sfrag)[0] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+        reinterpret_cast<float4*>(sfrag)[1] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+        if (it == nc - 1) {                // the block's row max: over the quad, then the warps
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            mloc[e] = fmaxf(mloc[e], __shfl_xor_sync(0xffffffffu, mloc[e], 1));
+            mloc[e] = fmaxf(mloc[e], __shfl_xor_sync(0xffffffffu, mloc[e], 2));
+          }
+          if (t4 == 0) {
+            red[warp][g] = mloc[0];
+            red[warp][g + 8] = mloc[1];
+          }
+        }
+      } else {
+        if (it == nc) {                    // red is complete: the sync above
+          float bm0 = red[0][g], bm1 = red[0][g + 8];
+#pragma unroll
+          for (int w = 1; w < MMA_WARPS; ++w) {
+            bm0 = fmaxf(bm0, red[w][g]);
+            bm1 = fmaxf(bm1, red[w][g + 8]);
+          }
+          rescale(bm0, bm1);
+        }
+        // p = exp(s - m_new), masked to 0, split into three bf16 pieces: the A
+        // operand of P.V straight from the accumulator layout
+        const float4 f0 = reinterpret_cast<const float4*>(sfrag)[0];
+        const float4 f1 = reinterpret_cast<const float4*>(sfrag)[1];
+        float z[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+        for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(z[x], m_new[(x >> 1) & 1]);
+        attn_exp8(z, a, etab);
+        float pp[3][2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, col = kc + n * 8 + 2 * t4 + (e & 1);
+            const bool msk = !run[r] || col >= kb_end || key_masked(col, row[r].pos, a);
+            const float p = msk ? 0.f : z[4 * n + e];
+            psum[r] = __fadd_rn(psum[r], p);
+            float pc[3];
+            npe_split3(p, pc);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) pp[q][n][e] = pc[q];
+          }
+        uint32_t ap[3][4];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          ap[q][0] = npe_pack_bf16(pp[q][0][0], pp[q][0][1]);
+          ap[q][1] = npe_pack_bf16(pp[q][0][2], pp[q][0][3]);
+          ap[q][2] = npe_pack_bf16(pp[q][1][0], pp[q][1][1]);
+          ap[q][3] = npe_pack_bf16(pp[q][1][2], pp[q][1][3]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bv[4];
+          npe_ldsm_x4_trans(bv, tile + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+                                    dd * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            npe_mma_bf16(acc[2 * dd], ap[q], bv[0], bv[1]);
+            npe_mma_bf16(acc[2 * dd + 1], ap[q], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();          // the ring is free for the next block
+    // l_w = corr * l_w + this warp's sum of p
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      psum[e] = __fadd_rn(psum[e], __shfl_xor_sync(0xffffffffu, psum[e], 1));
+      psum[e] = __fadd_rn(psum[e], __shfl_xor_sync(0xffffffffu, psum[e], 2));
+      if (run[e]) lw[e] = __fadd_rn(lw[e], psum[e]);
+    }
+  }
+
+  // acc = the warps' partial accumulators summed, l likewise; out = acc / l
+  __syncthreads();
+  float* comb = reinterpret_cast<float*>(smem_raw);   // MMA_WARPS x 16 x D, over the ring
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      comb[(warp * 16 + g + 8 * (e >> 1)) * D + n * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+  if (t4 == 0) {
+    red[warp][g] = lw[0];
+    red[warp][g + 8] = lw[1];
+  }
+  __syncthreads();
+  if (tid < 16) {
+    float l = red[0][tid];
+#pragma unroll
+    for (int w = 1; w < MMA_WARPS; ++w) l = __fadd_rn(l, red[w][tid]);
+    inv_s[tid] = attn_recip(l, a, rtab);
+  }
+  __syncthreads();
+  const long long obase = b * a.os[0] + h * a.os[1];
+  for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D;
+    if (q0 + r >= a.sq) continue;
+    float s = comb[r * D + c];
+#pragma unroll
+    for (int w = 1; w < MMA_WARPS; ++w) s = __fadd_rn(s, comb[(w * 16 + r) * D + c]);
+    store(a, obase + (q0 + r) * a.os[2] + c * a.os[3], __fmul_rn(s, inv_s[r]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Raise a kernel's dynamic shared memory limit to what this launch needs
+// (static and dynamic shared memory together may pass 48 KB only so).
+template <typename K>
+int allow_smem(K kernel, size_t bytes, size_t& granted) {
+  if (bytes <= granted) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  granted = bytes;
+  return 0;
 }
 
 template <int D>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * D + TK * (D + 1) + (size_t)BQ * a.block_kv);
-  static size_t granted = 48 * 1024;   // dynamic shared memory allowed so far
-  if (smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    granted = smem;
+  if (!a.kv_bf16) {
+    const size_t smem = sizeof(float) * (BQ * D + TK * (D + 1) + (size_t)BQ * a.block_kv);
+    static size_t granted = 0;
+    if (int err = allow_smem(flash_f32kv_kernel<D>, smem, granted)) return err;
+    const dim3 grid((a.sq + BQ - 1) / BQ, batch * a.hq);
+    flash_f32kv_kernel<D><<<grid, 32 * WARPS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((a.sq + BQ - 1) / BQ, batch * a.hq);
-  flash_attention_kernel<D><<<grid, 32 * WARPS, smem, stream>>>(a);
+  const int rows = (a.hq / a.hkv) * a.sq;
+  if (rows <= DEC_ROWS) {
+    const int rmax = rows == 1 ? 1 : DEC_ROWS;
+    const size_t smem = sizeof(float) * max((size_t)rmax * a.block_kv,
+                                            (size_t)DEC_WARPS * rmax * D);
+    static size_t granted1 = 0, granted8 = 0;
+    if (rows == 1) {
+      if (int err = allow_smem(flash_decode_kernel<D, 1>, smem, granted1)) return err;
+      flash_decode_kernel<D, 1><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
+    } else {
+      if (int err = allow_smem(flash_decode_kernel<D, DEC_ROWS>, smem, granted8)) return err;
+      flash_decode_kernel<D, DEC_ROWS><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = MmaLayout<D>::bytes(a.block_kv);
+  static size_t granted = 0;
+  if (int err = allow_smem(flash_mma_kernel<D>, smem, granted)) return err;
+  const dim3 grid((a.sq + 15) / 16, batch * a.hq);
+  flash_mma_kernel<D><<<grid, 32 * MMA_WARPS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+bool vec_ok(const void* p, long long s0, long long s1, long long s2, long long s3) {
+  return s3 == 1 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -271,12 +875,18 @@ extern "C" int npe_flash_attention(
       hkv < 1 || hq % hkv != 0 || kv_len < sq || kv_len > skv || block_q < 1 ||
       block_kv < 1 || block_kv > 1024)
     return (int)cudaErrorInvalidValue;
+  // the bf16 kernels read K and V rows as 16-byte vectors
+  if (kv_bf16 && !(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd)))
+    return (int)cudaErrorInvalidValue;
   if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
+  // one bf16 piece holds q*scale when q is bf16 and scale a power of two
+  int e2 = 0;
+  const int q_pieces = (q_bf16 && frexpf(scale, &e2) == 0.5f) ? 1 : Q_PIECES_MAX;
   Args a{q, k, v, out,
          {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
          {osb, osh, oss, osd},
          hq, hkv, sq, kv_len, q_bf16, kv_bf16, out_bf16,
-         causal, window, use_pwl, block_q, block_kv, scale,
+         causal, window, use_pwl, block_q, block_kv, scale, q_pieces,
          exp_table, exp_segments, recip_table, recip_segments};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {

@@ -33,12 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# C entry points: name -> argument types (every one returns a cudaError_t).
+# C entry points: name -> argument types (every one returns an int: a
+# cudaError_t, or for npe_quant_matmul_workspace a count).
 SIGNATURES = {
     # x, y, n, x_bf16, y_bf16, table, segments, stream
     "npe_pwl_eval": (P, P, LL, I, I, P, I, P),
-    # xq, wq, x_scale, w_scale, out, m, n, k, out_bf16, table, segments, stream
-    "npe_quant_matmul": (P, P, P, P, P, I, I, I, I, P, I, P),
+    # xq, wq, x_scale, w_scale, out, m, n, k, out_bf16, table, segments,
+    # workspace, stream
+    "npe_quant_matmul": (P, P, P, P, P, I, I, I, I, P, I, P, P),
+    # m, n, k -> int32 values of the zeroed workspace npe_quant_matmul needs
+    "npe_quant_matmul_workspace": (I, I, I),
     # x, y, rows, n, causal_rows, exp_table, exp_segments,
     # recip_table, recip_segments, stream
     "npe_nvu_softmax": (P, P, I, I, I, P, I, P, I, P),

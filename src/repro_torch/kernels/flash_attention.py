@@ -4,6 +4,10 @@
 
 `flash_attention(q, k, v, ...)` launches `csrc/flash_attention.cu` for
 tensors on the card and runs `flash_attention_plain` for tensors on the CPU.
+The kernel picks its instance by dtype and shape: bf16 K/V with at most 8
+query rows a kv head (decode) on the CUDA cores with the keys split across
+warps, bf16 K/V with more rows on the bf16 tensor cores, f32 K/V on the CUDA
+cores (see the source's note).
 Both stream over KV blocks of `block_kv` keys with a running max and sum, as
 `_flash_kernel` does: with PWL exp the result depends on the blocking (each
 rescale multiplies by pwl_exp(m_prev - m_new), and pwl_exp(0) is not 1), so
@@ -47,6 +51,15 @@ def block_runs(q_lo: int, q_hi: int, kv_start: int, block_kv: int, kv_len: int,
         if window > 0:
             run = run and kv_start + block_kv - 1 >= q_lo - window + 1
     return run
+
+
+def _vector_rows(t: torch.Tensor) -> torch.Tensor:
+    """k or v as the bf16 instances read it: rows of D contiguous values at
+    16-byte-aligned addresses (the decode cache's permuted views are).  Any
+    other layout is copied into that one before the launch."""
+    ok = (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+          and t.data_ptr() % 16 == 0)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _exp(z: torch.Tensor, use_pwl: bool, segments: int) -> torch.Tensor:
@@ -151,6 +164,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if block_kv > MAX_BLOCK_KV:
         raise ValueError(f"flash_attention: block_kv {block_kv} > {MAX_BLOCK_KV}")
+    if k.dtype == torch.bfloat16:
+        k, v = _vector_rows(k), _vector_rows(v)
     out = torch.empty(b, sq, hq, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
     et = device_table("exp", segments, q.device)
     rt = device_table("recip", segments, q.device)

@@ -2,11 +2,14 @@
 (counterpart of `repro/kernels/quant_matmul.py`).
 
 `quant_matmul(...)` launches `csrc/quant_matmul.cu` for tensors on the card
-and runs `quant_matmul_plain` for tensors on the CPU.
+and runs `quant_matmul_plain` for tensors on the CPU.  At M <= 16 the kernel
+may split K across blocks; their int32 partial sums meet in a zeroed
+workspace that the wrapper keeps for each stream and the kernel leaves
+zeroed again (one launch all the same).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -18,6 +21,17 @@ from repro_torch.kernels.build import check, library, require_cuda, stream_handl
 from repro_torch.kernels.pwl_eval import device_table
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+# (device index, stream handle) -> int32 zeros for the split-K partial sums
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _WORKSPACE[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def quant_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
@@ -65,10 +79,14 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     if activation:
         tab = device_table(activation, segments, xq.device)
         tab_ptr, segs = tab.data_ptr(), tab.shape[1] - 1
-    err = library().npe_quant_matmul(
+    lib = library()
+    stream = stream_handle(xq)
+    work_n = lib.npe_quant_matmul_workspace(m, n, k)
+    work = _workspace(work_n, xq.device, stream).data_ptr() if work_n else None
+    err = lib.npe_quant_matmul(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16), tab_ptr,
-        segs, stream_handle(xq))
+        segs, work, stream)
     check(err, "quant_matmul")
     LAUNCHES["quant_matmul"] += 1
     return out

@@ -8,7 +8,8 @@ without a card.  On the card:
 Tolerances (atol, rtol): those of tests/test_kernels.py for f32 results, as
 the kernels evaluate the PWL in prefix-delta form and the plain versions by
 gather, and sums run in another order; a bf16 result may also round to the
-neighbouring bf16 value (rtol 2^-7).  The int8 product is exact.
+neighbouring bf16 value (rtol 2^-7).  The int8 product is exact, whatever
+the tiling or the split of K.
 """
 import pytest
 import torch
@@ -73,6 +74,54 @@ def test_quant_matmul_exact(dev, m, k, n, out_dtype):
     _launched("quant_matmul", before)
     want = qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
     assert torch.equal(got, want)
+
+
+# the four projections of a decode step at 1, 8, 16 and 17 rows (M <= 16 runs
+# the split-K kernel, 17 the tiled one), then K not a multiple of 32 (48: a
+# partial k-tile; 100, 300, 1000: not a multiple of 16 either, staged by
+# byte loads), N ragged; every split of K must give the same bits
+ROW_SHAPES = [(m, k, n) for m in (1, 8, 16, 17)
+              for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 30720))] + [
+    (1, 100, 200), (16, 300, 70), (17, 200, 48), (8, 48, 768), (16, 1000, 768),
+    (3, 3072, 40), (16, 4096, 16)]
+
+
+@pytest.mark.parametrize("m,k,n", ROW_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_rows_exact(dev, m, k, n, out_dtype):
+    g = _gen(dev, 11)
+    xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+    wq = quantize(torch.randn(k, n, generator=g, device=dev), 8, axis=1)
+    before = LAUNCHES["quant_matmul"]
+    got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
+    _launched("quant_matmul", before)
+    want = qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
+    assert torch.equal(got, want)
+
+
+def test_quant_matmul_rows_workspace_left_zeroed(dev):
+    """Split-K launches share one workspace on a stream; each leaves it zeroed,
+    so repeated and interleaved shapes stay exact."""
+    g = _gen(dev, 13)
+    ops_ = []
+    for m, k, n in ((8, 3072, 768), (1, 768, 768), (8, 3072, 768), (16, 768, 3072)):
+        xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev), 8, axis=1)
+        ops_.append((xq, wq))
+    for _ in range(3):
+        for xq, wq in ops_:
+            got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale)
+            assert torch.equal(got, qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale))
+
+
+def test_quant_matmul_rows_fused_gelu_exact(dev):
+    """The fused PWL epilogue after a split-K sum, (8, 3072) @ (3072, 768)."""
+    g = _gen(dev, 12)
+    xq = quantize(torch.randn(8, 3072, generator=g, device=dev), 8)
+    wq = quantize(torch.randn(3072, 768, generator=g, device=dev) / 55, 8, axis=1)
+    got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale, "gelu")
+    want = qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale, get_table("gelu", 16))
+    _close(got, want, 1e-5, 1e-5)
 
 
 def test_quant_matmul_extremes_exact(dev):
@@ -156,6 +205,10 @@ FLASH_CASES = [
     (2, 8, 2, 64, 256, 64, 200, True, 48, 32, 64),        # GQA, window, ragged kv_len
     (2, 4, 2, 37, 96, 32, 77, False, 0, 16, 32),          # D=32, no mask
     (1, 4, 4, 20, 1024, 128, 1000, True, 0, 8, 1024),     # D=128, largest block
+    (8, 12, 12, 1, 256, 64, 192, True, 0, 256, 64),       # decode over three KV blocks
+    (2, 12, 12, 37, 256, 64, 93, True, 0, 256, 256),      # Sq, kv_len not multiples of 16
+    (4, 8, 2, 1, 256, 64, 200, True, 48, 256, 64),        # GQA decode with a window
+    (2, 4, 4, 3, 128, 32, 70, True, 0, 256, 32),          # 3 query rows, decode instance
 ]
 
 
@@ -195,6 +248,20 @@ def test_flash_attention_never_reads_past_kv_len(dev):
     assert bool(torch.isfinite(got).all())
     want = fa.flash_attention_plain(q, k[:, :, :70], v[:, :, :70], block_kv=32)
     _close(got, want, 2e-5, 2e-5)
+
+
+def test_flash_attention_kv_rows_not_vectors(dev):
+    """bf16 K/V whose rows are not contiguous 16-byte vectors (D strided)
+    are staged into rows first; the result is the plain version's."""
+    g = _gen(dev, 9)
+    q = torch.randn(2, 4, 24, 64, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16).transpose(-1, -2)
+    v = torch.randn(2, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16).transpose(-1, -2)
+    assert k.stride(3) != 1
+    for sq in (1, 24):
+        kw = dict(kv_len=90, block_kv=32, out_dtype=torch.float32)
+        got = fa.flash_attention(q[:, :, :sq], k, v, **kw)
+        _close(got, fa.flash_attention_plain(q[:, :, :sq], k, v, **kw), 2e-5, 2e-5)
 
 
 def test_flash_ops_on_the_card_match_the_cpu_route(dev):
