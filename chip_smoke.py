@@ -3,15 +3,20 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the five CUDA kernels from `src/repro_torch/csrc/`, one nvcc each,
-   in parallel, and prints the seconds, ptxas's register and spill lines,
-   and the HMMA/IMMA (tensor-core) instructions in each kernel's SASS;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of BERT-base 8x128 encoding and of 8-slot decode over a 256-row
-   cache, with its tolerance, its time, its bound and, where one PyTorch
-   call computes the same function, that call's time (`torch._int_mm` on
-   decode rows zero-padded to 32; the flash decode rows once more with the
-   L2 flushed before each launch);
+2. builds the five CUDA kernels (and the empty launch-floor kernel) from
+   `src/repro_torch/csrc/`, one nvcc each, in parallel, and prints the
+   seconds, ptxas's register and spill lines of every instance, and the
+   HMMA/IMMA (tensor-core) instructions in each kernel's SASS;
+3. times the launch floor (an empty 256-thread block), then holds each
+   kernel against its plain PyTorch version on the card, at the shapes of
+   BERT-base 8x128 encoding and of 8-slot decode over a 256-row cache, with
+   its tolerance, its time, its bound and, where one PyTorch call computes
+   the same function, that call's time (`torch._int_mm` on decode rows
+   zero-padded to 32; the flash decode rows once more with the L2 flushed
+   before each launch); `pwl_eval` also bit for bit against the walk in
+   torch ops, in its vector and its scalar (unaligned) instance; beside
+   `pwl_eval` and `nvu_layernorm` a yardstick of the same bytes with exact
+   math, not the same function (`F.gelu`, `F.layer_norm`);
 4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
    through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
    and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
@@ -171,24 +176,50 @@ def measure(fn, reps: int = 20):
 
 
 def measure_cold(fn, reps: int = 20):
-    """ms per call between CUDA events around each launch, with the L2 cache
-    flushed (a buffer twice its size overwritten) before each: the state in
-    which a decode step finds the next layer's cache.  A sleep kernel ahead
-    of each flush keeps the host's queueing out of the events' interval."""
+    """(device ms per call from torch.profiler, or None if it saw none; ms
+    per call between CUDA events around each launch), with the L2 cache
+    flushed (a buffer twice its size overwritten) before each launch: the
+    state in which a decode step finds the next layer's cache, and in which
+    every byte of the bound comes from HBM.  The profiler's time is that of
+    fn's own kernels (those a trace of fn alone shows), not the flush's or
+    the sleep's.  A sleep kernel ahead of each flush keeps the host's
+    queueing out of the events' interval."""
+    from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flushed_calls():
+        total = 0.0
+        for _ in range(reps):
+            torch.cuda._sleep(2_000_000)   # the card waits while the host queues the rest
+            flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
+
     for _ in range(3):
         fn()
-    total = 0.0
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)   # the card waits while the host queues the rest
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    event_ms = flushed_calls()
+    own = set()
+    for _ in range(3):   # the names of fn's kernels, from a trace of fn alone that lost none
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = _kernel_times(prof, with_counts=True)
+        if sum(n for _, _, n in times) >= reps:
+            own = {k for k, _, _ in times}
+            break
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            flushed_calls()
+        times = [t for t in _kernel_times(prof, with_counts=True) if t[0] in own]
+        if own and sum(n for _, _, n in times) >= reps:
+            return sum(us for _, us, _ in times) / 1e3 / reps, event_ms
+    return None, event_ms
 
 
 def bound(bytes_moved: float, *work):
@@ -263,57 +294,112 @@ def sass_counts(lib: Path):
 
 
 def pwl_ops(name: str) -> int:
-    """Operations of one PWL evaluation: a compare and two adds for each
-    interior knot, then a multiply and an add."""
+    """Operations of one PWL evaluation by the walk: a compare and two adds
+    for each interior knot, then a multiply and an add."""
     return 3 * (get_table(name, 16).num_segments - 1) + 2
+
+
+def pwl_prefix_ops(name: str) -> int:
+    """Operations of one PWL evaluation from a prefix table: the compares of
+    the binary search over the S-1 interior knots, then a multiply and an add."""
+    return (get_table(name, 16).num_segments - 1).bit_length() + 2
 
 
 # --- phase 3: each kernel against its plain version -------------------------
 
-def kernel_rows(dev):
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal float32 bits, any NaN as one pattern."""
+    g, w = got.float(), want.float()
+    g = torch.where(torch.isnan(g), torch.full_like(g, float("nan")), g)
+    w = torch.where(torch.isnan(w), torch.full_like(w, float("nan")), w)
+    return torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def launch_floor():
+    """(device ms, event ms) of an empty 256-thread block, by `measure`."""
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    return measure(lambda: build.check(lib.npe_launch_floor(stream), "launch_floor"))
+
+
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t one element into its storage: its address is
+    not 16-byte aligned, so the kernels take their scalar/block instances."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
+def kernel_rows(dev, floor_ms):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
     def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
-            library_fn=None, library_name="torch._int_mm", cold=False):
+            library_fn=None, library_name="torch._int_mm", cold=False,
+            walk_fn=None, yardstick_fn=None, yardstick_name=None):
         """`work`: (operations, rate) pairs of the bound.  With `cold`, the
-        kernel and library times are taken with the L2 flushed before each
-        launch (events), the plain version's as usual."""
+        kernel, library and yardstick times are taken with the L2 flushed
+        before each launch, the plain version's as usual.  `walk_fn`: a result
+        the kernel must equal bit for bit.  `yardstick_fn`: a call on the same
+        tensors that is timed only (not the same function)."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         atol, rtol = TOLS[(kernel, dtype)]
         err, ok = compare(got, want, atol, rtol)
-        if cold:
-            ms = ev = measure_cold(kernel_fn)
-            lms = lev = measure_cold(library_fn) if library_fn else None
-        else:
-            ms, ev = measure(kernel_fn)
-            lms, lev = measure(library_fn) if library_fn else (None, None)
+        exact = same_bits(got, walk_fn()) if walk_fn else None
+        timer = measure_cold if cold else measure
+        ms, ev = timer(kernel_fn)
+        lms, lev = timer(library_fn) if library_fn else (None, None)
         pms, pev = measure(plain_fn)
+        yms, yev = timer(yardstick_fn) if yardstick_fn else (None, None)
         bms, by = bound(bytes_moved, *work)
         r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
-                 max_abs_err=err, atol=atol, rtol=rtol, ok=ok,
+                 max_abs_err=err, atol=atol, rtol=rtol, ok=ok and exact is not False,
+                 bit_exact_walk=exact,
                  ms=ms if ms is not None else ev,
-                 ms_source="events, L2 flushed" if cold else ("profiler" if ms else "events"),
+                 ms_source=("profiler" if ms else "events") + (", L2 flushed" if cold else ""),
                  event_ms=ev, plain_ms=pms if pms is not None else pev,
                  library_ms=(lms if lms is not None else lev) if library_fn else None,
-                 bound_ms=bms, bound_by=by, library=library_name if library_fn else None)
+                 bound_ms=bms, bound_by=by, bound_share=bms / (ms if ms is not None else ev),
+                 library=library_name if library_fn else None,
+                 yardstick_ms=(yms if yms is not None else yev) if yardstick_fn else None,
+                 yardstick=yardstick_name, launch_floor_ms=floor_ms)
         rows.append(r)
         lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
+        extra = "" if exact is None else f", walk {'bit-exact' if exact else 'DIFFERS'}"
+        if yardstick_fn:
+            extra += (f"  [{yardstick_name} {r['yardstick_ms']:.4f}: same bytes, exact math, "
+                      "not the same function]")
+        if shape.startswith("(8,"):
+            extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
         say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
-            f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}  "
+            f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}{extra}  "
             f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
-            f"(not a yardstick)  bound {bms:.6f} ({by}){lib}")
-        if not ok:
-            raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain")
+            f"(not a yardstick)  bound {bms:.6f} ({by}, {r['bound_share']:.0%} of it){lib}")
+        if not r["ok"]:
+            raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain"
+                             + (" or the walk" if exact is False else ""))
 
-    # pwl_eval: the GELU of each FFN, (8*128, 3072) encoding, (8, 3072) a decode step
-    for m, dt in ((1024, torch.bfloat16), (1024, torch.float32), (8, torch.bfloat16)):
+    import torch.nn.functional as F
+    # pwl_eval: the GELU of each FFN, (8*128, 3072) encoding, (8, 3072) a
+    # decode step; once more unaligned (the scalar instance).  The encoder
+    # rows are timed once more with the L2 flushed before each launch: warm,
+    # their 12-25 MB stay in the 50 MB L2 and the HBM bound does not hold.
+    gelu_tab = pe_mod.device_table("gelu", 16, dev)
+    for m, dt, skew in ((1024, torch.bfloat16, False), (1024, torch.float32, False),
+                        (8, torch.bfloat16, False), (8, torch.float32, False),
+                        (1024, torch.bfloat16, True)):
         x = (torch.randn(m, 3072, generator=g, device=dev) * 4).to(dt)
-        row("pwl_eval", f"({m}, 3072) gelu", dt,
-            lambda: pe_mod.pwl_eval(x, "gelu"),
-            lambda: pe_mod.pwl_eval_plain(x, get_table("gelu", 16)),
-            x.numel() * 2 * x.element_size(), [(x.numel() * pwl_ops("gelu"), F32_OPS_PER_S)])
+        if skew:
+            x = unaligned(x)
+        for cold in (False, True) if m == 1024 and not skew else (False,):
+            row("pwl_eval", f"({m}, 3072) gelu" + (" unaligned" if skew else "")
+                + (" cold L2" if cold else ""), dt,
+                lambda: pe_mod.pwl_eval(x, "gelu"),
+                lambda: pe_mod.pwl_eval_plain(x, get_table("gelu", 16)),
+                x.numel() * 2 * x.element_size(),
+                [(x.numel() * pwl_prefix_ops("gelu"), F32_OPS_PER_S)],
+                walk_fn=lambda: pe_mod.pwl_eval_walk(x, gelu_tab).to(x.dtype),
+                yardstick_fn=lambda: F.gelu(x), yardstick_name="F.gelu", cold=cold)
 
     # quant_matmul: every NPE-8 projection and the logits head, bf16 out
     for m, k, n, act, dt in [(1024, 768, 768, None, torch.bfloat16),
@@ -353,14 +439,25 @@ def kernel_rows(dev):
     # nvu_layernorm: the embedding and both post-norms, (1024, 768), eps 1e-12
     gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
     bet = 0.1 * torch.randn(768, generator=g, device=dev)
-    for m, dt in ((1024, torch.bfloat16), (1024, torch.float32), (8, torch.bfloat16)):
+    # (the warp instance; once more unaligned, the block instance; the
+    # encoder rows once more from a flushed L2, as for pwl_eval)
+    for m, dt, skew in ((1024, torch.bfloat16, False), (1024, torch.float32, False),
+                        (8, torch.bfloat16, False), (8, torch.float32, False),
+                        (1024, torch.bfloat16, True)):
         x = (torch.randn(m, 768, generator=g, device=dev) * 3 + 0.7).to(dt)
-        row("nvu_layernorm", f"({m}, 768)", dt,
-            lambda: ln_mod.nvu_layernorm(x, gam, bet, eps=1e-12),
-            lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=1e-12),
-            x.numel() * 2 * x.element_size() + 2 * 768 * 4,
-            # sum, subtract, square-add, subtract, two multiplies, add; one PWL a row
-            [(x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)])
+        if skew:
+            x = unaligned(x)
+        gam_t, bet_t = gam.to(dt), bet.to(dt)
+        for cold in (False, True) if m == 1024 and not skew else (False,):
+            row("nvu_layernorm", f"({m}, 768)" + (" unaligned" if skew else "")
+                + (" cold L2" if cold else ""), dt,
+                lambda: ln_mod.nvu_layernorm(x, gam, bet, eps=1e-12),
+                lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=1e-12),
+                x.numel() * 2 * x.element_size() + 2 * 768 * 4,
+                # sum, subtract, square-add, subtract, two multiplies, add; one PWL a row
+                [(x.numel() * 8 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)],
+                yardstick_fn=lambda: F.layer_norm(x, (768,), gam_t, bet_t, eps=1e-12),
+                yardstick_name="F.layer_norm", cold=cold)
 
     flash_rows(dev, g, row)
     return rows
@@ -815,6 +912,11 @@ def main() -> int:
         mma = ("HMMA %4d IMMA %4d" % tuple(sass[fn]) if sass and fn in sass
                else "HMMA/IMMA not available")
         say(f"    {names[fn][:58]:58s} {regs:3d} regs {smem:5d} B  spills {st}/{ld}  {mma}")
+    new = {fn: ptx[fn] for fn in ptx
+           if "pwl_stream_kernel" in fn or "nvu_layernorm_warp_kernel" in fn}
+    spilled = [names[fn] for fn, (_, _, st, ld) in new.items() if st or ld]
+    say(f"    {len(new)} instances of pwl_stream_kernel / nvu_layernorm_warp_kernel, "
+        f"spills in {spilled if spilled else 'none'}")
     if sass is None:
         say("    SASS tensor-core instructions: not available (no cuobjdump)")
     else:
@@ -824,7 +926,11 @@ def main() -> int:
 
     say("[3] kernels vs plain versions on the card (ms per call: device time "
         "from torch.profiler, CUDA events in brackets)")
-    rows = kernel_rows(dev)
+    floor_ms, floor_ev = launch_floor()
+    floor_ms = floor_ms if floor_ms is not None else floor_ev
+    results["launch_floor"] = dict(ms=floor_ms, event_ms=floor_ev)
+    say(f"  launch floor: an empty 256-thread block {floor_ms:.4f} ms (events {floor_ev:.4f})")
+    rows = kernel_rows(dev, floor_ms)
     results["rows"] = rows
 
     say("[4] full-width BERT-base encoder serving through the kernels")

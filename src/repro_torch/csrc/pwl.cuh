@@ -1,5 +1,6 @@
 // Shared device code of the NPE kernels: the prefix-delta PWL evaluator
-// (the counterpart of `pwl_tile` in src/repro/kernels/pwl_eval.py) and the
+// (the counterpart of `pwl_tile` in src/repro/kernels/pwl_eval.py), the
+// prefix-table evaluator that gives its results by a search, and the
 // f32/bf16 conversions.
 //
 // A packed table is (3, S+1) float32, row-major, as `pack_table` builds it:
@@ -71,6 +72,115 @@ __device__ __forceinline__ void npe_pwl_n(float (&v)[N], const float* tab, int s
   for (int j = 0; j < N; ++j) v[j] = __fadd_rn(__fmul_rn(slope[j], v[j]), icept[j]);
 }
 
+// --- the prefix-table evaluator -------------------------------------------
+// The knots of every table ascend, so an x that passes interior knots 1..k
+// leaves the walk of npe_pwl at exactly slope = P_slope[k] and icept =
+// P_icept[k], the in-order round-to-nearest sums d_0 + d_1 + ... + d_k.  So
+// P_slope[seg] * x + P_icept[seg], with seg the count of interior knots <= x,
+// is npe_pwl bit for bit: a binary search over the knots and two gathers in
+// place of a compare and two adds for every knot.
+
+// Knot slots of a prefix table: the search reads up to index 2*top - 1,
+// top the largest power of two <= S-1 (at most 64 when S+1 <= 128).
+#define NPE_PREFIX_KNOTS 128
+
+struct NpePrefixTable {
+  float knot[NPE_PREFIX_KNOTS];   // [1..S-1] the interior knots, the rest NaN
+  float2 si[NPE_MAX_TABLE_COLS];  // [k] = (P_slope[k], P_icept[k]), k in 0..S-1
+};
+
+// What one thread of a block of at least NPE_PREFIX_KNOTS threads reads of
+// a packed table for npe_build_prefix_table: the knot of its slot and the
+// deltas of column threadIdx.x.  A kernel fetches it before its own loads,
+// so the table's few hundred bytes do not queue behind them.
+struct NpePrefixFetch {
+  float knot, dslope, dicept;
+  __device__ __forceinline__ NpePrefixFetch(const float* __restrict__ src, int segs) {
+    const int i = threadIdx.x, cols = segs + 1;
+    knot = i >= 1 && i < segs ? __ldg(src + i) : __int_as_float(0x7fffffff);
+    dslope = i < segs ? __ldg(src + cols + i) : 0.f;
+    dicept = i < segs ? __ldg(src + 2 * cols + i) : 0.f;
+  }
+};
+
+// Write a prefix table from what the threads fetched; ends with the block
+// synced.  The deltas go to the prefix rows' slots, then thread 0 (slopes)
+// and thread 1 (intercepts) turn each row into its in-order sums in place:
+// S-1 __fadd_rn one after another, the sums the walk reaches.  A padded
+// knot is NaN, which no x is >=, so the search never passes it.
+__device__ __forceinline__ void npe_build_prefix_table(NpePrefixTable& t, const NpePrefixFetch& f,
+                                                       int segs) {
+  if (threadIdx.x < NPE_PREFIX_KNOTS) t.knot[threadIdx.x] = f.knot;
+  if ((int)threadIdx.x < segs) t.si[threadIdx.x] = make_float2(f.dslope, f.dicept);
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float* row = reinterpret_cast<float*>(t.si) + threadIdx.x;
+    float acc = row[0];
+    for (int i = 1; i < segs; ++i) {
+      acc = __fadd_rn(acc, row[2 * i]);
+      row[2 * i] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// The largest power of two <= segs - 1 (0 for one segment): the first step
+// of the search.
+__device__ __forceinline__ int npe_prefix_top(int segs) {
+  return segs > 1 ? 1 << (31 - __clz(segs - 1)) : 0;
+}
+
+// npe_pwl on N values at once, in place, from a prefix table.  seg(x) is
+// found by binary lifting over the ascending knots: the first two steps read
+// knots every thread shares (kept in registers), the rest one knot each.
+// Offsets are kept in bytes, so each step is an add, a load, a compare and
+// a select; the two prefixes of a segment are one 8-byte load.
+template <int N>
+__device__ __forceinline__ void npe_pwl_prefix_n(float (&v)[N], const NpePrefixTable& t,
+                                                 int top) {
+  const char* kb = reinterpret_cast<const char*>(t.knot);
+  int k[N];   // 4 * seg
+#pragma unroll
+  for (int j = 0; j < N; ++j) k[j] = 0;
+  if (top > 0) {
+    const float k_top = t.knot[top];
+#pragma unroll
+    for (int j = 0; j < N; ++j) k[j] = v[j] >= k_top ? 4 * top : 0;
+    int step = top >> 1;
+    if (step > 0) {
+      const float k_lo = t.knot[step], k_hi = t.knot[top + step];
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        k[j] = v[j] >= (k[j] ? k_hi : k_lo) ? k[j] + 4 * step : k[j];
+      for (step *= 2; step >= 4; step >>= 1) {   // step in bytes: 4 * (step / 2)
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const int c = k[j] + step;
+          k[j] = v[j] >= *reinterpret_cast<const float*>(kb + c) ? c : k[j];
+        }
+      }
+    }
+  }
+  const char* sb = reinterpret_cast<const char*>(t.si);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 p = *reinterpret_cast<const float2*>(sb + 2 * k[j]);
+    v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
+  }
+}
+
+// The SM count of the current device (132 on an H100 SXM if it cannot be read).
+static inline int npe_sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+      n = 132;
+  }
+  return n;
+}
+
 // 1/s for s > 0 without a divide (recip_via_pwl in
 // src/repro/kernels/nvu_softmax.py): s = m * 2^e with m in [0.5, 1), so
 // 1/s = pwl_recip(m) * 2^-e, the exponent taken and put back by integer
@@ -96,6 +206,38 @@ __device__ __forceinline__ float npe_from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 npe_from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);  // round to nearest even, as torch's cast
+}
+
+// The 16 / sizeof(T) values of T in one 16-byte vector, as f32 (exact).
+template <typename T>
+__device__ __forceinline__ void npe_unpack16(const uint4& r, float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (sizeof(T) == 2) {
+      f[2 * q] = __uint_as_float(w[q] << 16);
+      f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    } else {
+      f[q] = __uint_as_float(w[q]);
+    }
+  }
+}
+
+// 16 / sizeof(T) f32 values as T in one 16-byte vector, rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ uint4 npe_pack16(const float* f) {
+  if constexpr (sizeof(T) == 2) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+      w[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
 }
 
 __device__ __forceinline__ float npe_warp_sum(float v) {

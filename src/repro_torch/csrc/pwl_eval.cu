@@ -2,49 +2,144 @@
 //
 // Replaces: pwl_eval_2d / _pwl_kernel in src/repro/kernels/pwl_eval.py.
 // Bound on this card: bytes.  Each element is read once and written once
-// (4+4 bytes in f32, 2+2 in bf16) against S-1 compares and two adds from a
+// (4+4 bytes in f32, 2+2 in bf16) against a few dozen operations from a
 // table of a few hundred bytes, far below the 295 operations per byte where
 // the card stops being memory-bound.
-// Design: the table is copied once per block into shared memory, where
-// every thread of a warp reads the same word (a broadcast).  Each thread
-// takes four consecutive elements per step of a grid-stride loop, so each
-// table entry read from shared memory serves four evaluations (with one
-// element per thread those reads, not device memory, set the pace); the
-// ragged end is masked, so nothing is padded to block multiples.
+// Design: a stream of 16-byte accesses.  Each thread takes one 16-byte
+// vector of x (8 bf16 or 4 f32) per step of a grid-stride loop while the
+// load of its next vector is in flight.  It reads its piece of the PWL
+// table first (a few hundred bytes, which would otherwise queue behind the
+// stream), then starts its first two loads of x, then the block builds its
+// prefix table in shared memory while they are in flight.  Each value is then
+// evaluated by a binary search over the knots and two gathers from the
+// prefix rows (npe_pwl_prefix_n), bit-identical to the prefix-delta walk.
+// The grid is a vector a thread, in whole waves of the SMs, capped at the
+// blocks resident at once (six of 256 threads an SM at most 40 registers a
+// thread), so the loop gives every thread the same count of vectors, give
+// or take one.  A second instance, for an x or y whose address is
+// not 16-byte aligned or whose length is not a multiple of 8 elements,
+// moves the same units with scalar, masked accesses.
 #include "pwl.cuh"
 
-constexpr int VALUES = 4;   // elements per thread per step, sharing table reads
+namespace {
 
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(256)
-pwl_eval_kernel(const TI* __restrict__ x, TO* __restrict__ y, long long n,
-                const float* __restrict__ table, int segs) {
-  __shared__ float tab[3 * NPE_MAX_TABLE_COLS];
-  npe_load_table(tab, table, segs + 1);
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x * VALUES;
-  for (long long base = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VALUES;
-       base < n; base += stride) {
-    float v[VALUES];
+constexpr int THREADS = 256;
+constexpr int MIN_BLOCKS = 6;   // resident blocks an SM, for the register budget
+static_assert(THREADS >= NPE_PREFIX_KNOTS, "a thread fetches each knot slot and column");
+
+// E elements of type T held as loaded: one 16-byte vector (VEC) or E
+// scalars, masked at n.
+template <typename T, bool VEC>
+struct Unit {
+  static constexpr int E = 16 / sizeof(T);
+  uint4 vec;
+  T val[E];
+
+  __device__ __forceinline__ void load(const T* __restrict__ x, long long u, long long n) {
+    if constexpr (VEC) {
+      vec = u * E < n ? *reinterpret_cast<const uint4*>(x + u * E) : make_uint4(0, 0, 0, 0);
+    } else {
 #pragma unroll
-    for (int j = 0; j < VALUES; ++j)
-      v[j] = base + j < n ? npe_to_f32(x[base + j]) : 0.f;
-    npe_pwl_n<VALUES>(v, tab, segs);
+      for (int e = 0; e < E; ++e) val[e] = u * E + e < n ? x[u * E + e] : npe_from_f32<T>(0.f);
+    }
+  }
+
+  __device__ __forceinline__ void to_f32(float* f) const {
+    if constexpr (VEC) {
+      npe_unpack16<T>(vec, f);
+    } else {
 #pragma unroll
-    for (int j = 0; j < VALUES; ++j)
-      if (base + j < n) y[base + j] = npe_from_f32<TO>(v[j]);
+      for (int e = 0; e < E; ++e) f[e] = npe_to_f32(val[e]);
+    }
+  }
+};
+
+// Store E values as TO at unit u: 8, 16 or 32 bytes of vector stores
+// (VEC), or masked scalar stores.
+template <typename TO, bool VEC, int E>
+__device__ __forceinline__ void store_unit(TO* __restrict__ y, long long u, long long n,
+                                           const float* f) {
+  if constexpr (VEC) {
+    if (u * E >= n) return;
+    if constexpr (E * sizeof(TO) == 16) {
+      *reinterpret_cast<uint4*>(y + u * E) = npe_pack16<TO>(f);
+    } else if constexpr (sizeof(TO) == 2) {   // 4 f32 in: 8 bytes out
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+      *reinterpret_cast<uint2*>(y + u * E) = make_uint2(
+          *reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    } else {                                  // 8 bf16 in: 32 bytes out
+      reinterpret_cast<uint4*>(y + u * E)[0] = npe_pack16<TO>(f);
+      reinterpret_cast<uint4*>(y + u * E)[1] = npe_pack16<TO>(f + 4);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (u * E + e < n) y[u * E + e] = npe_from_f32<TO>(f[e]);
   }
 }
 
-template <typename TI, typename TO>
-static void launch(const void* x, void* y, long long n, const float* table,
-                   int segs, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (n + threads * VALUES - 1) / (threads * VALUES);
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  pwl_eval_kernel<TI, TO><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const TI*>(x), static_cast<TO*>(y), n, table, segs);
+template <typename TI, typename TO, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+pwl_stream_kernel(const TI* __restrict__ x, TO* __restrict__ y, long long n,
+                  const float* __restrict__ table, int segs) {
+  using U = Unit<TI, VEC>;
+  constexpr int E = U::E;
+  __shared__ NpePrefixTable tab;
+  const long long units = (n + E - 1) / E;
+  const long long stride = (long long)gridDim.x * THREADS;
+  long long u = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const NpePrefixFetch fetch(table, segs);
+  U cur, next;
+  cur.load(x, u, n);                                // in flight ...
+  next.load(x, u + stride, n);
+  npe_build_prefix_table(tab, fetch, segs);         // ... during this
+  const int top = npe_prefix_top(segs);
+  for (;;) {
+    float v[E];
+    cur.to_f32(v);
+    npe_pwl_prefix_n<E>(v, tab, top);
+    store_unit<TO, VEC, E>(y, u, n, v);
+    u += stride;
+    if (u >= units) break;
+    cur = next;
+    next.load(x, u + stride, n);
+  }
 }
+
+template <typename TI, typename TO, bool VEC>
+int launch(const void* x, void* y, long long n, const float* table, int segs,
+           cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(TI);
+  static int resident = 0;   // blocks of this instance an SM holds at once
+  if (resident == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &resident, pwl_stream_kernel<TI, TO, VEC>, THREADS, 0) != cudaSuccess ||
+        resident < 1)
+      resident = 1;
+  }
+  const long long sms = npe_sm_count();
+  const long long units = (n + E - 1) / E;
+  long long blocks = (units + THREADS - 1) / THREADS;
+  if (blocks > sms) {
+    blocks = (blocks + sms - 1) / sms * sms;                // whole waves
+    if (blocks > sms * resident) blocks = sms * resident;   // the rest by the loop
+  }
+  pwl_stream_kernel<TI, TO, VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const TI*>(x), static_cast<TO*>(y), n, table, segs);
+  return (int)cudaGetLastError();
+}
+
+template <typename TI, typename TO>
+int launch_aligned_or_not(const void* x, void* y, long long n, const float* table,
+                          int segs, cudaStream_t s) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 && n % 8 == 0;
+  return vec ? launch<TI, TO, true>(x, y, n, table, segs, s)
+             : launch<TI, TO, false>(x, y, n, table, segs, s);
+}
+
+}  // namespace
 
 extern "C" int npe_pwl_eval(const void* x, void* y, long long n, int x_bf16,
                             int y_bf16, const float* table, int segments,
@@ -52,9 +147,9 @@ extern "C" int npe_pwl_eval(const void* x, void* y, long long n, int x_bf16,
   if (segments < 1 || segments + 1 > NPE_MAX_TABLE_COLS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && y_bf16) launch<__nv_bfloat16, __nv_bfloat16>(x, y, n, table, segments, s);
-  else if (x_bf16) launch<__nv_bfloat16, float>(x, y, n, table, segments, s);
-  else if (y_bf16) launch<float, __nv_bfloat16>(x, y, n, table, segments, s);
-  else launch<float, float>(x, y, n, table, segments, s);
-  return (int)cudaGetLastError();
+  using bf16 = __nv_bfloat16;
+  if (x_bf16 && y_bf16) return launch_aligned_or_not<bf16, bf16>(x, y, n, table, segments, s);
+  if (x_bf16) return launch_aligned_or_not<bf16, float>(x, y, n, table, segments, s);
+  if (y_bf16) return launch_aligned_or_not<float, bf16>(x, y, n, table, segments, s);
+  return launch_aligned_or_not<float, float>(x, y, n, table, segments, s);
 }

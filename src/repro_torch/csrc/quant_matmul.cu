@@ -333,17 +333,6 @@ qmm_rows_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
 // launch
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
-      n = 132;
-  }
-  return n;
-}
-
 // Decode grid: column tiles of DN, and K cut into slices (multiples of BK)
 // until the grid has at least one block an SM.
 struct RowGrid {
@@ -352,7 +341,7 @@ struct RowGrid {
 
 RowGrid row_grid(int n, int k) {
   const int tiles = (n + DN - 1) / DN;
-  const int want = (sm_count() + tiles - 1) / tiles;
+  const int want = (npe_sm_count() + tiles - 1) / tiles;
   const int slice = max(BK, (k / want) / BK * BK);
   return RowGrid{tiles, max(1, (k + slice - 1) / slice), slice};
 }
@@ -392,7 +381,7 @@ int launch(const int8_t* xq, const int8_t* wq, const float* xs, const float* ws,
     return (int)cudaGetLastError();
   }
   const long long big = (long long)((m + 127) / 128) * ((n + 127) / 128);
-  if (big >= sm_count())
+  if (big >= npe_sm_count())
     return launch_tiles<128, 128, 2, 4, VEC, TO>(xq, wq, xs, ws, out, m, n, k, table, segs, s);
   return launch_tiles<64, 64, 2, 2, VEC, TO>(xq, wq, xs, ws, out, m, n, k, table, segs, s);
 }

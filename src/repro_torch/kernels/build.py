@@ -54,6 +54,8 @@ SIGNATURES = {
     # recip_table, recip_segments, stream
     "npe_flash_attention": (P, P, P, P, *(LL,) * 16, *(I,) * 12, F, I, I, I,
                             P, I, P, I, P),
+    # stream: one empty 256-thread block, the launch floor chip_smoke.py times
+    "npe_launch_floor": (P,),
 }
 
 

@@ -14,7 +14,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, library, require_cuda, stream_handle
 from repro_torch.kernels.pwl_eval import KERNEL_DTYPES, device_table
 
-MAX_COLS = 8192      # a row is staged in shared memory
+MAX_COLS = 8192      # rows past 2048 columns are staged in shared memory
 
 
 def nvu_layernorm_plain(x: torch.Tensor, gamma: torch.Tensor,

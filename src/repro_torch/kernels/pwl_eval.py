@@ -1,7 +1,8 @@
 """Elementwise PWL kernel (counterpart of `repro/kernels/pwl_eval.py`).
 
 `pwl_eval(x, name)` launches `csrc/pwl_eval.cu` for a tensor on the card and
-runs `pwl_eval_plain` for one on the CPU.
+runs `pwl_eval_plain` for one on the CPU.  `pwl_eval_walk` is the kernel's
+own arithmetic in torch ops, which its float32 results equal bit for bit.
 """
 from __future__ import annotations
 
@@ -46,6 +47,23 @@ def device_table(name: str, segments: int, device: torch.device) -> torch.Tensor
 def pwl_eval_plain(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
     """The same function with torch ops, as `core/nvu.py` computes it."""
     return nvu.pwl_eval(x, table)
+
+
+def pwl_eval_walk(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The prefix-delta walk of `npe_pwl` (csrc/pwl.cuh) in float32 torch ops
+    over a packed table: start from slope_0 / icept_0, add each delta whose
+    knot x reaches, in knot order, then slope * x + icept.  Each eager op
+    rounds to nearest once (no multiply-add is fused), as the kernel's `_rn`
+    intrinsics do.  A bf16 result of the kernel is this value cast to bf16."""
+    xf = x.to(torch.float32)
+    tab = packed.to(device=x.device, dtype=torch.float32)
+    slope = tab[1, 0].expand_as(xf).clone()
+    icept = tab[2, 0].expand_as(xf).clone()
+    for i in range(1, tab.shape[1] - 1):
+        hit = xf >= tab[0, i]
+        slope = torch.where(hit, slope + tab[1, i], slope)
+        icept = torch.where(hit, icept + tab[2, i], icept)
+    return slope * xf + icept
 
 
 def pwl_eval(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:

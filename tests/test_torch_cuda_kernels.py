@@ -61,6 +61,84 @@ def test_pwl_eval(dev, shape, dtype, fn):
     _close(got, want, 1e-5, BF16_RTOL if dtype == torch.bfloat16 else 1e-5)
 
 
+def _bits(t):
+    """float32 bits of t, NaN as one pattern."""
+    f = t.float()
+    return torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f).view(torch.int32)
+
+
+def _pwl_c(x, y, name):
+    """The C entry on x into y, dtypes as given (bf16 in, f32 out, or the
+    reverse, which no wrapper asks for)."""
+    from repro_torch.kernels.build import check, library, stream_handle
+    tab = pe.device_table(name, 16, x.device)
+    check(library().npe_pwl_eval(
+        x.data_ptr(), y.data_ptr(), x.numel(), int(x.dtype == torch.bfloat16),
+        int(y.dtype == torch.bfloat16), tab.data_ptr(), tab.shape[1] - 1, stream_handle(x)),
+        "pwl_eval")
+    return y
+
+
+def _pwl_input(dev, n, dtype, offset, name):
+    """n values as a contiguous view `offset` elements into its storage (an
+    odd offset is not 16-byte aligned), with the table's knots, +-0 and
+    +-inf among them."""
+    flat = torch.randn(n + offset, generator=_gen(dev, 14), device=dev) * 4
+    knots = pe.device_table(name, 16, dev)[0, 1:-1]
+    special = torch.cat([knots, torch.tensor([0.0, -0.0, float("inf"), float("-inf")],
+                                            device=dev)])
+    m = min(n, special.numel())
+    flat[offset:offset + m] = special[:m]
+    return flat.to(dtype)[offset:]
+
+
+# lengths: 1 and 7 (not a multiple of 8: the scalar instance), 8, a decode
+# step's GELU and an encoder forward's; offset 1 puts any of them in the
+# scalar instance
+PWL_LENGTHS = [1, 7, 8, 24576, 1024 * 3072]
+
+
+@pytest.mark.parametrize("n", PWL_LENGTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["gelu", "exp"])
+def test_pwl_eval_is_the_walk_bit_for_bit(dev, n, offset, dtype, fn):
+    """Both instances: f32 results equal the prefix-delta walk in torch f32
+    ops bit for bit, bf16 results that value rounded to nearest even."""
+    x = _pwl_input(dev, n, dtype, offset, fn).view(1, n)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = LAUNCHES["pwl_eval"]
+    got = pe.pwl_eval(x, fn)
+    _launched("pwl_eval", before)
+    want = pe.pwl_eval_walk(x, pe.device_table(fn, 16, dev)).to(dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", [7, 24576])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["gelu", "exp"])
+def test_pwl_eval_wide_table_is_the_walk(dev, n, dtype, fn):
+    """32 segments (34 with the guards): twice the prefix rows' in-order
+    adds and one more search step; still the walk's bits."""
+    x = _pwl_input(dev, n, dtype, 0, fn).view(1, n)
+    got = pe.pwl_eval(x, fn, segments=32)
+    want = pe.pwl_eval_walk(x, pe.device_table(fn, 32, dev)).to(dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("n", PWL_LENGTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("x_dtype,y_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_pwl_eval_mixed_dtypes_is_the_walk(dev, n, offset, x_dtype, y_dtype):
+    x = _pwl_input(dev, n, x_dtype, offset, "gelu")
+    y = torch.empty(n + offset, dtype=y_dtype, device=dev)[offset:]
+    got = _pwl_c(x, y, "gelu")
+    torch.cuda.synchronize()
+    want = pe.pwl_eval_walk(x, pe.device_table("gelu", 16, dev)).to(y_dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 128, 64), (100, 300, 70), (17, 5, 3),
                                    (1024, 768, 768), (1024, 3072, 768),
                                    (1024, 768, 30720)])
@@ -168,6 +246,67 @@ def test_nvu_layernorm(dev, rows, cols, rms, dtype):
     _launched("nvu_layernorm", before)
     want = ln.nvu_layernorm_plain(x, gam, bet, eps=eps, rms_only=rms)
     _close(got, want, 3e-5, BF16_RTOL if dtype == torch.bfloat16 else 3e-5)
+
+
+def _ln_case(dev, rows, cols, dtype, offset=0, seed=15):
+    g = _gen(dev, seed)
+    flat = torch.randn(rows * cols + offset, generator=g, device=dev) * 3 + 0.7
+    x = flat.to(dtype)[offset:].view(rows, cols)
+    gam = 1 + 0.1 * torch.randn(cols, generator=g, device=dev)
+    bet = 0.1 * torch.randn(cols, generator=g, device=dev)
+    return x, gam, bet
+
+
+# warp instance: 768 (BERT), 1024, 2048 columns; block instance: 2056 and
+# wider, and a row that is not 16-byte aligned (offset 1)
+LN_COLS = [(768, 0), (1024, 0), (2048, 0), (2056, 0), (4096, 0), (8192, 0), (768, 1)]
+
+
+@pytest.mark.parametrize("cols,offset", LN_COLS)
+@pytest.mark.parametrize("rows", [1, 8, 1024, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nvu_layernorm_instances(dev, rows, cols, offset, dtype):
+    x, gam, bet = _ln_case(dev, rows, cols, dtype, offset)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = LAUNCHES["nvu_layernorm"]
+    got = ln.nvu_layernorm(x, gam, bet, eps=1e-12)
+    _launched("nvu_layernorm", before)
+    want = ln.nvu_layernorm_plain(x, gam, bet, eps=1e-12)
+    _close(got, want, 3e-5, BF16_RTOL if dtype == torch.bfloat16 else 3e-5)
+
+
+@pytest.mark.parametrize("cols,offset", LN_COLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["rms_only", "no_beta", "segments_32"])
+def test_nvu_layernorm_instances_options(dev, cols, offset, dtype, variant):
+    """rms_only, beta=None, and a 35-column rsqrt table (the block instance
+    at any width) on both instances, 8 rows."""
+    x, gam, bet = _ln_case(dev, 8, cols, dtype, offset, seed=16)
+    kw = dict(eps=1e-6 if variant == "rms_only" else 1e-12,
+              rms_only=variant == "rms_only",
+              segments=32 if variant == "segments_32" else 16)
+    b = None if variant == "no_beta" else bet
+    got = ln.nvu_layernorm(x, gam, b, **kw)
+    want = ln.nvu_layernorm_plain(x, gam, b, **kw)
+    _close(got, want, 3e-5, BF16_RTOL if dtype == torch.bfloat16 else 3e-5)
+
+
+@pytest.mark.parametrize("cols", [256, 264, 768, 1024, 2048])
+@pytest.mark.parametrize("rows", [8, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["layernorm", "rms_only", "no_beta"])
+def test_nvu_layernorm_warp_is_the_block_bit_for_bit(dev, rows, cols, dtype, variant):
+    """The warp instance adds in the block instance's order: the same values,
+    aligned (warp) and one element into their storage (block), give the same
+    bits."""
+    x, gam, bet = _ln_case(dev, rows, cols, dtype, seed=17)
+    skew = torch.empty(rows * cols + 1, dtype=dtype, device=dev)[1:].view(rows, cols)
+    skew.copy_(x)
+    kw = dict(eps=1e-6 if variant == "rms_only" else 1e-12, rms_only=variant == "rms_only")
+    b = None if variant == "no_beta" else bet
+    warp = ln.nvu_layernorm(x, gam, b, **kw)
+    block = ln.nvu_layernorm(skew, gam, b, **kw)
+    assert torch.equal(warp.float().view(torch.int32), block.float().view(torch.int32))
 
 
 def test_layernorm_rsqrt_over_the_f32_range(dev):
