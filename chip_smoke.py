@@ -9,29 +9,40 @@
    HMMA/IMMA (tensor-core) instructions in each kernel's SASS;
 3. times the launch floor (an empty 256-thread block), then holds each
    kernel against its plain PyTorch version on the card, at the shapes of
-   BERT-base 8x128 encoding and of 8-slot decode over a 256-row cache, with
-   its tolerance, its time, its bound and, where one PyTorch call computes
-   the same function, that call's time (`torch._int_mm` on decode rows
-   zero-padded to 32; the flash decode rows once more with the L2 flushed
-   before each launch); `pwl_eval` also bit for bit against the walk in
-   torch ops, in its vector and its scalar (unaligned) instance; beside
-   `pwl_eval` and `nvu_layernorm` a yardstick of the same bytes with exact
-   math, not the same function (`F.gelu`, `F.layer_norm`);
+   BERT-base 8x128 encoding and of 8-slot decode, with its tolerance, its
+   time, its bound and, where one PyTorch call computes the same function,
+   that call's time (`torch._int_mm` on decode rows zero-padded to 32;
+   `scaled_dot_product_attention` beside the exact-exp flash rows);
+   `pwl_eval` and `nvu_softmax` also bit for bit against their walks in
+   torch ops (`pwl_eval` in its vector and scalar (unaligned) instance,
+   `nvu_softmax` f32 and, with the encoder's scale 0.125, bf16 out);
+   flash's blocked mode and its dense mode (the decode path's attention:
+   decode steps over 256, 1024, 2048 and 16384 keys, a 128-token prefill); beside
+   `pwl_eval`, `nvu_softmax` and `nvu_layernorm` a yardstick of the same
+   bytes with exact math, not the same function (`F.gelu`,
+   `torch.softmax`, `F.layer_norm`), and beside `nvu_softmax` a copy of its
+   bytes; the encoder rows of those three and flash's decode rows once
+   more with the L2 flushed before each launch;
 4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
    through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
    and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
    quant_matmul, 25 nvu_layernorm, 12 nvu_softmax, 12 pwl_eval); holds every
    launch of one NPE-8 forward to its plain version on its own operands;
-   profiles one NPE-8 forward; and holds the kernel route at full width
-   (2 layers, float32) against the port's plain route on the CPU;
+   checks that the NPE-8 logits are bit for bit those of the scale and the
+   cast as torch ops around the softmax, and prints the launches that
+   folding them saves; profiles one NPE-8 forward; and holds the kernel
+   route at full width (2 layers, float32) against the port's plain route
+   on the CPU;
 5. serves KV-cache decode: full-width BERT-base through `launch.serve.Server`,
    8 slots, prompts of up to 128 tokens, 64 greedy tokens, a 256-row cache,
    in float, NPE-8 and NPE-16; counts the launches of one decode step and of
    one one-slot prefill in each mode (checked exactly); holds every launch of
    one NPE-8 step to its plain version; profiles one NPE-8 step; prints the
    top-1 agreement of each mode with float, all fed the float route's
-   tokens; and holds the kernel route (float32, 2 layers, full width,
-   prefill plus 4 steps) against the port's plain route on the CPU;
+   tokens, through the dense mode and, as it was before it, the blocked
+   flash route; and holds the kernel route (float32, 2 layers, full width,
+   prefill plus 4 steps; prompts of up to 128 tokens over 256 rows, and of
+   1100 and 300 tokens over 1152) against the port's plain route on the CPU;
 6. prints the kernel list, one JSON line of per-kernel numbers, the card, and
    last `{"ok": true, "device": {...}}`.
 
@@ -68,6 +79,7 @@ from repro_torch.core.pwl import get_table  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
 from repro_torch.models import bert, registry  # noqa: E402
+from repro_torch.models import common as cm_mod  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
 
 # H100 SXM data sheet, dense: HBM 3.35 TB/s, int8 tensor cores 1979 TOP/s,
@@ -112,6 +124,7 @@ TOLS = {
     ("quant_matmul", torch.float32): (1e-5, 1e-5),
     ("quant_matmul", torch.bfloat16): (1e-5, BF16_RTOL),
     ("nvu_softmax", torch.float32): (2e-5, 2e-5),
+    ("nvu_softmax", torch.bfloat16): (2e-5, BF16_RTOL),
     ("nvu_layernorm", torch.float32): (3e-5, 3e-5),
     ("nvu_layernorm", torch.bfloat16): (3e-5, BF16_RTOL),
     ("flash_attention", torch.float32): (2e-5, 2e-5),
@@ -128,6 +141,19 @@ def compare(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
     g, w = got.float(), want.float()
     err = (g - w).abs()
     return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
+
+
+def dense_compare(q, k, v, kw, got):
+    """(max-abs error, ok) of the dense mode against its plain version: within
+    atol + rtol*|want| as for flash (TOLS), plus 2^-7 of sum_j p_j |v_j|,
+    since with sums in another order a probability can round to the
+    neighbouring bf16 value before P.V (tests/test_torch_cuda_kernels.py)."""
+    want = fa_mod.dense_attention_plain(q, k, v, **kw)
+    spread = fa_mod.dense_attention_plain(q, k, v.abs(), **dict(kw, out_dtype=torch.float32))
+    atol, rtol = TOLS[("flash_attention", got.dtype)]
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs() + 2.0 ** -7 * spread).all())
+    return float(err.max()), ok
 
 
 def _kernel_times(prof, with_counts: bool = False):
@@ -335,22 +361,27 @@ def kernel_rows(dev, floor_ms):
 
     def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
             library_fn=None, library_name="torch._int_mm", cold=False,
-            walk_fn=None, yardstick_fn=None, yardstick_name=None):
+            walk_fn=None, yardstick_fn=None, yardstick_name=None, check_fn=None,
+            copy_fn=None):
         """`work`: (operations, rate) pairs of the bound.  With `cold`, the
-        kernel, library and yardstick times are taken with the L2 flushed
-        before each launch, the plain version's as usual.  `walk_fn`: a result
-        the kernel must equal bit for bit.  `yardstick_fn`: a call on the same
-        tensors that is timed only (not the same function)."""
+        kernel, library, yardstick and copy times are taken with the L2
+        flushed before each launch, the plain version's as usual.  `walk_fn`:
+        a result the kernel must equal bit for bit.  `yardstick_fn`: a call on
+        the same tensors that is timed only (not the same function).
+        `check_fn(got)`: (max-abs error, ok) in place of the TOLS comparison
+        with plain_fn.  `copy_fn`: one torch copy that moves the kernel's
+        bytes with no arithmetic, timed as the floor of its memory stream."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         atol, rtol = TOLS[(kernel, dtype)]
-        err, ok = compare(got, want, atol, rtol)
+        err, ok = check_fn(got) if check_fn else compare(got, want, atol, rtol)
         exact = same_bits(got, walk_fn()) if walk_fn else None
         timer = measure_cold if cold else measure
         ms, ev = timer(kernel_fn)
         lms, lev = timer(library_fn) if library_fn else (None, None)
         pms, pev = measure(plain_fn)
         yms, yev = timer(yardstick_fn) if yardstick_fn else (None, None)
+        cms, cev = timer(copy_fn) if copy_fn else (None, None)
         bms, by = bound(bytes_moved, *work)
         r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
                  max_abs_err=err, atol=atol, rtol=rtol, ok=ok and exact is not False,
@@ -362,13 +393,16 @@ def kernel_rows(dev, floor_ms):
                  bound_ms=bms, bound_by=by, bound_share=bms / (ms if ms is not None else ev),
                  library=library_name if library_fn else None,
                  yardstick_ms=(yms if yms is not None else yev) if yardstick_fn else None,
-                 yardstick=yardstick_name, launch_floor_ms=floor_ms)
+                 yardstick=yardstick_name, launch_floor_ms=floor_ms,
+                 copy_ms=(cms if cms is not None else cev) if copy_fn else None)
         rows.append(r)
         lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
         extra = "" if exact is None else f", walk {'bit-exact' if exact else 'DIFFERS'}"
         if yardstick_fn:
             extra += (f"  [{yardstick_name} {r['yardstick_ms']:.4f}: same bytes, exact math, "
                       "not the same function]")
+        if copy_fn:
+            extra += f"  [a copy of the same bytes {r['copy_ms']:.4f}]"
         if shape.startswith("(8,"):
             extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
         say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
@@ -426,15 +460,30 @@ def kernel_rows(dev, floor_ms):
             library_fn=None if act else (lambda: torch._int_mm(lib_a, b)),
             library_name="torch._int_mm" if m > 16 else "torch._int_mm, rows zero-padded to 32")
 
-    # nvu_softmax: the attention scores, (B*H*S, S) float32
+    # nvu_softmax: the attention scores, (B*H*S, S) float32, as the encoder
+    # calls it (scale 0.125, bf16 out), f32 out, and causal; bit for bit
+    # against the walk in torch ops; the encoder rows once more from a
+    # flushed L2, beside torch.softmax (exact math, f32 out: a yardstick)
+    # and a copy of the same bytes into the output's dtype
     x = torch.randn(12288, 128, generator=g, device=dev) * 3
-    # max, subtract, clamp, PWL exp, floor, sum, scale; one PWL 1/sum a row
-    sm_ops = x.numel() * (pwl_ops("exp") + 6) + x.shape[0] * (pwl_ops("recip") + 6)
-    for causal in (0, 128):
-        row("nvu_softmax", "(12288, 128)" + (" causal" if causal else ""), torch.float32,
-            lambda: sm_mod.nvu_softmax(x, causal_rows=causal),
-            lambda: sm_mod.nvu_softmax_plain(x, causal_rows=causal),
-            x.numel() * 8, [(sm_ops, F32_OPS_PER_S)])
+    # scale, max, subtract, clamp, the search and its multiply-add, floor,
+    # sum, multiply; one PWL 1/sum a row
+    sm_ops = x.numel() * (pwl_prefix_ops("exp") + 7) + x.shape[0] * (pwl_ops("recip") + 6)
+    for causal, scale, dt in ((0, 0.125, torch.bfloat16), (0, 1.0, torch.float32),
+                              (128, 1.0, torch.float32)):
+        y_copy = torch.empty(x.shape, dtype=dt, device=dev)   # f32 -> dt, no arithmetic
+        for cold in (False, True) if not causal else (False,):
+            row("nvu_softmax", "(12288, 128)" + (" causal" if causal else "")
+                + (f" scale {scale:g}" if scale != 1.0 else "") + (" cold L2" if cold else ""), dt,
+                lambda: sm_mod.nvu_softmax(x, causal_rows=causal, scale=scale, out_dtype=dt),
+                lambda: sm_mod.nvu_softmax_plain(x, causal_rows=causal, scale=scale, out_dtype=dt),
+                x.numel() * (4 + torch.empty((), dtype=dt).element_size()),
+                [(sm_ops, F32_OPS_PER_S)],
+                walk_fn=lambda: sm_mod.nvu_softmax_walk(x, causal_rows=causal, scale=scale,
+                                                        out_dtype=dt),
+                yardstick_fn=None if causal else (lambda: torch.softmax(x, dim=-1)),
+                yardstick_name="torch.softmax", cold=cold,
+                copy_fn=None if causal else (lambda: y_copy.copy_(x)))
 
     # nvu_layernorm: the embedding and both post-norms, (1024, 768), eps 1e-12
     gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
@@ -460,6 +509,7 @@ def kernel_rows(dev, floor_ms):
                 yardstick_name="F.layer_norm", cold=cold)
 
     flash_rows(dev, g, row)
+    dense_rows(dev, g, row)
     return rows
 
 
@@ -534,11 +584,60 @@ def flash_rows(dev, g, row):
                     library_fn=lib, library_name="scaled_dot_product_attention", cold=cold)
 
 
+# dense rows: (name, b, hq, hkv, sq, skv, kv_len); the decode path's shapes,
+# bf16 q, cache and output, PWL and exact exp
+DENSE_ROWS = [
+    ("dense decode", 8, 12, 12, 1, 256, 256),
+    ("dense decode", 8, 12, 12, 1, 1024, 1024),
+    ("dense decode", 8, 12, 12, 1, 2048, 2048),
+    ("dense decode", 8, 12, 12, 1, 16384, 16384),
+    ("dense prefill", 1, 12, 12, 128, 256, 128),
+]
+
+
+def dense_rows(dev, g, row):
+    """The flash kernel's dense mode (the decode path's attention) at a decode
+    step over 256, 1024 and 2048 keys (one pass) and 16384 keys (two
+    segments of 8192: three passes over K), and a 128-token prefill; bytes
+    and operations as for `flash_rows` (each input read once, whatever the
+    passes read again).  The decode rows are timed once more with the L2
+    flushed before each launch."""
+    import torch.nn.functional as F
+    for name, b, hq, hkv, sq, skv, kv_len in DENSE_ROWS:
+        d = 64
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        pairs = b * hq * visible_pairs(sq, kv_len, True, 0)
+        nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
+        mask = end_aligned_mask(sq, kv_len, True, 0, dev)
+        kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        for use_pwl in (True, False):
+            kw = dict(kv_len=kv_len, use_pwl=use_pwl, out_dtype=torch.bfloat16)
+            exp_ops = pwl_prefix_ops("exp") + 2 if use_pwl else 1
+            lib = None
+            if not use_pwl:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
+            for cold in (False, True) if name == "dense decode" else (False,):
+                row("flash_attention",
+                    f"{name} ({b}, {hq}, {sq}, {d}) kv {kv_len}/{skv}" + (" pwl" if use_pwl else "")
+                    + (" cold L2" if cold else ""),
+                    torch.bfloat16,
+                    lambda: fa_mod.dense_attention(q, k, v, **kw),
+                    lambda: fa_mod.dense_attention_plain(q, k, v, **kw),
+                    nbytes, [(pairs * 4 * d, BF16_OPS_PER_S), (pairs * (exp_ops + 5), F32_OPS_PER_S)],
+                    library_fn=lib, library_name="scaled_dot_product_attention", cold=cold,
+                    check_fn=lambda got: dense_compare(q, k, v, kw, got))
+
+
 # --- phase 4: full-width BERT-base ------------------------------------------
 
 class Audit:
-    """Wrap the five kernel wrappers that `ops` calls so that every launch is
-    also computed by its plain version on the same operands."""
+    """Wrap the kernel wrappers that the models call through `ops` so that
+    every launch is also computed by its plain version on the same operands
+    (the dense mode's launches count as flash_attention's; the blocked mode
+    serves no model)."""
 
     def __init__(self):
         self.stats = {k: [0, 0.0, True] for k in KERNELS}
@@ -565,10 +664,10 @@ class Audit:
                         qm_mod.quant_matmul_plain(xq, wq, xs, ws, t, out_dtype), out_dtype)
             return y
 
-        def sm(x, segments=16, causal_rows=0):
-            y = sm_mod.nvu_softmax(x, segments, causal_rows)
-            self._check("nvu_softmax", y, sm_mod.nvu_softmax_plain(x, segments, causal_rows),
-                        x.dtype)
+        def sm(x, segments=16, causal_rows=0, scale=1.0, out_dtype=None):
+            y = sm_mod.nvu_softmax(x, segments, causal_rows, scale, out_dtype)
+            self._check("nvu_softmax", y, sm_mod.nvu_softmax_plain(
+                x, segments, causal_rows, scale, out_dtype), y.dtype)
             return y
 
         def ln(x, gamma, beta, eps=1e-5, segments=16, rms_only=False):
@@ -577,15 +676,18 @@ class Audit:
                 x, gamma, beta, eps, segments, rms_only), x.dtype)
             return y
 
-        def flash(q, k, v, **kw):
-            y = fa_mod.flash_attention(q, k, v, **kw)
-            self._check("flash_attention", y, fa_mod.flash_attention_plain(q, k, v, **kw),
-                        y.dtype)
+        def dense(q, k, v, **kw):
+            y = fa_mod.dense_attention(q, k, v, **kw)
+            err, ok = dense_compare(q, k, v, dict(kw, out_dtype=y.dtype), y)
+            st = self.stats["flash_attention"]
+            st[0] += 1
+            st[1] = max(st[1], err)
+            st[2] = st[2] and ok
             return y
 
         for attr, fn in [("pwl_eval", pwl), ("quant_matmul", qm),
                          ("nvu_softmax", sm), ("nvu_layernorm", ln),
-                         ("flash_attention_kernel", flash)]:
+                         ("dense_attention", dense)]:
             self.saved[attr] = getattr(ops, attr)
             setattr(ops, attr, fn)
         return self
@@ -593,6 +695,58 @@ class Audit:
     def __exit__(self, *exc):
         for attr, fn in self.saved.items():
             setattr(ops, attr, fn)
+
+
+class SeparateScaleAndCast:
+    """The encoder's NPE softmax with the score scale and the cast to bf16 as
+    torch ops around an f32 launch, as the encoder computed them before the
+    kernel took both: the same f32 multiply and the same rounding, two more
+    launches a layer."""
+
+    def __enter__(self):
+        self.folded = ops.softmax
+
+        def separate(x, segments=16, causal=False, scale=1.0, out_dtype=None):
+            return self.folded(x * scale, segments, causal).to(out_dtype or x.dtype)
+
+        ops.softmax = separate
+        return self
+
+    def __exit__(self, *exc):
+        ops.softmax = self.folded
+
+
+def blocked_attention_over_cache(cfg, q, cache_k, cache_v, pos):
+    """The decode path's attention through the blocked flash route (KV blocks
+    of min(256, max_seq), a running rescale, probabilities kept f32 in P.V),
+    which the dense mode replaced: kept to show what the agreement was."""
+    out = ops.flash_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
+                              cache_v.permute(0, 2, 1, 3), causal=True,
+                              use_pwl=cfg.npe_pwl, segments=cfg.npe_pwl_segments,
+                              kv_len=pos + q.shape[1], out_dtype=cache_v.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+class BlockedAttention:
+    """Route the decode path's attention through `blocked_attention_over_cache`."""
+
+    def __enter__(self):
+        self.dense = cm_mod.attention_over_cache
+        cm_mod.attention_over_cache = blocked_attention_over_cache
+        return self
+
+    def __exit__(self, *exc):
+        cm_mod.attention_over_cache = self.dense
+
+
+def device_launches(fn) -> int:
+    """Kernels and copies the card ran in one call of fn, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for _, _, n in _kernel_times(prof, with_counts=True))
 
 
 def nudge(model: Bert) -> Bert:
@@ -707,6 +861,22 @@ def serve_phase(dev, card, results):
     if any(not ok for _, _, ok in audit.stats.values()) or \
             {k: audit.stats[k][0] for k in EXPECTED_LAUNCHES} != EXPECTED_LAUNCHES:
         raise SystemExit("a launch of the NPE-8 forward disagrees with its plain version")
+
+    # the scale and the cast folded into nvu_softmax: the same logits, fewer launches
+    npe8 = servers["npe-8bit"]
+    folded = npe8.answer(work[0])[0]
+    with SeparateScaleAndCast():
+        separate = npe8.answer(work[0])[0]
+        n_sep = device_launches(lambda: npe8.answer(work[0]))
+    n_fold = device_launches(lambda: npe8.answer(work[0]))
+    same = torch.equal(folded, separate)
+    results["softmax_fold"] = dict(bit_for_bit=same, device_launches_separate=n_sep,
+                                   device_launches_folded=n_fold, saved=n_sep - n_fold)
+    say(f"  NPE-8 logits, scale and cast folded into nvu_softmax vs as torch ops around it: "
+        f"{'bit for bit' if same else 'DIFFER'}; device launches of one forward "
+        f"{n_sep} -> {n_fold} ({n_sep - n_fold} torch launches saved, torch.profiler)")
+    if not same:
+        raise SystemExit("folding the scale and the cast into nvu_softmax changed the logits")
 
     prof = profile_forward(servers["npe-8bit"], work[0])
     results["profile"] = prof
@@ -833,23 +1003,38 @@ def decode_phase(dev, card, results):
     results["decode_agreement"] = agree
     say("  top-1 agreement with the float route's tokens, every mode fed them: " +
         ", ".join(f"{m} {a:.4f}" for m, a in agree.items()))
+    with BlockedAttention():   # the same, through the blocked route
+        fl = servers["float"]
+        fl.cache = registry.init_cache(fl.cfg, SLOTS, MAX_SEQ, dev)
+        feed_b = fl.generate(prompts, gen_tokens=GEN).generated
+        before = {mode: float((teacher_forced(srv, prompts, feed_b) == feed_b).mean())
+                  for mode, srv in servers.items()}
+    results["decode_agreement_blocked"] = before
+    say("  the same through the blocked flash route (f32 probabilities), as before the "
+        "dense mode: " + ", ".join(f"{m} {a:.4f}" for m, a in before.items()))
 
 
 def decode_route_check(dev, results):
     """The decode path's kernel route on the card against the port's plain
     route on the CPU: full width cut to 2 layers, float32 weights, bf16
-    cache, two slots prefilled alone, then 4 steps fed the same tokens."""
+    cache, the slots prefilled alone, then 4 steps fed the same tokens.  Two
+    runs: prompts of up to 128 tokens over a 256-row cache, and prompts of
+    1100 and 300 tokens over an 1152-row cache (past one 256-key block, and
+    past the 1024 keys one pass of the dense mode holds)."""
     cfg = dataclasses.replace(get_config("bert_base"), num_layers=2, dtype="float32")
     cpu_model = Bert(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     card_model = Bert(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
     noisy = nudge(cpu_model)
-    prompts = decode_prompts(cfg.vocab_size, seed=2, n=2)
-    start = max(len(p) for p in prompts)
-    feed = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 4))
+    rng = np.random.default_rng(3)
+    long_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1100, 300)]
+    feed = rng.integers(0, cfg.vocab_size, (2, 4))
+    runs = {"short": (decode_prompts(cfg.vocab_size, seed=2, n=2), MAX_SEQ),
+            "long": (long_prompts, 1152)}
 
-    def run(c, model, device):
-        cache = registry.init_cache(c, 2, MAX_SEQ, device)
+    def run(c, model, device, prompts, max_seq):
+        start = max(len(p) for p in prompts)
+        cache = registry.init_cache(c, 2, max_seq, device)
         logits = []
         for slot, p in enumerate(prompts):
             sub = {"full": {k: t[:, slot:slot + 1] for k, t in cache["full"].items()}}
@@ -863,24 +1048,30 @@ def decode_route_check(dev, results):
         return torch.cat(logits).float().cpu()
 
     out = {}
-    for mode in ("float", "npe-16bit", "npe-8bit"):
-        c = MODES[mode](cfg)
-        want, got, ref2 = run(c, cpu_model, "cpu"), run(c, card_model, dev), run(c, noisy, "cpu")
-        err = float((got - want).abs().max())
-        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        noise = float((ref2 - want).abs().max())
-        noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
-        gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
-        gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if mode == "npe-8bit" else 0.99
-        ok = err <= gate and top1 >= gate_top1 and bool(torch.isfinite(got).all())
-        out[mode] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
-                         noise_max_abs=noise, noise_top1=noise_top1, ok=ok)
-        say(f"  {mode:10s} decode, card kernels vs CPU plain route (float32, 2 layers, "
-            f"prefill + 4 steps): max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} "
-            f"(gate {gate_top1:.4f}); CPU plain route under 1-ulp weights: max-abs "
-            f"{noise:.3e}, top-1 {noise_top1:.4f}" + ("" if ok else "  FAIL"))
-        if not ok:
-            raise SystemExit(f"{mode}: the decode kernel route disagrees with the plain route")
+    for name, (prompts, max_seq) in runs.items():
+        for mode in ("float", "npe-16bit", "npe-8bit"):
+            c = MODES[mode](cfg)
+            args = (prompts, max_seq)
+            want, got = run(c, cpu_model, "cpu", *args), run(c, card_model, dev, *args)
+            ref2 = run(c, noisy, "cpu", *args)
+            err = float((got - want).abs().max())
+            top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            noise = float((ref2 - want).abs().max())
+            noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
+            gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
+            gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if mode == "npe-8bit" else 0.99
+            ok = err <= gate and top1 >= gate_top1 and bool(torch.isfinite(got).all())
+            out[f"{name} {mode}"] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
+                                         noise_max_abs=noise, noise_top1=noise_top1, ok=ok,
+                                         prompts=[len(p) for p in prompts], max_seq=max_seq)
+            say(f"  {mode:10s} decode, card kernels vs CPU plain route (float32, 2 layers, "
+                f"prompts {[len(p) for p in prompts]}, {max_seq} rows, prefill + 4 steps): "
+                f"max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} (gate {gate_top1:.4f}); "
+                f"CPU plain route under 1-ulp weights: max-abs {noise:.3e}, top-1 "
+                f"{noise_top1:.4f}" + ("" if ok else "  FAIL"))
+            if not ok:
+                raise SystemExit(f"{name} {mode}: the decode kernel route disagrees with the "
+                                 "plain route")
     results["decode_route_check"] = out
 
 
@@ -912,10 +1103,11 @@ def main() -> int:
         mma = ("HMMA %4d IMMA %4d" % tuple(sass[fn]) if sass and fn in sass
                else "HMMA/IMMA not available")
         say(f"    {names[fn][:58]:58s} {regs:3d} regs {smem:5d} B  spills {st}/{ld}  {mma}")
-    new = {fn: ptx[fn] for fn in ptx
-           if "pwl_stream_kernel" in fn or "nvu_layernorm_warp_kernel" in fn}
+    rebuilt = ("pwl_stream_kernel", "nvu_layernorm_warp_kernel", "nvu_softmax_kernel",
+               "flash_dense_decode_kernel", "flash_dense_mma_kernel")
+    new = {fn: ptx[fn] for fn in ptx if any(k in fn for k in rebuilt)}
     spilled = [names[fn] for fn, (_, _, st, ld) in new.items() if st or ld]
-    say(f"    {len(new)} instances of pwl_stream_kernel / nvu_layernorm_warp_kernel, "
+    say(f"    {len(new)} instances of {' / '.join(rebuilt)}, "
         f"spills in {spilled if spilled else 'none'}")
     if sass is None:
         say("    SASS tensor-core instructions: not available (no cuobjdump)")
@@ -947,10 +1139,11 @@ def main() -> int:
     kernels = []
     main_rows = {"pwl_eval": ("decode", "(8, 3072) gelu"),
                  "quant_matmul": ("decode", "(8, 768) @ (768, 3072)"),
-                 "nvu_softmax": ("encoder", "(12288, 128)"),
+                 "nvu_softmax": ("encoder", "(12288, 128) scale 0.125"),
                  "nvu_layernorm": ("decode", "(8, 768)"),
-                 "flash_attention": ("decode", "decode (8, 12, 1, 64) kv 192/256 pwl")}
-    exact_decode = next(r for r in rows if r["shape"] == "decode (8, 12, 1, 64) kv 192/256")
+                 "flash_attention": ("decode", "dense decode (8, 12, 1, 64) kv 256/256 pwl")}
+    by_shape = {r["shape"]: r for r in rows if r["kernel"] == "flash_attention"}
+    exact_decode = by_shape["dense decode (8, 12, 1, 64) kv 256/256"]
     for name in KERNELS:
         path, shape = main_rows[name]
         r = next(r for r in rows if r["kernel"] == name and r["shape"] == shape)
@@ -963,8 +1156,19 @@ def main() -> int:
             shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"]))
+        cold = next((c for c in rows if c["kernel"] == name and c["dtype"] == r["dtype"]
+                     and c["shape"] == shape + " cold L2"), None)
+        if cold:
+            kernels[-1]["cold_ms"] = cold["ms"]
+            if cold["copy_ms"] is not None:
+                kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
+        if r["yardstick"]:
+            kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
     flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["mode"] = "dense"   # the decode path's attention: a mode of this kernel's source
+    flash["dense_mode_replaces"] = "src/repro/models/common.py:205 (attention_scores, cache case)"
     flash["library_ms_exact_exp"] = exact_decode["library_ms"]
+    flash["blocked_ms"] = by_shape["decode (8, 12, 1, 64) kv 192/256 pwl"]["ms"]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))

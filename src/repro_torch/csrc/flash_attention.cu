@@ -55,6 +55,34 @@
 // * f32 K/V (no main path hands the kernel f32 K/V): `flash_f32kv_kernel`,
 //   the CUDA-core kernel of the first port, one warp for 4 of 16 query rows
 //   of a head, K and V tiles staged as f32 in padded shared memory.
+// After the decode path moved to the dense mode below, the blocked mode
+// serves no model, as the TPU kernel serves none in the reference.
+//
+// The dense mode (`npe_attention_dense`) is what the decode path runs: the
+// cache case of the reference's `attention_scores` (src/repro/models/
+// common.py, with nvu_softmax and nvu_reciprocal of src/repro/core/nvu.py),
+// which is no Pallas kernel.  For each query row at position pos (causal,
+// end-aligned) over bf16 K/V: s = (q . k) * scale in f32, keys past pos
+// masked; m = the max over every visible key, with no running rescale;
+// e = nvu_exp(s - m) (npe_softmax_exp_n) or exp; p = e * pwl_recip(sum e)
+// or e / sum e, rounded to bf16 as `probs.astype(v.dtype)`; out = P.V
+// accumulated in f32.  A pass keeps its keys' scores in shared memory
+// (8192 keys of one query row, or 1024 of 8 rows or of a 16-row tile):
+// when the visible keys fit, one pass of Q.K^T gives the max, the sum and p;
+// past that the kernel makes three passes over the keys (the max, then the
+// sum with that max fixed, then P.V with the normalized, rounded p), so
+// every cache length is served in one launch.  Two instances, chosen by
+// shape as in the blocked mode:
+// * at most 8 query rows a kv head: `flash_dense_decode_kernel`, the decode
+//   instance's layout (a block of 8 warps a (batch, kv head), 16-byte loads
+//   of the cache, keys split across threads, f32 products on the CUDA
+//   cores, partial accumulators summed at the end).
+// * more rows: `flash_dense_mma_kernel`, the tensor-core instance's layout
+//   (16 query rows a block, 128-key chunks through the cp.async ring,
+//   mma.sync for Q.K^T and P.V).  q is split into bf16 pieces unscaled (one
+//   piece for bf16 q) and the scale multiplies the f32 product, as in
+//   attention_scores; p is one bf16 operand by definition, so it needs no
+//   split.
 #include "hopper.cuh"
 #include "pwl.cuh"
 
@@ -804,6 +832,474 @@ flash_mma_kernel(const Args a) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// the dense mode: one softmax over every visible key (attention_scores)
+// ---------------------------------------------------------------------------
+
+constexpr int DENSE_SCORES = 8192;       // scores a decode block keeps in shared memory (32 KB)
+constexpr int DENSE_SEG = 1024;          // keys a pass of the tensor-core instance keeps, 16 rows each
+
+// exp of N values z = s - m: the NVU's (npe_softmax_exp_n) or expf.
+template <int N>
+__device__ __forceinline__ void dense_exp_n(float (&z)[N], const Args& a,
+                                            const NpePrefixTable& t, int top) {
+  if (a.use_pwl) {
+    npe_softmax_exp_n<N>(z, t, top);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) z[i] = expf(z[i]);
+  }
+}
+
+// What normalizes a row with sum l: its PWL reciprocal (NPE), or l, which p
+// divides by (exact; l >= 1 for any row that sees a key, the clamp only keeps
+// a row that sees none finite).
+__device__ __forceinline__ float dense_norm(float l, const Args& a, const NpePrefixTable& rt,
+                                            int rtop) {
+  return a.use_pwl ? npe_softmax_inv(l, rt, rtop) : fmaxf(l, 1e-30f);
+}
+
+// p = e * (1/l) or e / l, rounded to bf16 (returned as the exact f32 value).
+__device__ __forceinline__ float dense_p(float e, float norm, const Args& a) {
+  const float p = a.use_pwl ? __fmul_rn(e, norm) : __fdiv_rn(e, norm);
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
+template <int D, int ROWS>
+__global__ void __launch_bounds__(DEC_THREADS, 1)
+flash_dense_decode_kernel(const Args a) {
+  constexpr int LPK = D / 8;               // lanes a key row, 8 bf16 a lane
+  constexpr int KPI = DEC_THREADS / LPK;   // keys a pass of the block
+  constexpr int U = ROWS > 1 ? 2 : (D == 32 ? 4 : 8);  // 16-byte loads in flight a thread
+  constexpr int CH = KPI * U;              // keys a chunk
+  constexpr int SEG = DENSE_SCORES / ROWS; // keys a pass keeps
+  extern __shared__ float smem[];          // ROWS x SEG: scores, e, p; at the end the partials
+  __shared__ float red[ROWS][DEC_WARPS];
+  __shared__ NpePrefixTable etab, rtab;
+  const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
+
+  const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
+  const int group = a.hq / a.hkv;
+  const int nrows = group * a.sq;          // row r: q head hk*group + r / sq, query r % sq
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = tid % LPK, slot = tid / LPK;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] +
+                            hk * a.ks[1] + sub * 8;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] +
+                            hk * a.vs[1] + sub * 8;
+
+  int pos[ROWS];                           // -1: a padding row, every key masked
+  float qv[ROWS][8], acc[ROWS][8];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int i = r < nrows ? r % a.sq : 0, h = hk * group + (r < nrows ? r / a.sq : 0);
+    pos[r] = r < nrows ? a.kv_len - a.sq + i : -1;
+    const long long qb = b * a.qs[0] + h * a.qs[1] + i * a.qs[2];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      qv[r][c] = r < nrows ? load(a.q, qb + (sub * 8 + c) * a.qs[3], a.q_bf16) : 0.f;
+      acc[r][c] = 0.f;
+    }
+  }
+  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+  const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
+  const int nseg = (a.kv_len + SEG - 1) / SEG;
+
+  auto load_chunk = [&](uint4 (&w)[U], const __nv_bfloat16* base, long long stride, int s0,
+                        int t0, int nk) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * KPI + slot;
+      w[u] = t < nk ? __ldg(reinterpret_cast<const uint4*>(base + (long long)(s0 + t) * stride))
+                    : make_uint4(0, 0, 0, 0);
+    }
+  };
+  // the scores (q . k) * scale of keys s0..s0+nk-1, masked at NEG_BIG, into
+  // smem; each thread's max into mx
+  auto scores = [&](int s0, int nk, float (&mx)[ROWS]) {
+    uint4 w[U];
+    for (int t0 = 0; t0 < nk; t0 += CH) {
+      load_chunk(w, kp, a.ks[2], s0, t0, nk);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * KPI + slot;
+        float kf[8];
+        unpack8(w[u], kf);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) dot = fmaf(qv[r][c], kf[c], dot);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (t < nk) {
+            const float s = s0 + t > pos[r] ? NEG_BIG : __fmul_rn(dot, a.scale);
+            if (sub == 0) smem[r * SEG + t] = s;
+            mx[r] = fmaxf(mx[r], s);
+          }
+        }
+      }
+    }
+  };
+  // the block's max (or sum, in the order of the warps) of each row
+  auto block_reduce = [&](float (&v)[ROWS], bool is_max) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float x = is_max ? npe_warp_max(v[r]) : npe_warp_sum(v[r]);
+      if (lane == 0) red[r][warp] = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float x = red[r][0];
+#pragma unroll
+      for (int j = 1; j < DEC_WARPS; ++j) x = is_max ? fmaxf(x, red[r][j]) : __fadd_rn(x, red[r][j]);
+      v[r] = x;
+    }
+    __syncthreads();                       // red is free again
+  };
+
+  float m[ROWS], norm[ROWS], part[ROWS];
+  // keys s0..s0+nk-1 of smem, in place: scores to e (summed into part),
+  // scores to p, or (from_e) e to p
+  auto softmax = [&](int s0, int nk, bool to_p, bool from_e) {
+    for (int t = tid; t < nk; t += DEC_THREADS) {
+      float z[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) z[r] = smem[r * SEG + t];
+      if (!from_e) {
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) z[r] = __fsub_rn(z[r], m[r]);
+        dense_exp_n<ROWS>(z, a, etab, top);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) z[r] = s0 + t > pos[r] ? 0.f : z[r];
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (to_p) {
+          smem[r * SEG + t] = dense_p(z[r], norm[r], a);
+        } else {
+          smem[r * SEG + t] = z[r];
+          part[r] = __fadd_rn(part[r], z[r]);
+        }
+      }
+    }
+  };
+
+  // pass 1: the max over every visible key
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) m[r] = NEG_BIG;
+  for (int seg = 0; seg < nseg; ++seg)
+    scores(seg * SEG, min(SEG, a.kv_len - seg * SEG), m);
+  block_reduce(m, true);                   // also: one segment's scores are in smem
+  // pass 2: the sum with the max fixed
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) part[r] = 0.f;
+  for (int seg = 0; seg < nseg; ++seg) {
+    const int s0 = seg * SEG, nk = min(SEG, a.kv_len - s0);
+    if (nseg > 1) {
+      float unused[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) unused[r] = NEG_BIG;
+      __syncthreads();                     // the last segment's readers are done
+      scores(s0, nk, unused);
+      __syncthreads();
+    }
+    softmax(s0, nk, false, false);
+  }
+  block_reduce(part, false);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) norm[r] = dense_norm(part[r], a, rtab, rtop);
+  // pass 3: P.V with the normalized, rounded p
+  for (int seg = 0; seg < nseg; ++seg) {
+    const int s0 = seg * SEG, nk = min(SEG, a.kv_len - s0);
+    uint4 w[U];
+    if (nseg > 1) {
+      float unused[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) unused[r] = NEG_BIG;
+      __syncthreads();
+      scores(s0, nk, unused);
+      __syncthreads();
+    }
+    load_chunk(w, vp, a.vs[2], s0, 0, nk);   // V of the first chunk, in flight over the softmax
+    softmax(s0, nk, true, nseg == 1);
+    __syncthreads();                       // p is in smem
+    for (int t0 = 0; t0 < nk; t0 += CH) {
+      if (t0 > 0) load_chunk(w, vp, a.vs[2], s0, t0, nk);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * KPI + slot;
+        if (t >= nk) continue;
+        float vf[8];
+        unpack8(w[u], vf);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= nrows) continue;
+          const float p = smem[r * SEG + t];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(p, vf[c], acc[r][c]);
+        }
+      }
+    }
+  }
+
+  // sum the partial accumulators: over the lanes of a warp that share `sub`,
+  // then across warps in smem; p was normalized, so the sum is the output
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        acc[r][c] = __fadd_rn(acc[r][c], __shfl_xor_sync(0xffffffffu, acc[r][c], o));
+  __syncthreads();                         // smem's p is read
+  if (lane < LPK) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) smem[(warp * ROWS + r) * D + sub * 8 + c] = acc[r][c];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
+    const int r = idx / D, c = idx % D;
+    float s = smem[r * D + c];
+#pragma unroll
+    for (int j = 1; j < DEC_WARPS; ++j) s = __fadd_rn(s, smem[(j * ROWS + r) * D + c]);
+    const int i = r % a.sq, h = hk * group + r / a.sq;
+    store(a, b * a.os[0] + h * a.os[1] + i * a.os[2] + c * a.os[3], s);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * MMA_WARPS)
+flash_dense_mma_kernel(const Args a) {
+  using L = MmaLayout<D>;
+  constexpr int DS = L::DS;
+  constexpr int NT = D / 8;              // n8 tiles of the output
+  constexpr int CHUNKS = DENSE_SEG / KC; // chunks of a segment
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qp = ring + L::RING_ELEMS;
+  float* s_s = reinterpret_cast<float*>(qp + L::QP);   // a segment's scores or e, fragment order
+  __shared__ float red[MMA_WARPS][16];
+  __shared__ NpePrefixTable etab, rtab;
+  const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.hq, h = bh % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  const int q0 = blockIdx.x * 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+
+  // q (unscaled: the scale multiplies the product) in bf16 pieces
+  const long long qbase = b * a.qs[0] + h * a.qs[1];
+  for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D;
+    const float x = q0 + r < a.sq ? load(a.q, qbase + (q0 + r) * a.qs[2] + c * a.qs[3], a.q_bf16)
+                                  : 0.f;
+    float p[3];
+    npe_split3(x, p);
+#pragma unroll
+    for (int j = 0; j < Q_PIECES_MAX; ++j) qp[(j * 16 + r) * DS + c] = __float2bfloat16_rn(p[j]);
+  }
+  // ends synced: q pieces staged too
+  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+  const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
+
+  // this lane's rows of the tile: g and g + 8 (-1: past Sq, every key masked)
+  int pos[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = q0 + g + 8 * e;
+    pos[e] = i < a.sq ? a.kv_len - a.sq + i : -1;
+  }
+  const int kv_hi = a.kv_len - a.sq + min(q0 + 16, a.sq);   // keys some row of the tile sees
+  const int nseg = (kv_hi + DENSE_SEG - 1) / DENSE_SEG;
+  float m[2] = {NEG_BIG, NEG_BIG}, norm[2] = {1.f, 1.f}, part[2] = {0.f, 0.f}, acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // each row's max (or sum, in the order of the warps) over the block: the
+  // quad of lanes that hold it, then the warps
+  auto rows_reduce = [&](float (&v)[2], bool is_max) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, v[e], o);
+        v[e] = is_max ? fmaxf(v[e], y) : __fadd_rn(v[e], y);
+      }
+    if (t4 == 0) {
+      red[warp][g] = v[0];
+      red[warp][g + 8] = v[1];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = red[0][g + 8 * e];
+#pragma unroll
+      for (int w = 1; w < MMA_WARPS; ++w)
+        x = is_max ? fmaxf(x, red[w][g + 8 * e]) : __fadd_rn(x, red[w][g + 8 * e]);
+      v[e] = x;
+    }
+    __syncthreads();                       // red is free again
+  };
+  // e of a fragment's 8 scores (keys from kc), masked to 0; summed into part
+  auto frag_exp = [&](float (&z)[8], int kc) {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(z[x], m[(x >> 1) & 1]);
+    dense_exp_n<8>(z, a, etab, top);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
+      z[x] = col > pos[(x >> 1) & 1] ? 0.f : z[x];
+      part[(x >> 1) & 1] = __fadd_rn(part[(x >> 1) & 1], z[x]);
+    }
+  };
+
+  // One sweep over the keys s0.. of a segment: its K chunks and, in phase 2,
+  // its V chunks, through the ring (RING - 1 of them in flight).  Phase 0:
+  // the max of the scores; phase 1: the sum of e; phase 2: e into s_s
+  // (with one segment: the scores, then at the first V chunk the max, e and
+  // the sum), then P.V with p = e normalized and rounded to bf16.
+  auto sweep = [&](int phase, int s0) {
+    const int s_end = min(s0 + DENSE_SEG, kv_hi);
+    const int nc = (s_end - s0 + KC - 1) / KC;
+    const int items = phase == 2 ? 2 * nc : nc;
+    auto issue = [&](int it) {
+      const bool is_k = it < nc;
+      const __nv_bfloat16* src = is_k ? kg : vg;
+      const long long stride = is_k ? a.ks[2] : a.vs[2];
+      const int key0 = s0 + (is_k ? it : it - nc) * KC;
+      __nv_bfloat16* dst = ring + (it % RING) * KC * DS;
+      for (int x = tid; x < KC * (D / 8); x += blockDim.x) {
+        const int kr = x / (D / 8), piece = x % (D / 8);
+        const int key = key0 + kr;
+        const bool ok = key < s_end;       // never past the keys the tile sees
+        npe_cp_async16(dst + kr * DS + piece * 8, ok ? src + key * stride + piece * 8 : src,
+                       ok ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int it = 0; it < RING - 1; ++it) {
+      if (it < items) issue(it);
+      npe_cp_async_commit();
+    }
+    for (int it = 0; it < items; ++it) {
+      npe_cp_async_wait<RING - 2>();
+      __syncthreads();        // item `it` staged; every warp is done with item it-1's stage
+      if (it + RING - 1 < items) issue(it + RING - 1);
+      npe_cp_async_commit();
+      const __nv_bfloat16* tile = ring + (it % RING) * KC * DS;
+      const int j = it < nc ? it : it - nc;
+      const int kc = s0 + j * KC + warp * 16;   // this warp's first key
+      float* sfrag = s_s + ((warp * CHUNKS + j) * 32 + lane) * 8;
+      if (it < nc) {
+        // S = (q . K^T) * scale over this warp's 16 keys, masked at NEG_BIG
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t bk[4];
+          npe_ldsm_x4(bk, tile + (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          for (int pc = 0; pc < a.q_pieces; ++pc) {
+            uint32_t aq[4];
+            npe_ldsm_x4(aq, qp + (pc * 16 + (lane & 15)) * DS + kk * 16 + (lane >> 4) * 8);
+            npe_mma_bf16(s[0], aq, bk[0], bk[1]);
+            npe_mma_bf16(s[1], aq, bk[2], bk[3]);
+          }
+        }
+        float z[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
+          const float v = s[x >> 2][x & 3];
+          z[x] = col > pos[(x >> 1) & 1] ? NEG_BIG : __fmul_rn(v, a.scale);
+        }
+        if (phase == 0 || (phase == 2 && nseg == 1)) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) m[(x >> 1) & 1] = fmaxf(m[(x >> 1) & 1], z[x]);
+        } else {
+          frag_exp(z, kc);                 // phase 1, or phase 2 of several segments
+        }
+        if (phase == 2) {
+          reinterpret_cast<float4*>(sfrag)[0] = make_float4(z[0], z[1], z[2], z[3]);
+          reinterpret_cast<float4*>(sfrag)[1] = make_float4(z[4], z[5], z[6], z[7]);
+        }
+      } else {
+        if (it == nc && nseg == 1) {       // every K chunk is done: the sync above
+          rows_reduce(m, true);
+          for (int jj = 0; jj < nc; ++jj) {
+            float* f = s_s + ((warp * CHUNKS + jj) * 32 + lane) * 8;
+            float z[8];
+#pragma unroll
+            for (int x = 0; x < 8; ++x) z[x] = f[x];
+            frag_exp(z, s0 + jj * KC + warp * 16);
+#pragma unroll
+            for (int x = 0; x < 8; ++x) f[x] = z[x];
+          }
+          rows_reduce(part, false);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) norm[e] = dense_norm(part[e], a, rtab, rtop);
+        }
+        // p = e normalized, one bf16 operand straight from the accumulator layout
+        const float4 f0 = reinterpret_cast<const float4*>(sfrag)[0];
+        const float4 f1 = reinterpret_cast<const float4*>(sfrag)[1];
+        const float z[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+        float p[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) p[x] = dense_p(z[x], norm[(x >> 1) & 1], a);
+        const uint32_t ap[4] = {npe_pack_bf16(p[0], p[1]), npe_pack_bf16(p[2], p[3]),
+                                npe_pack_bf16(p[4], p[5]), npe_pack_bf16(p[6], p[7])};
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bv[4];
+          npe_ldsm_x4_trans(bv, tile + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+                                    dd * 16 + (lane >> 4) * 8);
+          npe_mma_bf16(acc[2 * dd], ap, bv[0], bv[1]);
+          npe_mma_bf16(acc[2 * dd + 1], ap, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();          // the ring is free for the next sweep
+  };
+
+  if (nseg > 1) {
+    for (int seg = 0; seg < nseg; ++seg) sweep(0, seg * DENSE_SEG);
+    rows_reduce(m, true);
+    for (int seg = 0; seg < nseg; ++seg) sweep(1, seg * DENSE_SEG);
+    rows_reduce(part, false);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) norm[e] = dense_norm(part[e], a, rtab, rtop);
+  }
+  for (int seg = 0; seg < nseg; ++seg) sweep(2, seg * DENSE_SEG);
+
+  // out = the warps' partial accumulators summed (p was normalized)
+  float* comb = reinterpret_cast<float*>(smem_raw);   // MMA_WARPS x 16 x D, over the ring
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      comb[(warp * 16 + g + 8 * (e >> 1)) * D + n * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+  __syncthreads();
+  const long long obase = b * a.os[0] + h * a.os[1];
+  for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D;
+    if (q0 + r >= a.sq) continue;
+    float s = comb[r * D + c];
+#pragma unroll
+    for (int w = 1; w < MMA_WARPS; ++w) s = __fadd_rn(s, comb[(w * 16 + r) * D + c]);
+    store(a, obase + (q0 + r) * a.os[2] + c * a.os[3], s);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -853,6 +1349,26 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dense(const Args& a, int batch, cudaStream_t stream) {
+  const int rows = (a.hq / a.hkv) * a.sq;
+  if (rows <= DEC_ROWS) {
+    const int rmax = rows == 1 ? 1 : DEC_ROWS;
+    const size_t smem = sizeof(float) * max((size_t)DENSE_SCORES, (size_t)DEC_WARPS * rmax * D);
+    if (rows == 1)
+      flash_dense_decode_kernel<D, 1><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
+    else
+      flash_dense_decode_kernel<D, DEC_ROWS><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = MmaLayout<D>::bytes(DENSE_SEG);
+  static size_t granted = 0;
+  if (int err = allow_smem(flash_dense_mma_kernel<D>, smem, granted)) return err;
+  const dim3 grid((a.sq + 15) / 16, batch * a.hq);
+  flash_dense_mma_kernel<D><<<grid, 32 * MMA_WARPS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 bool vec_ok(const void* p, long long s0, long long s1, long long s2, long long s3) {
   return s3 == 1 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0 &&
          reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -893,6 +1409,39 @@ extern "C" int npe_flash_attention(
     case 32: return launch<32>(a, batch, s);
     case 64: return launch<64>(a, batch, s);
     case 128: return launch<128>(a, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int npe_attention_dense(
+    const void* q, const void* k, const void* v, void* out,
+    long long qsb, long long qsh, long long qss, long long qsd,
+    long long ksb, long long ksh, long long kss, long long ksd,
+    long long vsb, long long vsh, long long vss, long long vsd,
+    long long osb, long long osh, long long oss, long long osd,
+    int batch, int hq, int hkv, int sq, int skv, int d, int kv_len, int q_bf16,
+    int out_bf16, float scale, int use_pwl, const float* exp_table, int exp_segments,
+    const float* recip_table, int recip_segments, void* stream) {
+  if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
+      recip_segments < 1 || recip_segments + 1 > NPE_MAX_TABLE_COLS ||
+      hkv < 1 || hq % hkv != 0 || kv_len < sq || kv_len > skv)
+    return (int)cudaErrorInvalidValue;
+  // K and V are the bf16 cache, read as 16-byte vectors
+  if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd)))
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
+  Args a{q, k, v, out,
+         {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
+         {osb, osh, oss, osd},
+         hq, hkv, sq, kv_len, q_bf16, /*kv_bf16=*/1, out_bf16,
+         /*causal=*/1, /*window=*/0, use_pwl, /*block_q=*/sq, /*block_kv=*/DENSE_SEG, scale,
+         /*q_pieces=*/q_bf16 ? 1 : Q_PIECES_MAX,
+         exp_table, exp_segments, recip_table, recip_segments};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_dense<32>(a, batch, s);
+    case 64: return launch_dense<64>(a, batch, s);
+    case 128: return launch_dense<128>(a, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

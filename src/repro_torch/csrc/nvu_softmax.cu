@@ -1,92 +1,173 @@
-// NVU row softmax on Hopper: max, PWL exp, sum, PWL reciprocal.
+// NVU row softmax on Hopper: scale, max, PWL exp, sum, PWL reciprocal.
 //
 // Replaces: nvu_softmax_rows / _softmax_kernel (and recip_via_pwl) in
 // src/repro/kernels/nvu_softmax.py.
 // Bound on this card: bytes.  Each score is read once and each probability
-// written once (8 bytes an element in f32) against some forty operations.
-// Design: one warp per row.  The row (128 scores on the BERT path) is loaded
-// once into registers, VPT values per lane, and never read again: the max
-// and the sum are warp-shuffle reductions, with no shared memory and no
-// __syncthreads after the tables are staged.  The PWL exp walks the table
-// once for all of a lane's values, so each shared-memory read of the table
-// serves VPT of them.  1/sum is the PWL reciprocal of the mantissa with the
-// exponent handled by integer bit operations, as on the TPU
-// (npe_recip_via_pwl in pwl.cuh), so the kernel has no divide.  The causal
-// option masks column c of row r when c > r % q + (n - q): the last query
-// of each (q, n) matrix sees the last key, as the reference oracle
+// written once (8 bytes an element f32 -> f32, 6 f32 -> bf16) against some
+// twenty operations.
+// Design: a warp owns whole rows, several at once.  Lane l holds columns
+// l + 32j of each row in registers, loaded once (coalesced 128-byte
+// transactions) and never read again; the max and the sum are warp-shuffle
+// reductions, with no shared memory and no __syncthreads after the tables
+// are staged.  A warp takes R rows together (R * VPT loads in flight a lane),
+// so an SM holds enough independent loads to cover the memory latency that
+// one row's dependent chain (load, max, exp, sum, reciprocal, store) leaves
+// open.  Blocks of 256 threads loop over their rows; the grid is the blocks
+// the card holds at once, or fewer, so the tables are staged once a block.
+// The exp is the prefix-table PWL (npe_softmax_exp_n: a binary search over
+// the knots, bit-identical to the delta walk); 1/sum is the PWL reciprocal of
+// the mantissa, by a search of the recip table's prefix form, with the
+// exponent handled by integer bit operations (npe_softmax_inv), so the
+// kernel has no divide.  Lane i takes the reciprocal of the warp's row i
+// and hands it on by a shuffle: one search a lane, not one a row a lane.
+// The two tables are built while the first rows' loads are in flight.
+// Order of addition: lane l adds its values in ascending j, then the
+// npe_warp_sum butterfly, so the f32 result is bit for bit that of the
+// first port's kernel (a warp per row, the walk).
+// Options: x is multiplied by `scale` (one f32 multiply, before the max) and
+// the result is f32 or bf16 (the f32 probability rounded to nearest even),
+// which fold the encoder's `* d**-0.5` and `.to(bf16)` into this launch.  The
+// causal option masks column c of row r when c > r % q + (n - q): the last
+// query of each (q, n) matrix sees the last key, as the reference oracle
 // (kernels/ref.py) has it.
 #include "pwl.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;   // rows per block
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+static_assert(THREADS >= NPE_PREFIX_KNOTS, "a thread fetches each knot slot and column");
 
-template <int VPT>
-__global__ void __launch_bounds__(32 * WARPS)
-nvu_softmax_kernel(const float* __restrict__ x, float* __restrict__ y, int rows,
-                   int n, int causal_rows, const float* __restrict__ exp_table,
-                   int exp_segs, const float* __restrict__ recip_table,
-                   int recip_segs) {
-  __shared__ float etab[3 * NPE_MAX_TABLE_COLS];
-  __shared__ float rtab[3 * NPE_MAX_TABLE_COLS];
-  npe_load_table(etab, exp_table, exp_segs + 1);
-  npe_load_table(rtab, recip_table, recip_segs + 1);
-  __syncthreads();
-
+template <int VPT, int R, typename TO, bool FULL>
+__global__ void __launch_bounds__(THREADS)
+nvu_softmax_kernel(const float* __restrict__ x, TO* __restrict__ y, int rows, int n,
+                   int causal_rows, float scale, const float* __restrict__ exp_table,
+                   int exp_segs, const float* __restrict__ recip_table, int recip_segs) {
+  __shared__ NpePrefixTable etab, rtab;
+  const NpePrefixFetch efetch(exp_table, exp_segs), rfetch(recip_table, recip_segs);
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float* xr = x + (size_t)row * n;
-  int visible = n;   // columns c < visible are unmasked
-  if (causal_rows > 0) visible = row % causal_rows + (n - causal_rows) + 1;
+  const int step = gridDim.x * WARPS * R;
+  int r0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * R;
+
+  // x of rows r0..r0+R-1 as loaded (a row past the last reads the last)
+  float v[R * VPT];
+  auto load = [&]() {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float* xr = x + (size_t)min(r0 + i, rows - 1) * n;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int c = lane + 32 * j;
+        v[i * VPT + j] = FULL || c < n ? xr[c] : 0.f;
+      }
+    }
+  };
+  load();                                          // in flight during the build
+  npe_build_prefix_tables(etab, efetch, exp_segs, rtab, rfetch, recip_segs);
+  const int etop = npe_prefix_top(exp_segs), rtop = npe_prefix_top(recip_segs);
 
   const float neg_inf = __int_as_float(0xff800000);
-  float v[VPT];
-  float m = neg_inf;
+  while (r0 < rows) {
+    float m[R];
 #pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    float t = neg_inf;
-    if (c < n) t = c < visible ? xr[c] : -1e30f;
-    v[j] = t;
-    m = fmaxf(m, t);
-  }
-  m = npe_warp_max(m);
-
+    for (int i = 0; i < R; ++i) {
+      int visible = n;   // columns c < visible are unmasked
+      if (!FULL && causal_rows > 0) visible = (r0 + i) % causal_rows + (n - causal_rows) + 1;
 #pragma unroll
-  for (int j = 0; j < VPT; ++j)
-    v[j] = lane + 32 * j < n ? fmaxf(__fsub_rn(v[j], m), -18.f) : 0.f;   // range limiting
-  npe_pwl_n<VPT>(v, etab, exp_segs);   // one pass over the table for the lane's values
-  float s = 0.f;
+      for (int j = 0; j < VPT; ++j) {
+        const int c = lane + 32 * j;
+        float& t = v[i * VPT + j];
+        t = FULL ? __fmul_rn(t, scale)
+                 : (c < n ? (c < visible ? __fmul_rn(t, scale) : -1e30f) : neg_inf);
+      }
+      m[i] = v[i * VPT];
 #pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    v[j] = lane + 32 * j < n ? fmaxf(v[j], 0.f) : 0.f;
-    s = __fadd_rn(s, v[j]);
-  }
-  s = npe_warp_sum(s);
-  const float inv = npe_recip_via_pwl(fmaxf(s, 1e-30f), rtab, recip_segs);
-
-  float* yr = y + (size_t)row * n;
+      for (int j = 1; j < VPT; ++j) m[i] = fmaxf(m[i], v[i * VPT + j]);
+      m[i] = npe_warp_max(m[i]);
+    }
 #pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    if (c < n) yr[c] = __fmul_rn(v[j], inv);
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) v[i * VPT + j] = __fsub_rn(v[i * VPT + j], m[i]);
+    npe_softmax_exp_n<R * VPT>(v, etab, etop);   // one search per value, all rows at once
+    // each row's sum: lane l adds columns l + 32j in ascending j, then the
+    // butterfly; lane i then takes the reciprocal of row i's sum for the warp
+    float mine = 0.f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        if (!FULL && lane + 32 * j >= n) v[i * VPT + j] = 0.f;
+        s = __fadd_rn(s, v[i * VPT + j]);
+      }
+      s = npe_warp_sum(s);
+      mine = lane % R == i ? s : mine;
+    }
+    const float inv_mine = npe_softmax_inv(mine, rtab, rtop);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + i;
+      const float inv = __shfl_sync(0xffffffffu, inv_mine, i);
+      if (row >= rows) break;
+      TO* yr = y + (size_t)row * n;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int c = lane + 32 * j;
+        if (FULL || c < n) yr[c] = npe_from_f32<TO>(__fmul_rn(v[i * VPT + j], inv));
+      }
+    }
+    r0 += step;
+    if (r0 < rows) load();
   }
 }
 
-template <int VPT>
-void launch_softmax(const float* x, float* y, int rows, int n, int causal_rows,
-                    const float* et, int es, const float* rt, int rs,
-                    cudaStream_t stream) {
-  const int blocks = (rows + WARPS - 1) / WARPS;
-  nvu_softmax_kernel<VPT><<<blocks, 32 * WARPS, 0, stream>>>(
-      x, y, rows, n, causal_rows, et, es, rt, rs);
+// Blocks for `rows`: enough for every warp to take R rows once, at most the
+// blocks the card holds at once (the rest by the loop).
+template <int VPT, int R, typename TO, bool FULL>
+int launch_softmax(const float* x, void* y, int rows, int n, int causal_rows, float scale,
+                   const float* et, int es, const float* rt, int rs, cudaStream_t stream) {
+  static int resident = 0;
+  if (resident == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &resident, nvu_softmax_kernel<VPT, R, TO, FULL>, THREADS, 0) != cudaSuccess ||
+        resident < 1)
+      resident = 1;
+  }
+  const long long need = ((long long)rows + WARPS * R - 1) / (WARPS * R);
+  const long long cap = (long long)npe_sm_count() * resident;
+  const int blocks = (int)(need < cap ? need : cap);
+  nvu_softmax_kernel<VPT, R, TO, FULL><<<blocks, THREADS, 0, stream>>>(
+      x, static_cast<TO*>(y), rows, n, causal_rows, scale, et, es, rt, rs);
+  return (int)cudaGetLastError();
+}
+
+// FULL: rows of exactly 32 * VPT columns and no mask, so no column test.
+template <int VPT, int R, typename TO>
+int launch_full_or_not(const float* x, void* y, int rows, int n, int causal_rows,
+                       float scale, const float* et, int es, const float* rt, int rs,
+                       cudaStream_t s) {
+  if (n == 32 * VPT && causal_rows == 0)
+    return launch_softmax<VPT, R, TO, true>(x, y, rows, n, 0, scale, et, es, rt, rs, s);
+  return launch_softmax<VPT, R, TO, false>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+}
+
+// R rows a warp: R * VPT values in flight a lane, about 16.
+template <typename TO>
+int launch_n(const float* x, void* y, int rows, int n, int causal_rows, float scale,
+             const float* et, int es, const float* rt, int rs, cudaStream_t s) {
+  if (n <= 32) return launch_full_or_not<1, 8, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+  if (n <= 64) return launch_full_or_not<2, 8, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+  if (n <= 128) return launch_full_or_not<4, 4, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+  if (n <= 256) return launch_full_or_not<8, 2, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+  if (n <= 512) return launch_full_or_not<16, 1, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+  return launch_full_or_not<32, 1, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
 }
 
 }  // namespace
 
-extern "C" int npe_nvu_softmax(const float* x, float* y, int rows, int n,
-                               int causal_rows, const float* exp_table,
+extern "C" int npe_nvu_softmax(const float* x, void* y, int rows, int n, int causal_rows,
+                               float scale, int y_bf16, const float* exp_table,
                                int exp_segments, const float* recip_table,
                                int recip_segments, void* stream) {
   if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
@@ -95,11 +176,9 @@ extern "C" int npe_nvu_softmax(const float* x, float* y, int rows, int n,
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 32) launch_softmax<1>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  else if (n <= 64) launch_softmax<2>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  else if (n <= 128) launch_softmax<4>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  else if (n <= 256) launch_softmax<8>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  else if (n <= 512) launch_softmax<16>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  else launch_softmax<32>(x, y, rows, n, causal_rows, exp_table, exp_segments, recip_table, recip_segments, s);
-  return (int)cudaGetLastError();
+  if (y_bf16)
+    return launch_n<__nv_bfloat16>(x, y, rows, n, causal_rows, scale, exp_table,
+                                   exp_segments, recip_table, recip_segments, s);
+  return launch_n<float>(x, y, rows, n, causal_rows, scale, exp_table, exp_segments,
+                         recip_table, recip_segments, s);
 }

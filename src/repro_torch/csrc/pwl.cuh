@@ -103,24 +103,50 @@ struct NpePrefixFetch {
   }
 };
 
-// Write a prefix table from what the threads fetched; ends with the block
-// synced.  The deltas go to the prefix rows' slots, then thread 0 (slopes)
-// and thread 1 (intercepts) turn each row into its in-order sums in place:
-// S-1 __fadd_rn one after another, the sums the walk reaches.  A padded
-// knot is NaN, which no x is >=, so the search never passes it.
-__device__ __forceinline__ void npe_build_prefix_table(NpePrefixTable& t, const NpePrefixFetch& f,
-                                                       int segs) {
+// The block's part of a prefix table's build: each thread writes what it
+// fetched, the knot of its slot and the deltas to the prefix rows' slots.
+__device__ __forceinline__ void npe_fill_prefix_table(NpePrefixTable& t, const NpePrefixFetch& f,
+                                                      int segs) {
   if (threadIdx.x < NPE_PREFIX_KNOTS) t.knot[threadIdx.x] = f.knot;
   if ((int)threadIdx.x < segs) t.si[threadIdx.x] = make_float2(f.dslope, f.dicept);
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    float* row = reinterpret_cast<float*>(t.si) + threadIdx.x;
+}
+
+// After the fill and a sync: threads `lead` (slopes) and lead + 1
+// (intercepts) turn each row into its in-order sums in place, S-1
+// __fadd_rn one after another, the sums the walk reaches.
+__device__ __forceinline__ void npe_sum_prefix_rows(NpePrefixTable& t, int segs, int lead) {
+  const int r = (int)threadIdx.x - lead;
+  if (r == 0 || r == 1) {
+    float* row = reinterpret_cast<float*>(t.si) + r;
     float acc = row[0];
     for (int i = 1; i < segs; ++i) {
       acc = __fadd_rn(acc, row[2 * i]);
       row[2 * i] = acc;
     }
   }
+}
+
+// Write a prefix table from what the threads fetched; ends with the block
+// synced.  A padded knot is NaN, which no x is >=, so the search never
+// passes it.
+__device__ __forceinline__ void npe_build_prefix_table(NpePrefixTable& t, const NpePrefixFetch& f,
+                                                       int segs) {
+  npe_fill_prefix_table(t, f, segs);
+  __syncthreads();
+  npe_sum_prefix_rows(t, segs, 0);
+  __syncthreads();
+}
+
+// Two prefix tables with one pair of syncs: the second's sums run on
+// threads 32 and 33, a warp of their own, beside the first's.
+__device__ __forceinline__ void npe_build_prefix_tables(NpePrefixTable& t0, const NpePrefixFetch& f0,
+                                                        int segs0, NpePrefixTable& t1,
+                                                        const NpePrefixFetch& f1, int segs1) {
+  npe_fill_prefix_table(t0, f0, segs0);
+  npe_fill_prefix_table(t1, f1, segs1);
+  __syncthreads();
+  npe_sum_prefix_rows(t0, segs0, 0);
+  npe_sum_prefix_rows(t1, segs1, 32);
   __syncthreads();
 }
 
@@ -169,6 +195,23 @@ __device__ __forceinline__ void npe_pwl_prefix_n(float (&v)[N], const NpePrefixT
   }
 }
 
+// --- the NVU softmax's pieces ---------------------------------------------
+// Shared by the row softmax (nvu_softmax.cu) and the dense mode of flash
+// attention (flash_attention.cu): the reference's nvu_exp of scores already
+// less their row max, and the PWL reciprocal of the row's sum.
+
+// exp of N values z = s - max, in place: range-limited at -18 (the exp
+// table's left edge), the PWL from the prefix table, floored at 0.
+template <int N>
+__device__ __forceinline__ void npe_softmax_exp_n(float (&z)[N], const NpePrefixTable& t,
+                                                  int top) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) z[j] = fmaxf(z[j], -18.f);
+  npe_pwl_prefix_n<N>(z, t, top);
+#pragma unroll
+  for (int j = 0; j < N; ++j) z[j] = fmaxf(z[j], 0.f);
+}
+
 // The SM count of the current device (132 on an H100 SXM if it cannot be read).
 static inline int npe_sm_count() {
   static int n = 0;
@@ -192,6 +235,23 @@ __device__ __forceinline__ float npe_recip_via_pwl(float s, const float* tab, in
   const float r = npe_pwl(m, tab, segs);
   const int pow_field = min(max(253 - e_biased, 1), 254);
   return __fmul_rn(r, __int_as_float(pow_field << 23));
+}
+
+// npe_recip_via_pwl with the mantissa's PWL from a prefix table: the same
+// bits by a search in place of the walk.
+__device__ __forceinline__ float npe_recip_via_prefix(float s, const NpePrefixTable& t, int top) {
+  const int bits = __float_as_int(s);
+  const int e_biased = (bits >> 23) & 0xff;
+  float m[1] = {__int_as_float((bits & 0x007fffff) | (126 << 23))};
+  npe_pwl_prefix_n<1>(m, t, top);
+  const int pow_field = min(max(253 - e_biased, 1), 254);
+  return __fmul_rn(m[0], __int_as_float(pow_field << 23));
+}
+
+// 1 / max(l, 1e-30): the softmax's reciprocal of its sum, from the recip
+// table's prefix form (`top` = npe_prefix_top of its segments).
+__device__ __forceinline__ float npe_softmax_inv(float l, const NpePrefixTable& t, int top) {
+  return npe_recip_via_prefix(fmaxf(l, 1e-30f), t, top);
 }
 
 __device__ __forceinline__ float npe_to_f32(float v) { return v; }

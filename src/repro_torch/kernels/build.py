@@ -43,9 +43,9 @@ SIGNATURES = {
     "npe_quant_matmul": (P, P, P, P, P, I, I, I, I, P, I, P, P),
     # m, n, k -> int32 values of the zeroed workspace npe_quant_matmul needs
     "npe_quant_matmul_workspace": (I, I, I),
-    # x, y, rows, n, causal_rows, exp_table, exp_segments,
+    # x, y, rows, n, causal_rows, scale, y_bf16, exp_table, exp_segments,
     # recip_table, recip_segments, stream
-    "npe_nvu_softmax": (P, P, I, I, I, P, I, P, I, P),
+    "npe_nvu_softmax": (P, P, I, I, I, F, I, P, I, P, I, P),
     # x, y, gamma, beta, rows, n, bf16, eps, rms_only, table, segments, stream
     "npe_nvu_layernorm": (P, P, P, P, I, I, I, F, I, P, I, P),
     # q, k, v, out, 16 element strides (q, k, v, out; each B, H, S, D),
@@ -54,6 +54,10 @@ SIGNATURES = {
     # recip_table, recip_segments, stream
     "npe_flash_attention": (P, P, P, P, *(LL,) * 16, *(I,) * 12, F, I, I, I,
                             P, I, P, I, P),
+    # the dense mode: q, k, v, out, 16 element strides, batch, hq, hkv, sq,
+    # skv, d, kv_len, q_bf16, out_bf16, scale, use_pwl, exp_table,
+    # exp_segments, recip_table, recip_segments, stream
+    "npe_attention_dense": (P, P, P, P, *(LL,) * 16, *(I,) * 9, F, I, P, I, P, I, P),
     # stream: one empty 256-thread block, the launch floor chip_smoke.py times
     "npe_launch_floor": (P,),
 }

@@ -13,6 +13,13 @@ Both stream over KV blocks of `block_kv` keys with a running max and sum, as
 rescale multiplies by pwl_exp(m_prev - m_new), and pwl_exp(0) is not 1), so
 the blocking is part of the function and the kernel keeps it.
 
+`dense_attention(q, k, v, ...)` is the kernel's dense mode, the decode
+path's attention: the cache case of the reference's `attention_scores`
+(`repro/models/common.py`, causal with q_offset = kv_len - Sq), one softmax
+over every visible key with no running rescale, the probabilities rounded to
+v's dtype before P.V.  `dense_attention_plain` is that arithmetic in torch
+ops.
+
 Layout (B, H, S, D), as in the reference.  The mask is end-aligned, as in
 `ref.attention` and the decode path: of `kv_len` visible keys, query i sits
 at position kv_len - Sq + i.  Keys at or beyond `kv_len` are invisible, so
@@ -69,6 +76,28 @@ def _exp(z: torch.Tensor, use_pwl: bool, segments: int) -> torch.Tensor:
         z = torch.clamp(z, min=-18.0)
         return torch.clamp(nvu.pwl_eval(z, get_table("exp", segments)), min=0.0)
     return torch.exp(z)
+
+
+def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[int]) -> int:
+    """Raise on shapes the kernel does not take; return kv_len (default Skv)."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} over k {tuple(k.shape)}")
+    kv_len = skv if kv_len is None else int(kv_len)
+    if not sq <= kv_len <= skv:
+        raise ValueError(f"{name}: kv_len {kv_len} outside [{sq}, {skv}]")
+    return kv_len
+
+
+def _check_card(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless q, k and v lie on one CUDA device."""
+    require_cuda(q, name)
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q on {q.device}, k on {k.device}, v on {v.device}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -134,16 +163,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     views of its (B, S, H, D) cache and projections); the result is a
     (B, Hq, Sq, D) view of (B, Sq, Hq, D) memory, so that the caller's
     reshape back to (B, Sq, Hq * D) needs no copy."""
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    kv_len = _check_operands("flash_attention", q, k, v, kv_len)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} over k {tuple(k.shape)}")
-    kv_len = skv if kv_len is None else int(kv_len)
-    if not sq <= kv_len <= skv:
-        raise ValueError(f"flash_attention: kv_len {kv_len} outside [{sq}, {skv}]")
     if block_q < 1 or block_kv < 1:
         raise ValueError(f"flash_attention: blocks {block_q}, {block_kv}")
     out_dtype = out_dtype or q.dtype
@@ -152,9 +174,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kv_len=kv_len, out_dtype=out_dtype)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, **kw)
-    require_cuda(q, "flash_attention")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
+    _check_card("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in KERNEL_DTYPES:
             raise TypeError(f"flash_attention: {name} of {t.dtype}, not in {KERNEL_DTYPES}")
@@ -179,5 +199,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         et.data_ptr(), et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1,
         stream_handle(q))
     check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          kv_len: Optional[int] = None, scale: Optional[float] = None,
+                          use_pwl: bool = True, segments: int = 16,
+                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The dense mode's arithmetic in PyTorch, as `attention_scores` computes
+    it: f32 scores (q . k) * scale, keys past each query's position masked,
+    the NVU softmax (or exact softmax) over all visible keys at once, the
+    probabilities cast to v's dtype, then P.V accumulated in f32."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    scale = float(scale if scale is not None else d ** -0.5)
+    group = hq // hkv
+    kk = k[:, :, :kv_len].repeat_interleave(group, dim=1).to(torch.float32)
+    vv = v[:, :, :kv_len].repeat_interleave(group, dim=1)
+    s = torch.matmul(q.to(torch.float32), kk.transpose(-1, -2)) * scale
+    rows = torch.arange(sq, device=q.device)[:, None] + (kv_len - sq)
+    mask = torch.arange(kv_len, device=q.device)[None, :] <= rows
+    p = nvu.softmax(s, use_pwl=use_pwl, segments=segments, where=mask)
+    out = torch.matmul(p.to(v.dtype).to(torch.float32), vv.to(torch.float32))
+    return out.to(out_dtype or q.dtype)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_len: Optional[int] = None, scale: Optional[float] = None,
+                    use_pwl: bool = True, segments: int = 16,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Causal attention of q (B, Hq, Sq, D) over the first kv_len keys of
+    bf16 k, v (B, Hkv, Skv, D), query i at position kv_len - Sq + i: the
+    counterpart of `attention_scores` over a KV cache.  On the card the
+    operands may be strided views, as for `flash_attention`, and the result
+    is a (B, Hq, Sq, D) view of (B, Sq, Hq, D) memory.  Each launch counts
+    as one of `flash_attention`'s: it is a mode of the same kernel source."""
+    kv_len = _check_operands("dense_attention", q, k, v, kv_len)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    out_dtype = out_dtype or q.dtype
+    kw = dict(kv_len=kv_len, scale=scale, use_pwl=use_pwl, segments=segments,
+              out_dtype=out_dtype)
+    if q.device.type == "cpu":
+        return dense_attention_plain(q, k, v, **kw)
+    _check_card("dense_attention", q, k, v)
+    if q.dtype not in KERNEL_DTYPES or out_dtype not in KERNEL_DTYPES:
+        raise TypeError(f"dense_attention: q {q.dtype}, out {out_dtype}, not in {KERNEL_DTYPES}")
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"dense_attention: k {k.dtype}, v {v.dtype}; the cache is bf16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"dense_attention: head dim {d} not in {HEAD_DIMS}")
+    k, v = _vector_rows(k), _vector_rows(v)
+    out = torch.empty(b, sq, hq, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
+    et = device_table("exp", segments, q.device)
+    rt = device_table("recip", segments, q.device)
+    scale = float(scale if scale is not None else d ** -0.5)
+    err = library().npe_attention_dense(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride(), *k.stride(), *v.stride(), *out.stride(),
+        b, hq, hkv, sq, skv, d, kv_len, int(q.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), scale, int(use_pwl),
+        et.data_ptr(), et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1,
+        stream_handle(q))
+    check(err, "dense_attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -1,16 +1,20 @@
 """NVU row-softmax kernel (counterpart of `repro/kernels/nvu_softmax.py`).
 
 `nvu_softmax(x2d)` launches `csrc/nvu_softmax.cu` for a tensor on the card
-and runs `nvu_softmax_plain` for one on the CPU.
+and runs `nvu_softmax_plain` for one on the CPU.  `nvu_softmax_walk` is the
+kernel's own arithmetic in torch ops, its order of addition included, which
+the kernel's results equal bit for bit.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core import nvu
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, library, require_cuda, stream_handle
-from repro_torch.kernels.pwl_eval import device_table
+from repro_torch.kernels.pwl_eval import device_table, pwl_eval_walk
 
 MAX_COLS = 1024      # a row lives in one warp's registers
 NEG_BIG = -1e30
@@ -24,42 +28,86 @@ def causal_mask(rows: int, n: int, causal_rows: int, device) -> torch.Tensor:
     return c <= r + (n - causal_rows)
 
 
-def nvu_softmax_plain(x: torch.Tensor, segments: int = 16,
-                      causal_rows: int = 0) -> torch.Tensor:
-    """Max, clamp at -18, PWL exp floored at 0, sum, PWL reciprocal, as
-    `core/nvu.py` and the reference oracle compute it."""
+def nvu_softmax_plain(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
+                      scale: float = 1.0,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x * scale, then max, clamp at -18, PWL exp floored at 0, sum, PWL
+    reciprocal, as `core/nvu.py` and the reference oracle compute it; the
+    result cast to out_dtype (default x's)."""
     xf = x.to(torch.float32)
+    if scale != 1.0:
+        xf = xf * scale
     if causal_rows:
         xf = torch.where(causal_mask(*x.shape, causal_rows, x.device), xf, NEG_BIG)
     m = xf.amax(dim=-1, keepdim=True)
     e = nvu.nvu_exp(torch.clamp(xf - m, min=-18.0), segments)
     s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
-    return (e * nvu.nvu_reciprocal(s, segments)).to(x.dtype)
+    return (e * nvu.nvu_reciprocal(s, segments)).to(out_dtype or x.dtype)
 
 
-def nvu_softmax(x: torch.Tensor, segments: int = 16,
-                causal_rows: int = 0) -> torch.Tensor:
-    """Softmax over the last dim of a 2-D f32 tensor.  With causal_rows=q > 0
-    the rows are stacked (q, n) matrices, masked causally (see causal_mask)."""
+def nvu_softmax_walk(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
+                     scale: float = 1.0,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The kernel's arithmetic in float32 torch ops, each op rounding once as
+    its `_rn` intrinsics do: x * scale, the mask, the max, the exp table's
+    walk (`pwl_eval_walk`) clamped at -18 and floored at 0; the sum in the
+    kernel's order (lane l adds columns l + 32j in ascending j, then the
+    xor butterfly over the 32 lanes, which leaves every lane the same
+    value); 1/sum by the recip table's walk on the mantissa in [0.5, 1) and
+    the exponent put back as an exact power of two (`npe_recip_via_pwl`)."""
+    rows, n = x.shape
+    xf = x.to(torch.float32) * scale
+    if causal_rows:
+        xf = torch.where(causal_mask(rows, n, causal_rows, x.device), xf, NEG_BIG)
+    m = xf.amax(dim=-1, keepdim=True)
+    z = torch.clamp(xf - m, min=-18.0)
+    e = torch.clamp(pwl_eval_walk(z, device_table("exp", segments, x.device)), min=0.0)
+    lanes = -(-n // 32) * 32
+    ev = torch.nn.functional.pad(e, (0, lanes - n)).view(rows, lanes // 32, 32)
+    s = ev[:, 0]
+    for j in range(1, ev.shape[1]):
+        s = s + ev[:, j]
+    idx = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ o]
+    bits = torch.clamp(s[:, :1], min=1e-30).view(torch.int32)
+    mant = ((bits & 0x007FFFFF) | (126 << 23)).view(torch.float32)
+    r = pwl_eval_walk(mant, device_table("recip", segments, x.device))
+    pow_field = torch.clamp(253 - ((bits >> 23) & 0xFF), 1, 254)
+    inv = r * (pow_field << 23).view(torch.float32)
+    return (e * inv).to(out_dtype or x.dtype)
+
+
+def nvu_softmax(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
+                scale: float = 1.0, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Softmax over the last dim of a 2-D f32 tensor, of x * scale (one f32
+    multiply, before the max).  With causal_rows=q > 0 the rows are stacked
+    (q, n) matrices, masked causally (see causal_mask).  The result is f32,
+    or bf16 with out_dtype=torch.bfloat16: the f32 probabilities rounded to
+    nearest even, as `.to(torch.bfloat16)` rounds them."""
     if x.ndim != 2:
         raise ValueError(f"nvu_softmax takes a 2-D tensor, got {tuple(x.shape)}")
     if causal_rows < 0:
         raise ValueError(f"nvu_softmax: causal_rows={causal_rows}")
     if x.device.type == "cpu":
-        return nvu_softmax_plain(x, segments, causal_rows)
+        return nvu_softmax_plain(x, segments, causal_rows, scale, out_dtype)
     require_cuda(x, "nvu_softmax")
     rows, n = x.shape
+    out_dtype = out_dtype or x.dtype
     if x.dtype != torch.float32:
         raise TypeError(f"nvu_softmax: float32 scores, got {x.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"nvu_softmax: output {out_dtype}, not float32 or bfloat16")
     if n > MAX_COLS:
         raise ValueError(f"nvu_softmax: rows of {n} > {MAX_COLS} columns")
     x = x.contiguous()
-    y = torch.empty_like(x)
+    y = torch.empty(rows, n, dtype=out_dtype, device=x.device)
     et = device_table("exp", segments, x.device)
     rt = device_table("recip", segments, x.device)
     err = library().npe_nvu_softmax(
-        x.data_ptr(), y.data_ptr(), rows, n, causal_rows, et.data_ptr(),
-        et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1, stream_handle(x))
+        x.data_ptr(), y.data_ptr(), rows, n, causal_rows, float(scale),
+        int(out_dtype == torch.bfloat16), et.data_ptr(), et.shape[1] - 1,
+        rt.data_ptr(), rt.shape[1] - 1, stream_handle(x))
     check(err, "nvu_softmax")
     LAUNCHES["nvu_softmax"] += 1
     return y

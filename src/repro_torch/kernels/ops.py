@@ -3,7 +3,8 @@
 They take tensors of any leading shape, reshape them to the 2-D operands the
 kernels take and back, and quantize the MMU's operands (activations per
 tensor, weights per column) outside the kernel, as the reference does.
-Flash attention takes (B, H, S, D) operands and the reference's blocking.
+Flash attention takes (B, H, S, D) operands and the reference's blocking;
+`dense_attention`, its dense mode, is re-exported here for the models.
 Each kernel wrapper launches its kernel for a tensor on the card and runs
 its plain version for a tensor on the CPU.
 """
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import quantize
+from repro_torch.kernels.flash_attention import dense_attention
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm
 from repro_torch.kernels.nvu_softmax import nvu_softmax
@@ -36,11 +38,13 @@ def quant_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w.shape[1])
 
 
-def softmax(x: torch.Tensor, segments: int = 16, causal: bool = False) -> torch.Tensor:
-    """NVU softmax over the last axis; `causal` masks each (q, n) matrix of
-    the last two axes with the last query aligned to the last key."""
+def softmax(x: torch.Tensor, segments: int = 16, causal: bool = False,
+            scale: float = 1.0, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NVU softmax of x * scale over the last axis, in out_dtype (default
+    x's); `causal` masks each (q, n) matrix of the last two axes with the
+    last query aligned to the last key."""
     causal_rows = x.shape[-2] if causal else 0
-    out = nvu_softmax(x.reshape(-1, x.shape[-1]), segments, causal_rows)
+    out = nvu_softmax(x.reshape(-1, x.shape[-1]), segments, causal_rows, scale, out_dtype)
     return out.reshape(x.shape)
 
 

@@ -5,7 +5,7 @@ softmax, the layernorms and GELU through the NVU kernels (kernels/ops.py);
 on the CPU those wrappers run their plain versions.  The 16-bit MMU is
 fake-quantization with a float32 product, outside any kernel, as in the
 reference.  Attention over the KV cache goes through the flash-attention
-kernel in every mode.
+kernel's dense mode in every mode.
 """
 from __future__ import annotations
 
@@ -73,21 +73,23 @@ def attention_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """Bidirectional attention with GQA.  q: (B, S, Hq, D); k, v: (B, S, Hkv, D).
 
     Scores are f32 (the operands are cast up, which is exact, so the product
-    accumulates in f32 as the reference's preferred_element_type asks); the
-    probabilities are cast to v's dtype for the second product."""
+    accumulates in f32 as the reference's preferred_element_type asks),
+    times d**-0.5; the probabilities are cast to v's dtype for the second
+    product.  In NPE mode the softmax kernel takes the scale and the cast:
+    the same f32 multiply and the same rounding, in its one launch."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)      # b h g q d
     kh = k.permute(0, 2, 1, 3).unsqueeze(2)                       # b h 1 k d
     vh = v.permute(0, 2, 1, 3).unsqueeze(2)                       # b h 1 k d
-    scores = torch.matmul(qg.to(torch.float32),
-                          kh.to(torch.float32).transpose(-1, -2)) * (d ** -0.5)
+    scores = torch.matmul(qg.to(torch.float32), kh.to(torch.float32).transpose(-1, -2))
     if cfg.npe_pwl:
-        probs = ops.softmax(scores.contiguous(), segments=cfg.npe_pwl_segments)
+        probs = ops.softmax(scores, segments=cfg.npe_pwl_segments, scale=d ** -0.5,
+                            out_dtype=v.dtype)
     else:
-        probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(v.dtype), vh)                     # b h g q d
+        probs = torch.softmax(scores * (d ** -0.5), dim=-1).to(v.dtype)
+    out = torch.matmul(probs, vh)                                 # b h g q d
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
@@ -95,15 +97,16 @@ def attention_over_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tenso
                          cache_v: torch.Tensor, pos: int) -> torch.Tensor:
     """Causal attention of q (B, S, Hq, D), at positions pos..pos+S-1, over a
     (B, max_seq, Hkv, D) cache that holds the keys and values of positions
-    < pos + S (the cache case of the reference's `attention_scores`,
-    q_offset=pos).  The flash kernel reads the cache in place through
-    permuted views and masks keys at or past pos + S; PWL exp and reciprocal
-    when cfg.npe_pwl.  The result is (B, S, Hq, D) in the cache's dtype, as
-    the reference casts its probabilities to v's dtype before P.V."""
-    out = ops.flash_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
-                              cache_v.permute(0, 2, 1, 3), causal=True,
+    < pos + S: the cache case of the reference's `attention_scores`
+    (q_offset=pos), one softmax over every visible key, the probabilities
+    rounded to the cache's dtype before P.V.  The flash kernel's dense mode
+    reads the cache in place through permuted views and never reads keys at
+    or past pos + S; PWL exp and reciprocal when cfg.npe_pwl.  The result is
+    (B, S, Hq, D) in the cache's dtype, as the reference's P.V gives it."""
+    out = ops.dense_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
+                              cache_v.permute(0, 2, 1, 3), kv_len=pos + q.shape[1],
                               use_pwl=cfg.npe_pwl, segments=cfg.npe_pwl_segments,
-                              kv_len=pos + q.shape[1], out_dtype=cache_v.dtype)
+                              out_dtype=cache_v.dtype)
     return out.permute(0, 2, 1, 3)
 
 

@@ -231,6 +231,37 @@ def test_nvu_softmax(dev, rows, cols, causal):
     _close(got, sm.nvu_softmax_plain(x, causal_rows=causal), 2e-5, 2e-5)
 
 
+SOFTMAX_SHAPES = [(8, 128, 0), (100, 512, 0), (256, 1000, 0), (12288, 128, 0),
+                  (12288, 128, 128), (96, 40, 16), (7, 32, 0), (33, 64, 0), (50, 256, 0)]
+
+
+@pytest.mark.parametrize("rows,cols,causal", SOFTMAX_SHAPES)
+@pytest.mark.parametrize("scale", [1.0, 0.125, 32 ** -0.5])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_nvu_softmax_is_the_walk_bit_for_bit(dev, rows, cols, causal, scale, out_dtype):
+    """Every instance (1-32 values a lane, 1-8 rows a warp), with the scale
+    and both outputs: the bits of `nvu_softmax_walk`, the kernel's arithmetic
+    and order of addition in torch ops (the first port's kernel's order, so
+    the f32 results are its bits too); within the plain version's gate."""
+    x = torch.randn(rows, cols, generator=_gen(dev, 18), device=dev) * 20
+    before = LAUNCHES["nvu_softmax"]
+    got = sm.nvu_softmax(x, causal_rows=causal, scale=scale, out_dtype=out_dtype)
+    _launched("nvu_softmax", before)
+    assert got.dtype == out_dtype and got.shape == x.shape
+    want = sm.nvu_softmax_walk(x, causal_rows=causal, scale=scale, out_dtype=out_dtype)
+    assert torch.equal(_bits(got), _bits(want))
+    plain = sm.nvu_softmax_plain(x, causal_rows=causal, scale=scale, out_dtype=out_dtype)
+    _close(got, plain, 2e-5, BF16_RTOL if out_dtype == torch.bfloat16 else 2e-5)
+
+
+def test_nvu_softmax_scale_and_cast_fold_bit_for_bit(dev):
+    """The encoder's call (scale 0.125, bf16 out) gives the bits of the two
+    torch ops it replaces around an f32 call: x * 0.125, then .to(bf16)."""
+    x = torch.randn(12288, 128, generator=_gen(dev, 19), device=dev) * 3
+    got = sm.nvu_softmax(x, scale=0.125, out_dtype=torch.bfloat16)
+    assert torch.equal(got, sm.nvu_softmax(x * 0.125).to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("rows,cols,rms", [(16, 768, False), (100, 512, False),
                                            (64, 1024, True), (3, 256, True),
                                            (1024, 768, False)])
@@ -410,3 +441,71 @@ def test_flash_ops_on_the_card_match_the_cpu_route(dev):
     for kw in (dict(), dict(use_pwl=False), dict(kv_len=33, block_kv=16)):
         got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
         _close(got, ops.flash_attention(q, k, v, **kw), 2e-5, 2e-5)
+
+
+# the dense mode: (b, hq, hkv, sq, skv, d, kv_len); rows a kv head <= 8 run
+# the decode instance, more the tensor-core one; a pass holds 8192 keys of
+# one row, 1024 of 2-8 rows or of a 16-row tile: past that, several passes
+DENSE_CASES = [
+    (8, 12, 12, 1, 256, 64, 192),       # BERT-base decode step
+    (8, 12, 12, 1, 1024, 64, 1024),     # one pass
+    (8, 12, 12, 1, 2048, 64, 2048),     # one pass
+    (2, 12, 12, 1, 9000, 32, 8193),     # two segments of one row, the second of one key
+    (2, 12, 12, 1, 32768, 64, 32768),   # the longest cache Server accepts: four segments
+    (2, 8, 2, 1, 3000, 64, 2999),       # GQA 4 rows a kv head, three segments
+    (2, 4, 4, 5, 128, 32, 77),          # a 5-token prefill, decode instance
+    (1, 12, 12, 128, 256, 64, 128),     # 128-token prefill, tensor cores
+    (1, 12, 12, 300, 320, 64, 300),     # prefill crossing 256
+    (1, 4, 2, 37, 2100, 128, 2100),     # 37 rows over three segments, D=128
+    (2, 4, 2, 20, 96, 32, 90),          # D=32, ragged
+]
+
+
+def _dense_close(q, k, v, kw, got):
+    """Within one bf16 ulp (or 2e-5 for an f32 output) of the plain version,
+    plus 2^-7 of sum p|v|: sums run in another order and the PWL is the
+    prefix table against the gather, so a probability can round to the
+    neighbouring bf16 value before P.V."""
+    want = fa.dense_attention_plain(q, k, v, **kw)
+    spread = fa.dense_attention_plain(q, k, v.abs(), **dict(kw, out_dtype=torch.float32))
+    rtol = BF16_RTOL if got.dtype == torch.bfloat16 else 2e-5
+    err = (got.float() - want.float()).abs()
+    bound = 2e-5 + rtol * want.float().abs() + 2.0 ** -7 * spread
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+@pytest.mark.parametrize("use_pwl", [True, False])
+@pytest.mark.parametrize("q_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.float32, torch.float32)])
+def test_dense_attention(dev, case, use_pwl, q_dtype, out_dtype):
+    b, hq, hkv, sq, skv, d, kv_len = case
+    q, k, v = _flash_inputs(dev, b, hq, hkv, sq, skv, d, q_dtype, torch.bfloat16, seed=20)
+    kw = dict(kv_len=kv_len, use_pwl=use_pwl, out_dtype=out_dtype)
+    before = LAUNCHES["flash_attention"]
+    got = fa.dense_attention(q, k, v, **kw)
+    _launched("flash_attention", before)
+    assert got.shape == (b, hq, sq, d) and got.dtype == out_dtype
+    _dense_close(q, k, v, kw, got)
+
+
+@pytest.mark.parametrize("sq,kv_len", [(1, 70), (3, 70), (24, 90), (1, 1500), (3, 1500),
+                                       (24, 1500), (1, 9000)])
+def test_dense_attention_never_reads_past_kv_len(dev, sq, kv_len):
+    q, k, v = _flash_inputs(dev, 2, 4, 2, sq, 9100, 64, torch.bfloat16, torch.bfloat16, seed=21)
+    k[:, :, kv_len:], v[:, :, kv_len:] = float("nan"), float("nan")
+    got = fa.dense_attention(q, k, v, kv_len=kv_len)
+    assert bool(torch.isfinite(got.float()).all())
+    _dense_close(q, k[:, :, :kv_len], v[:, :, :kv_len], dict(kv_len=kv_len), got)
+
+
+def test_dense_attention_ops_on_the_card_match_the_cpu_route(dev):
+    g = torch.Generator().manual_seed(22)
+    q = torch.randn(2, 4, 5, 64, generator=g)
+    k = torch.randn(2, 2, 40, 64, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, 2, 40, 64, generator=g).to(torch.bfloat16)
+    for kw in (dict(), dict(use_pwl=False), dict(kv_len=33)):
+        kw["out_dtype"] = torch.float32
+        got = ops.dense_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
+        _dense_close(q, k, v, kw, got)

@@ -1,32 +1,31 @@
 """The port's KV-cache decode path (`bert.decode_step`) against the
 reference's (`repro.models.registry.decode_step`), on the smoke config
 (2 layers, D=128, 4 q-heads over 2 kv-heads), float32 weights through
-`params_from_jax`, bf16 caches, the reference's own serving flow: two
-ragged prompts (5 and 12 tokens), each prefilled alone on its slot's cache
-slice at position 0, then 8 single-token steps for both slots on one common
-position clock.  Both sides are fed the same tokens (the reference's greedy
-ones), so the steps compare like with like.
+`params_from_jax`, bf16 caches, the reference's own serving flow: ragged
+prompts, each prefilled alone on its slot's cache slice at position 0, then
+single-token steps for every slot on one common position clock.  Both sides
+are fed the same tokens (the reference's greedy ones), so the steps compare
+like with like.
 
-The port's attention is the flash kernel, whose P.V product takes the
-probabilities in float32, as the reference's own flash kernel does; the
-reference's decode path (`attention_scores`) rounds them to bf16 first
-(`probs.astype(v.dtype)`).  That is the one arithmetic difference by
-design, and the tests measure it on the reference itself: `F32_PROBS` runs
-the reference with its probabilities kept in float32 (v handed over as
-float32, the result cast back to bf16), which within one KV block is what
-its flash kernel computes.  Rules:
+Two serving runs: SHORT (two prompts of 5 and 12 tokens, 8 steps, a 32-row
+cache) and LONG (prompts of 300 and 17 tokens, 4 steps, a 320-row cache,
+max_position raised to 512 on both packages' configs), whose positions cross
+256: one softmax over every visible key, with no KV blocking, is what the
+reference's `attention_scores` computes at any cache length.
 
-  * caches: the first layer's (before any attention) within one bf16 ulp of
-    the reference; every layer's within one bf16 ulp of the float32-
-    probability reference, or within twice that reference's own change under
-    a 1-ulp weight nudge (NPE-16: a float rounding can move a value across
-    an int16 step);
-  * logits: within twice the larger of the reference's own change under a
-    1-ulp weight nudge and its change when its probabilities stay float32;
+The port's attention is the flash kernel's dense mode (its plain version on
+the CPU), the reference's arithmetic: the probabilities rounded to the
+cache's bf16 before P.V.  Rules:
+
+  * caches: in SHORT the first layer's (before any attention) within one
+    bf16 ulp of the reference; every layer's within one bf16 ulp of the reference, or
+    within twice the reference's own change under a 1-ulp weight nudge
+    (NPE-16: a float rounding can move a value across an int16 step);
+  * logits: within twice the reference's own change under a 1-ulp weight
+    nudge;
   * greedy tokens identical (float, NPE-16); NPE-8 top-1 agreement no lower
     than the nudged reference's, less 0.02 (tests/test_torch_bert.py).
 """
-import contextlib
 import dataclasses
 
 import jax
@@ -45,68 +44,73 @@ from repro_torch.models.convert import cache_from_jax, cache_to_numpy, params_fr
 
 torch.set_float32_matmul_precision("highest")
 
-BATCH, MAX_SEQ, STEPS = 2, 32, 8
-PROMPT_LENS = (5, 12)
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    prompt_lens: tuple
+    max_seq: int
+    steps: int
+    max_position: int = 0          # 0: the smoke config's
+
+    @property
+    def batch(self):
+        return len(self.prompt_lens)
+
+
+SHORT = Serving((5, 12), 32, 8)
+LONG = Serving((300, 17), 320, 4, max_position=512)
 FACTOR = 2.0
 TOP1_MARGIN = 0.02
 MODES = {"float": lambda c: c, "npe16": lambda c: c.with_npe(16),
          "npe8": lambda c: c.with_npe(8)}
 
 
-def _cfgs(mode):
+def _cfgs(mode, run=SHORT):
     over = dict(dtype="float32")
+    if run.max_position:
+        over["max_position"] = run.max_position
     return (MODES[mode](dataclasses.replace(ref_get_config("bert_base", smoke=True), **over)),
             MODES[mode](dataclasses.replace(get_config("bert_base", smoke=True), **over)))
 
 
-def _prompts():
+def _prompts(run=SHORT):
     rng = np.random.default_rng(10)
-    return [rng.integers(0, 512, n).astype(np.int32) for n in PROMPT_LENS]
+    return [rng.integers(0, 512, n).astype(np.int32) for n in run.prompt_lens]
+
+
+def _ref_params(max_position):
+    """The reference's weights; a larger max_position draws a longer position
+    table from the same key."""
+    rcfg, _ = _cfgs("float", Serving((1,), 1, 1, max_position))
+    return jax.tree.map(np.asarray, ref_registry.init_params(rcfg, jax.random.PRNGKey(0)))
 
 
 @pytest.fixture(scope="module")
 def ref_params():
-    rcfg, _ = _cfgs("float")
-    return jax.tree.map(np.asarray, ref_registry.init_params(rcfg, jax.random.PRNGKey(0)))
+    return _ref_params(0)
 
 
 def _nudge(tree):
     return jax.tree.map(lambda a: np.nextafter(a, np.float32(np.inf)), tree)
 
 
-@contextlib.contextmanager
-def F32_PROBS():
-    """The reference's decode with float32 probabilities in P.V."""
-    dense = ref_cm.attention_scores
-
-    def f32_probs(cfg, q, k, v, **kw):
-        return dense(cfg, q, k, v.astype(jnp.float32), **kw).astype(v.dtype)
-
-    ref_cm.attention_scores = f32_probs
-    try:
-        yield
-    finally:
-        ref_cm.attention_scores = dense
-
-
-def _run_ref(rcfg, params, feed=None):
+def _run_ref(rcfg, params, feed=None, run=SHORT):
     """(prefill logits per slot, cache after prefill, step logits, greedy
-    tokens (B, STEPS), final cache); steps after the first are fed `feed`
+    tokens (B, steps), final cache); steps after the first are fed `feed`
     where given, else the greedy tokens."""
     step = jax.jit(lambda p, c, t, pos: ref_registry.decode_step(rcfg, p, c, t, pos))
-    cache = ref_cm.init_params(ref_registry.cache_specs(rcfg, BATCH, MAX_SEQ),
+    cache = ref_cm.init_params(ref_registry.cache_specs(rcfg, run.batch, run.max_seq),
                                jax.random.PRNGKey(0))
     prefill = []
-    for slot, p in enumerate(_prompts()):
+    for slot, p in enumerate(_prompts(run)):
         sub = jax.tree.map(lambda a: a[:, slot:slot + 1], cache)
         lg, sub = step(params, sub, jnp.asarray(p)[None], jnp.int32(0))
         cache = jax.tree.map(lambda f, s: f.at[:, slot:slot + 1].set(s), cache, sub)
         prefill.append(np.asarray(lg))
     pre_cache = jax.tree.map(np.asarray, cache)
-    start = max(PROMPT_LENS)
-    cur = np.array([[p[-1]] for p in _prompts()], np.int32)
+    start = max(run.prompt_lens)
+    cur = np.array([[p[-1]] for p in _prompts(run)], np.int32)
     steps, toks = [], []
-    for i in range(STEPS):
+    for i in range(run.steps):
         lg, cache = step(params, cache, jnp.asarray(cur), jnp.int32(start + i))
         steps.append(np.asarray(lg))
         toks.append(steps[-1][:, -1].argmax(-1))
@@ -114,20 +118,20 @@ def _run_ref(rcfg, params, feed=None):
     return prefill, pre_cache, steps, np.stack(toks, 1), jax.tree.map(np.asarray, cache)
 
 
-def _run_port(cfg, params, feed):
+def _run_port(cfg, params, feed, run=SHORT):
     model = Bert(cfg, device="cpu")
     model.load_state_dict(params_from_jax(params, cfg))
-    cache = registry.init_cache(cfg, BATCH, MAX_SEQ, "cpu")
+    cache = registry.init_cache(cfg, run.batch, run.max_seq, "cpu")
     prefill = []
-    for slot, p in enumerate(_prompts()):
+    for slot, p in enumerate(_prompts(run)):
         sub = {"full": {k: c[:, slot:slot + 1] for k, c in cache["full"].items()}}
         lg, _ = bert.decode_step(cfg, model, sub, torch.from_numpy(p).long()[None], 0)
         prefill.append(lg.numpy())
     pre_cache = cache_to_numpy(cache)
-    start = max(PROMPT_LENS)
-    cur = torch.tensor([[int(p[-1])] for p in _prompts()])
+    start = max(run.prompt_lens)
+    cur = torch.tensor([[int(p[-1])] for p in _prompts(run)])
     steps, toks = [], []
-    for i in range(STEPS):
+    for i in range(run.steps):
         lg, cache = registry.decode_step(cfg, model, cache, cur, start + i)
         steps.append(lg.numpy())
         toks.append(steps[-1][:, -1].argmax(-1))
@@ -145,50 +149,81 @@ def _bf16_ulp(x):
     return 2.0 ** (np.floor(np.log2(np.maximum(x, 2.0 ** -126))) - 7)
 
 
+def _serve_both(mode, params, run):
+    rcfg, cfg = _cfgs(mode, run)
+    want = _run_ref(rcfg, params, run=run)
+    feed = want[3]
+    nudged = _run_ref(rcfg, _nudge(params), feed, run)
+    return mode, run, want, nudged, _run_port(cfg, params, feed, run)
+
+
 @pytest.fixture(scope="module", params=list(MODES))
 def runs(request, ref_params):
-    rcfg, cfg = _cfgs(request.param)
-    want = _run_ref(rcfg, ref_params)
-    feed = want[3]
-    nudged = _run_ref(rcfg, _nudge(ref_params), feed)
-    with F32_PROBS():
-        want32 = _run_ref(rcfg, ref_params, feed)
-        nudged32 = _run_ref(rcfg, _nudge(ref_params), feed)
-    return request.param, want, nudged, want32, nudged32, _run_port(cfg, ref_params, feed)
+    return _serve_both(request.param, ref_params, SHORT)
 
 
-@pytest.mark.parametrize("which", [1, 4])          # after the prefills, at the end
-def test_caches(runs, which):
-    _, want, _, want32, nudged32, got = runs
+@pytest.fixture(scope="module", params=list(MODES))
+def long_runs(request):
+    return _serve_both(request.param, _ref_params(LONG.max_position), LONG)
+
+
+def _check_caches(runs, which):
+    _, run, want, nudged, got = runs
     for name in ("k", "v"):
         g = got[which]["full"][name]
         w = np.asarray(want[which]["full"][name], np.float32)
-        assert g.shape == w.shape == (2, BATCH, MAX_SEQ, 2, 32)
-        assert bool((np.abs(g[0] - w[0]) <= _bf16_ulp(w[0])).all())
-        w32 = np.asarray(want32[which]["full"][name], np.float32)
-        noise = FACTOR * float(np.abs(np.asarray(nudged32[which]["full"][name], np.float32)
-                                      - w32).max())
-        assert bool((np.abs(g - w32) <= np.maximum(_bf16_ulp(w32), noise)).all())
+        assert g.shape == w.shape == (2, run.batch, run.max_seq, 2, 32)
+        if run is SHORT:   # before any attention (in LONG, NPE-16 steps cross int16 steps)
+            assert bool((np.abs(g[0] - w[0]) <= _bf16_ulp(w[0])).all())
+        noise = FACTOR * float(np.abs(np.asarray(nudged[which]["full"][name], np.float32)
+                                      - w).max())
+        assert bool((np.abs(g - w) <= np.maximum(_bf16_ulp(w), noise)).all()), name
         # rows past each slot's prompt and the steps are untouched
-        assert not g[:, :, max(PROMPT_LENS) + STEPS:].any()
+        assert not g[:, :, max(run.prompt_lens) + run.steps:].any()
 
 
-def test_logits(runs):
-    mode, want, nudged, want32, _, got = runs
+def _check_logits(runs):
+    mode, run, want, nudged, got = runs
     for part in (0, 2):                              # prefill logits, step logits
-        tol = FACTOR * max(_max_diff(nudged[part], want[part]),
-                           _max_diff(want32[part], want[part]))
+        tol = FACTOR * _max_diff(nudged[part], want[part])
         assert _max_diff(got[part], want[part]) <= tol, (mode, part)
-    assert got[0][0].shape == (1, 5, 512) and got[2][0].shape == (BATCH, 1, 512)
+    assert got[0][0].shape == (1, run.prompt_lens[0], 512)
+    assert got[2][0].shape == (run.batch, 1, 512)
 
 
-def test_greedy_tokens(runs):
-    mode, want, nudged, _, _, got = runs
+def _check_tokens(runs):
+    mode, _, want, nudged, got = runs
     if mode == "npe8":
         agree_nudge = float((nudged[3] == want[3]).mean())
         assert float((got[3] == want[3]).mean()) >= agree_nudge - TOP1_MARGIN
     else:
         assert np.array_equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("which", [1, 4])          # after the prefills, at the end
+def test_caches(runs, which):
+    _check_caches(runs, which)
+
+
+def test_logits(runs):
+    _check_logits(runs)
+
+
+def test_greedy_tokens(runs):
+    _check_tokens(runs)
+
+
+@pytest.mark.parametrize("which", [1, 4])
+def test_caches_past_256(long_runs, which):
+    _check_caches(long_runs, which)
+
+
+def test_logits_past_256(long_runs):
+    _check_logits(long_runs)
+
+
+def test_greedy_tokens_past_256(long_runs):
+    _check_tokens(long_runs)
 
 
 def test_cache_round_trip_and_specs():

@@ -18,7 +18,7 @@ from repro.kernels import ref
 from repro_torch.core import pwl
 from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm, nvu_layernorm_plain
-from repro_torch.kernels.nvu_softmax import nvu_softmax_plain
+from repro_torch.kernels.nvu_softmax import nvu_softmax_plain, nvu_softmax_walk
 from repro_torch.kernels.pwl_eval import pwl_eval, pwl_eval_plain
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_plain
 
@@ -69,6 +69,43 @@ def test_nvu_softmax_plain(rows, cols, causal):
     _close(got, ref.nvu_softmax(jnp.asarray(x), causal=causal), 2e-5)
     _close(got, pallas.softmax(jnp.asarray(x), causal=causal, block_rows=64), 2e-5)
     assert torch.equal(ops.softmax(torch.from_numpy(x), causal=causal), got)
+
+
+@pytest.mark.parametrize("rows,cols,causal", [(8, 128, False), (128, 128, True)])
+@pytest.mark.parametrize("scale", [0.125, 32 ** -0.5])
+def test_nvu_softmax_plain_scale_and_bf16_output(rows, cols, causal, scale):
+    """The scale multiplies x before the max, once, in f32; a bf16 output is
+    the f32 result rounded to nearest even: nvu_softmax_plain(x * scale)
+    .to(bfloat16) bit for bit, and within the f32 gate (2e-5) and one bf16
+    ulp of the oracle on the scaled scores."""
+    x = _x((rows, cols), 9, scale=20.0)
+    xt = torch.from_numpy(x)
+    cr = rows if causal else 0
+    got = nvu_softmax_plain(xt, causal_rows=cr, scale=scale, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, nvu_softmax_plain(xt * scale, causal_rows=cr).to(torch.bfloat16))
+    f32 = nvu_softmax_plain(xt, causal_rows=cr, scale=scale)
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32, nvu_softmax_plain(xt * scale, causal_rows=cr))
+    want = np.asarray(ref.nvu_softmax(jnp.asarray(x * np.float32(scale)), causal=causal))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7, atol=2e-5)
+    assert torch.equal(ops.softmax(xt, causal=causal, scale=scale, out_dtype=torch.bfloat16),
+                       got)
+
+
+@pytest.mark.parametrize("rows,cols,causal", [(8, 128, 0), (100, 512, 0), (96, 40, 16),
+                                              (64, 1000, 0)])
+def test_nvu_softmax_walk_close_to_plain(rows, cols, causal):
+    """The kernel's arithmetic in torch ops (its order of addition, the
+    walk, the reciprocal's bit trick) against the plain version: float32
+    rounding apart (2e-5)."""
+    x = torch.from_numpy(_x((rows, cols), 10, scale=3.0))
+    for scale, dt in ((1.0, torch.float32), (0.125, torch.bfloat16)):
+        got = nvu_softmax_walk(x, causal_rows=causal, scale=scale, out_dtype=dt)
+        want = nvu_softmax_plain(x, causal_rows=causal, scale=scale, out_dtype=dt)
+        assert got.dtype == dt
+        tol = 2e-5 if dt == torch.float32 else 2.0 ** -7
+        _close(got.float(), want.float(), tol)
 
 
 def test_nvu_softmax_plain_causal_batched():
