@@ -43,8 +43,29 @@
    flash route; and holds the kernel route (float32, 2 layers, full width,
    prefill plus 4 steps; prompts of up to 128 tokens over 256 rows, and of
    1100 and 300 tokens over 1152) against the port's plain route on the CPU;
-6. prints the kernel list, one JSON line of per-kernel numbers, the card, and
-   last `{"ok": true, "device": {...}}`.
+6. runs the npec compiler and functional executor (`repro_torch.npec`) at
+   full width and depth, BERT-base in float32 from [4]'s seed: (a) the
+   executor's kernel options, held and timed in [3] with the other rows:
+   the MMU with one activation scale a row ((8, 768) @ (768, 768) and
+   @ (768, 64)) bit for bit to its plain version and, with equal scales, to
+   the per-tensor call, and `nvu_softmax` with a key limit ((96, 256) a
+   decode step's 12 heads x 8 slots, (12288, 128) causal by limit) bit for
+   bit to its walk; (b) executes the compiled
+   8 x 128 encoder stream in float, NPE-8 and NPE-16 against the port's
+   models/bert (float at 12 layers and NPE at 2 layers within 1e-2, NPE at
+   12 layers within twice the model's change under 1-ulp weights), counts
+   the launches of one NPE-8 execute against the graph's, and prints host
+   ms and the stream's overlay instructions and model cycles; (c) prefills
+   [5]'s 8 prompts through `compile_prefill`, loads them into the 8-slot
+   `compile_decode(256, batch=8)` stream and runs 16 steps in each mode
+   (float greedy, the others fed its tokens), held against 8 per-sequence
+   streams on the same tokens (NPE-8 bit for bit, else the reason and
+   5e-3; float and NPE-16 within twice the stream's change under 1-ulp
+   weights), with top-1 agreement, host ms a step and the launches of the
+   NPE-8 run against the graphs';
+7. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode and npec paths; the npec instances of quant_matmul
+   and nvu_softmax), the card, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before the last line.  Details go to
 `chiprun_out/chip_smoke.json`.
@@ -52,6 +73,7 @@ Any failure exits non-zero before the last line.  Details go to
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -81,6 +103,8 @@ from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  #
 from repro_torch.models import bert, registry  # noqa: E402
 from repro_torch.models import common as cm_mod  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
+from repro_torch.models.convert import param_tree_from_model  # noqa: E402
+from repro_torch import npec  # noqa: E402
 
 # H100 SXM data sheet, dense: HBM 3.35 TB/s, int8 tensor cores 1979 TOP/s,
 # bf16 tensor cores 989 TFLOP/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -355,63 +379,67 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
     return flat.copy_(t.reshape(-1)).view(t.shape)
 
 
+def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
+               library_fn=None, library_name="torch._int_mm", cold=False,
+               walk_fn=None, yardstick_fn=None, yardstick_name=None, check_fn=None,
+               copy_fn=None, walk_name="walk"):
+    """Hold one kernel call against its plain version, time it and append
+    its row to `rows`.  `work`: (operations, rate) pairs of the bound.  With
+    `cold`, the kernel, library, yardstick and copy times are taken with the
+    L2 flushed before each launch, the plain version's as usual.  `walk_fn`:
+    a result the kernel must equal bit for bit (`walk_name` in the line).
+    `yardstick_fn`: a call on the same tensors that is timed only (not the
+    same function).  `check_fn(got)`: (max-abs error, ok) in place of the
+    TOLS comparison with plain_fn.  `copy_fn`: one torch copy that moves the
+    kernel's bytes with no arithmetic, timed as the floor of its memory
+    stream."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    atol, rtol = TOLS[(kernel, dtype)]
+    err, ok = check_fn(got) if check_fn else compare(got, want, atol, rtol)
+    exact = same_bits(got, walk_fn()) if walk_fn else None
+    timer = measure_cold if cold else measure
+    ms, ev = timer(kernel_fn)
+    lms, lev = timer(library_fn) if library_fn else (None, None)
+    pms, pev = measure(plain_fn)
+    yms, yev = timer(yardstick_fn) if yardstick_fn else (None, None)
+    cms, cev = timer(copy_fn) if copy_fn else (None, None)
+    bms, by = bound(bytes_moved, *work)
+    r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
+             max_abs_err=err, atol=atol, rtol=rtol, ok=ok and exact is not False,
+             bit_exact_walk=exact,
+             ms=ms if ms is not None else ev,
+             ms_source=("profiler" if ms else "events") + (", L2 flushed" if cold else ""),
+             event_ms=ev, plain_ms=pms if pms is not None else pev,
+             library_ms=(lms if lms is not None else lev) if library_fn else None,
+             bound_ms=bms, bound_by=by, bound_share=bms / (ms if ms is not None else ev),
+             library=library_name if library_fn else None,
+             yardstick_ms=(yms if yms is not None else yev) if yardstick_fn else None,
+             yardstick=yardstick_name, launch_floor_ms=floor_ms,
+             copy_ms=(cms if cms is not None else cev) if copy_fn else None)
+    rows.append(r)
+    lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
+    extra = "" if exact is None else f", {walk_name} {'bit-exact' if exact else 'DIFFERS'}"
+    if yardstick_fn:
+        extra += (f"  [{yardstick_name} {r['yardstick_ms']:.4f}: same bytes, exact math, "
+                  "not the same function]")
+    if copy_fn:
+        extra += f"  [a copy of the same bytes {r['copy_ms']:.4f}]"
+    if shape.startswith("(8,"):
+        extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
+    say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
+        f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}{extra}  "
+        f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
+        f"(not a yardstick)  bound {bms:.6f} ({by}, {r['bound_share']:.0%} of it){lib}")
+    if not r["ok"]:
+        raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain"
+                         + (f" or the {walk_name}" if exact is False else ""))
+
+
 def kernel_rows(dev, floor_ms):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-
-    def row(kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
-            library_fn=None, library_name="torch._int_mm", cold=False,
-            walk_fn=None, yardstick_fn=None, yardstick_name=None, check_fn=None,
-            copy_fn=None):
-        """`work`: (operations, rate) pairs of the bound.  With `cold`, the
-        kernel, library, yardstick and copy times are taken with the L2
-        flushed before each launch, the plain version's as usual.  `walk_fn`:
-        a result the kernel must equal bit for bit.  `yardstick_fn`: a call on
-        the same tensors that is timed only (not the same function).
-        `check_fn(got)`: (max-abs error, ok) in place of the TOLS comparison
-        with plain_fn.  `copy_fn`: one torch copy that moves the kernel's
-        bytes with no arithmetic, timed as the floor of its memory stream."""
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        atol, rtol = TOLS[(kernel, dtype)]
-        err, ok = check_fn(got) if check_fn else compare(got, want, atol, rtol)
-        exact = same_bits(got, walk_fn()) if walk_fn else None
-        timer = measure_cold if cold else measure
-        ms, ev = timer(kernel_fn)
-        lms, lev = timer(library_fn) if library_fn else (None, None)
-        pms, pev = measure(plain_fn)
-        yms, yev = timer(yardstick_fn) if yardstick_fn else (None, None)
-        cms, cev = timer(copy_fn) if copy_fn else (None, None)
-        bms, by = bound(bytes_moved, *work)
-        r = dict(kernel=kernel, shape=shape, dtype=str(dtype).replace("torch.", ""),
-                 max_abs_err=err, atol=atol, rtol=rtol, ok=ok and exact is not False,
-                 bit_exact_walk=exact,
-                 ms=ms if ms is not None else ev,
-                 ms_source=("profiler" if ms else "events") + (", L2 flushed" if cold else ""),
-                 event_ms=ev, plain_ms=pms if pms is not None else pev,
-                 library_ms=(lms if lms is not None else lev) if library_fn else None,
-                 bound_ms=bms, bound_by=by, bound_share=bms / (ms if ms is not None else ev),
-                 library=library_name if library_fn else None,
-                 yardstick_ms=(yms if yms is not None else yev) if yardstick_fn else None,
-                 yardstick=yardstick_name, launch_floor_ms=floor_ms,
-                 copy_ms=(cms if cms is not None else cev) if copy_fn else None)
-        rows.append(r)
-        lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
-        extra = "" if exact is None else f", walk {'bit-exact' if exact else 'DIFFERS'}"
-        if yardstick_fn:
-            extra += (f"  [{yardstick_name} {r['yardstick_ms']:.4f}: same bytes, exact math, "
-                      "not the same function]")
-        if copy_fn:
-            extra += f"  [a copy of the same bytes {r['copy_ms']:.4f}]"
-        if shape.startswith("(8,"):
-            extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
-        say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
-            f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}{extra}  "
-            f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
-            f"(not a yardstick)  bound {bms:.6f} ({by}, {r['bound_share']:.0%} of it){lib}")
-        if not r["ok"]:
-            raise SystemExit(f"{kernel} {shape} {dtype}: kernel disagrees with plain"
-                             + (" or the walk" if exact is False else ""))
+    row = functools.partial(kernel_row, rows, floor_ms)
 
     import torch.nn.functional as F
     # pwl_eval: the GELU of each FFN, (8*128, 3072) encoding, (8, 3072) a
@@ -510,6 +538,7 @@ def kernel_rows(dev, floor_ms):
 
     flash_rows(dev, g, row)
     dense_rows(dev, g, row)
+    npec_kernel_rows(dev, floor_ms, rows)
     return rows
 
 
@@ -664,10 +693,10 @@ class Audit:
                         qm_mod.quant_matmul_plain(xq, wq, xs, ws, t, out_dtype), out_dtype)
             return y
 
-        def sm(x, segments=16, causal_rows=0, scale=1.0, out_dtype=None):
-            y = sm_mod.nvu_softmax(x, segments, causal_rows, scale, out_dtype)
+        def sm(x, segments=16, causal_rows=0, scale=1.0, out_dtype=None, limit=None):
+            y = sm_mod.nvu_softmax(x, segments, causal_rows, scale, out_dtype, limit)
             self._check("nvu_softmax", y, sm_mod.nvu_softmax_plain(
-                x, segments, causal_rows, scale, out_dtype), y.dtype)
+                x, segments, causal_rows, scale, out_dtype, limit), y.dtype)
             return y
 
         def ln(x, gamma, beta, eps=1e-5, segments=16, rms_only=False):
@@ -798,10 +827,25 @@ def route_check(dev, results):
     results["route_check"] = out
 
 
+def profile_call(fn, host_ms):
+    """Device busy ms, idle share against `host_ms`, the number of kernels
+    and the 12 largest of one more call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = sorted(((k[:90], us / 1e3) for k, us in _kernel_times(prof)),
+                       key=lambda t: -t[1])
+    busy = sum(ms for _, ms in by_kernel)
+    return dict(host_ms=host_ms, device_busy_ms=busy,
+                idle_share=(1 - busy / host_ms) if busy > 0 else None,
+                kernels=len(by_kernel), top=by_kernel[:12])
+
+
 def profile_forward(server, work, reps: int = 5):
     """Host ms of one forward (median of `reps`, no profiler), and the device
     busy ms and kernels of one more forward under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
     server.answer(work)
     torch.cuda.synchronize()
     host = []
@@ -810,16 +854,8 @@ def profile_forward(server, work, reps: int = 5):
         server.answer(work)
         torch.cuda.synchronize()
         host.append(1e3 * (time.perf_counter() - t0))
-    host_ms = sorted(host)[reps // 2]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.answer(work)
-        torch.cuda.synchronize()
-    by_kernel = sorted(((k[:90], us / 1e3) for k, us in _kernel_times(prof)),
-                       key=lambda t: -t[1])
-    busy = sum(ms for _, ms in by_kernel)
-    return dict(host_ms=host_ms, host_ms_runs=host, device_busy_ms=busy,
-                idle_share=(1 - busy / host_ms) if busy > 0 else None,
-                kernels=len(by_kernel), top=by_kernel[:12])
+    prof = profile_call(lambda: server.answer(work), sorted(host)[reps // 2])
+    return dict(prof, host_ms_runs=host)
 
 
 def serve_phase(dev, card, results):
@@ -979,21 +1015,14 @@ def decode_phase(dev, card, results):
             {k: audit.stats[k][0] for k in KERNELS} != DECODE_LAUNCHES["npe-8bit"]:
         raise SystemExit("a launch of the NPE-8 decode step disagrees with its plain version")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, start + GEN)
-        torch.cuda.synchronize()
-    by_kernel = sorted(((k[:90], us / 1e3) for k, us in _kernel_times(prof)),
-                       key=lambda t: -t[1])
-    busy = sum(ms for _, ms in by_kernel)
-    host = out["npe-8bit"]["decode_ms_per_step"]
-    results["decode_profile"] = dict(host_ms=host, device_busy_ms=busy,
-                                     idle_share=(1 - busy / host) if busy > 0 else None,
-                                     top=by_kernel[:12])
-    idle = "not measured" if busy <= 0 else f"{1 - busy / host:.3f}"
-    say(f"  one NPE-8 decode step: {host:.3f} ms host clock (median of the served run), "
-        f"{busy:.3f} ms device busy (torch.profiler), idle share {idle}; device ms by kernel:")
-    for name, ms in by_kernel[:12]:
+    prof = results["decode_profile"] = profile_call(
+        lambda: registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, start + GEN),
+        out["npe-8bit"]["decode_ms_per_step"])
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    say(f"  one NPE-8 decode step: {prof['host_ms']:.3f} ms host clock (median of the served "
+        f"run), {prof['device_busy_ms']:.3f} ms device busy (torch.profiler), idle share "
+        f"{idle}; device ms by kernel:")
+    for name, ms in prof["top"]:
         say(f"      {ms:8.4f}  {name}")
 
     feed = np.asarray(out["float"]["generated"])
@@ -1075,6 +1104,295 @@ def decode_route_check(dev, results):
     results["decode_route_check"] = out
 
 
+# --- phase 6: the npec compiler and executor --------------------------------
+
+NPEC_T, NPEC_STEPS = 256, 16
+NPEC_GATE = 1e-2            # the reference's gate for its executor (tests/test_npec.py:215-245)
+NPEC_SLOTS_TOL = 5e-3       # NPE-8 8-slot vs per-sequence streams, if not bit for bit
+
+
+def npec_kernel_rows(dev, floor_ms, rows):
+    """The two kernel options the npec executor adds (phase [6]), at its
+    shapes, timed in [3] with the other rows: the MMU
+    with one activation scale a row, (8, 768) @ (768, 768) (a merged 8-slot
+    projection) and @ (768, 64) (one head's columns), bit for bit against
+    its plain version and, with every row's scale equal, against the
+    per-tensor call; nvu_softmax with a key limit, (96, 256) (12 heads x 8
+    slots of a decode step, a limit a row) and (12288, 128) causal by limit,
+    bit for bit against its walk."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    row = functools.partial(kernel_row, rows, floor_ms)
+    m = SLOTS
+    for k, n in ((768, 768), (768, 64)):
+        x = torch.randn(m, k, generator=g, device=dev) * (1 + 3 * torch.rand(m, 1, generator=g,
+                                                                              device=dev))
+        xq = quantize(x, 8, axis=0)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
+        a, b = xq.q.contiguous(), wq.q.contiguous()
+        lib_a = torch.cat([a, a.new_zeros(32 - m, k)])
+
+        def plain():
+            return qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale)
+
+        row("quant_matmul", f"({m}, {k}) @ ({k}, {n}) row scales", torch.float32,
+            lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale), plain,
+            m * k + k * n + 4 * m + 4 * n + 4 * m * n, [(2 * m * n * k, INT8_OPS_PER_S)],
+            library_fn=lambda: torch._int_mm(lib_a, b),
+            library_name="torch._int_mm, rows zero-padded to 32", walk_fn=plain,
+            walk_name="plain")
+        one = xq.scale.reshape(-1)[:1]
+        same = torch.equal(qm_mod.quant_matmul(a, b, one.expand(m, 1).contiguous(), wq.scale),
+                           qm_mod.quant_matmul(a, b, one, wq.scale))
+        rows[-1]["equal_row_scales_bit_for_bit_per_tensor"] = same
+        say(f"    every row's scale equal: {'bit for bit' if same else 'DIFFERS from'} the "
+            "per-tensor call")
+        if not same:
+            raise SystemExit("quant_matmul with equal row scales differs from the per-tensor call")
+    for r, n, what in ((96, 256, "limit a row (decode)"), (12288, 128, "causal by limit")):
+        x = torch.randn(r, n, generator=g, device=dev) * 3
+        if r == 12288:
+            limit = (torch.arange(r, device=dev) % n + 1).to(torch.int32)
+        else:
+            limit = torch.randint(1, n + 1, (r,), generator=g, device=dev, dtype=torch.int32)
+        ops_ = x.numel() * (pwl_prefix_ops("exp") + 7) + r * (pwl_ops("recip") + 6)
+        row("nvu_softmax", f"({r}, {n}) {what}", torch.float32,
+            lambda: sm_mod.nvu_softmax(x, limit=limit),
+            lambda: sm_mod.nvu_softmax_plain(x, limit=limit),
+            x.numel() * 8 + limit.numel() * 4, [(ops_, F32_OPS_PER_S)],
+            walk_fn=lambda: sm_mod.nvu_softmax_walk(x, limit=limit),
+            yardstick_fn=lambda: torch.softmax(x, dim=-1), yardstick_name="torch.softmax")
+
+
+def encode_layers(cfg, model: Bert, layers: int, tokens):
+    """The port's BERT encoder cut to its first `layers` layers."""
+    small = Bert(dataclasses.replace(cfg, num_layers=layers), device=tokens.device,
+                 dtype=torch.float32)
+    small.load_state_dict(model.state_dict(), strict=False)
+    return bert.encode(small.cfg, small, tokens)
+
+
+def timed(fn, reps: int = 3):
+    """(result, median host ms) of `reps` calls of fn, each synchronized."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, sorted(times)[reps // 2]
+
+
+def say_profile(what, prof):
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    say(f"             {what}: {prof['host_ms']:.1f} ms host, {prof['device_busy_ms']:.3f} ms "
+        f"device busy (torch.profiler), idle share {idle}; largest: "
+        + ", ".join(f"{name.split('(')[0][-40:]} {ms:.3f}" for name, ms in prof["top"][:4]))
+
+
+def npec_encoder(dev, model, tree, nudged, tokens, results):
+    """(b) `compile_model(bert_base, 128)` with embeddings through `execute`
+    on [4]'s 8 x 128 tokens, in each mode, against the port's models/bert
+    encoder (float32): float at full depth and NPE at 2 layers within the
+    reference's 1e-2; NPE at full depth within twice the model's own change
+    under a 1-ulp weight nudge on the same batch."""
+    base = model.cfg
+    out = {}
+    for mode, mcfg in MODES.items():
+        c = mcfg(base)
+        bits = c.npe_quant_bits if c.npe_quant else 16
+        compiled = npec.compile_model(base, SEQ, bits=bits)
+        exec_ = lambda: npec.execute(compiled, tree, {"tokens": tokens}, cfg=c, device=dev)
+        exec_()
+        res, host_ms = timed(exec_)
+        got = res[0]
+        want = bert.encode(c, model, tokens)
+        err = float((got - want).abs().max())
+        r = dict(max_abs_full=err, host_ms=host_ms, peak_live_bytes=res.peak_live_bytes,
+                 shape=list(got.shape), instrs=len(compiled.instrs),
+                 counts_by_unit=compiled.counts_by_unit(),
+                 greedy_cycles=npec.greedy_schedule(compiled)["total_cycles"],
+                 streaming_cycles=npec.stream_schedule(compiled)["total_cycles"])
+        finite = bool(torch.isfinite(got).all()) and tuple(got.shape) == (BATCH, SEQ, base.d_model)
+        if c.npe_quant:
+            small = npec.compile_model(dataclasses.replace(base, num_layers=2), SEQ, bits=bits)
+            got2 = npec.execute(small, tree, {"tokens": tokens}, cfg=c, device=dev)[0]
+            err2 = float((got2 - encode_layers(c, model, 2, tokens)).abs().max())
+            noise = float((bert.encode(c, nudged, tokens) - want).abs().max())
+            r.update(max_abs_2layers=err2, gate_2layers=NPEC_GATE, nudge_full=noise,
+                     gate_full=NOISE_FACTOR * noise)
+            ok = err2 <= NPEC_GATE and err <= NOISE_FACTOR * noise
+            gates = (f"2 layers max-abs {err2:.3e} (gate {NPEC_GATE:g}); {base.num_layers} "
+                     f"layers max-abs {err:.3e} (gate {NOISE_FACTOR:g} x the model's change "
+                     f"under 1-ulp weights {noise:.3e})")
+        else:
+            r.update(gate_full=NPEC_GATE)
+            ok = err <= NPEC_GATE
+            gates = f"{base.num_layers} layers max-abs {err:.3e} (gate {NPEC_GATE:g})"
+        r["ok"] = ok = ok and finite
+        out[mode] = r
+        say(f"  {mode:10s} encoder stream vs models/bert.encode (float32, {BATCH} x {SEQ}): {gates}; "
+            f"{host_ms:.1f} ms host a forward (median of 3); {len(compiled.instrs)} overlay "
+            f"instrs {r['counts_by_unit']}, overlay model cycles (200 MHz FPGA, not card time) "
+            f"{r['greedy_cycles']:.0f} whole-op / {r['streaming_cycles']:.0f} tile-streaming"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"npec encoder stream, {mode}: disagrees with models/bert")
+        if mode == "npe-8bit":
+            counts, _ = counted(exec_)
+            want_n = npec.expected_launches(compiled.graph, npe_quant=True, bits=8, use_pwl=True)
+            r["launches"], r["expected_launches"] = counts, want_n
+            say(f"             launches of one NPE-8 execute {counts} (from the graph {want_n})")
+            r["profile"] = profile_call(exec_, host_ms)
+            say_profile("one NPE-8 execute", r["profile"])
+            if counts != want_n or any(counts[k] == 0 for k in NPEC_KERNELS):
+                raise SystemExit("npec encoder stream: launches differ from the graph's")
+    results["npec_encoder"] = out
+    return out["npe-8bit"]["launches"]
+
+
+NPEC_KERNELS = ("quant_matmul", "nvu_softmax", "nvu_layernorm", "pwl_eval")
+
+
+def npec_decode(dev, model, tree, nudged_tree, results):
+    """(c) 8 prompts of `SyntheticRequests(max_prompt=128)` seed 1 (as [5]),
+    each prefilled by its own `compile_prefill` stream and loaded into the
+    8-slot `compile_decode(bert_base, 256, batch=8)` stream by `load_slot`,
+    then NPEC_STEPS steps: float greedy, NPE-8 and NPE-16 fed float's
+    tokens.  The 8-slot stream is held against 8 per-sequence streams
+    (batch=1) fed the same tokens from the same prefills."""
+    base = model.cfg
+    prompts = decode_prompts(base.vocab_size, n=SLOTS)
+    dec = npec.compile_decode(base, NPEC_T, bits=8, batch=SLOTS)
+    seq_prog = npec.compile_decode(base, NPEC_T, bits=8)
+    pre = {n: npec.compile_prefill(base, n, bits=8) for n in sorted({len(p) for p in prompts})}
+
+    def run_slots(c, tr, feed=None, keep=None):
+        sess = npec.DecodeSession(dec, tr, cfg=c, device=dev)
+        if keep is not None:
+            keep.append(sess)
+        kv, first = [], []
+        for slot, p in enumerate(prompts):
+            res = npec.execute(pre[len(p)], tr, {"tokens": p}, cfg=c, device=dev)
+            sess.load_slot(slot, res.kv_exports, len(p))
+            kv.append(res.kv_exports)
+            first.append(res[0][-1])
+        first = torch.stack(first)
+        cur = first.argmax(-1) if feed is None else feed[:, 0]
+        fed, logits, ms = [], [], []
+        for i in range(NPEC_STEPS):
+            toks = cur if feed is None else feed[:, i]
+            fed.append(toks)
+            t0 = time.perf_counter()
+            out = sess.step(toks)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            logits.append(out)
+            cur = out.argmax(-1)
+        return dict(first=first, kv=kv, fed=torch.stack(fed, 1), logits=torch.stack(logits),
+                    step_ms=ms)
+
+    def run_sequences(c, tr, kv, feed):
+        logits = []
+        for slot, p in enumerate(prompts):
+            sess = npec.DecodeSession(seq_prog, tr, cfg=c, device=dev)
+            for name, rows in kv[slot].items():
+                sess.caches[name][0, :len(p)] = rows
+            sess.pos = len(p)
+            logits.append(torch.stack([sess.step(feed[slot:slot + 1, i:i + 1])[0, 0]
+                                       for i in range(NPEC_STEPS)]))
+        return torch.stack(logits, 1)
+
+    out, runs = {}, {}
+    expected = {k: 0 for k in KERNELS}
+    for p in prompts:
+        for k, n in npec.expected_launches(pre[len(p)].graph, npe_quant=True, bits=8,
+                                           use_pwl=True).items():
+            expected[k] += n
+    for k, n in npec.expected_launches(dec.graph, npe_quant=True, bits=8, use_pwl=True).items():
+        expected[k] += NPEC_STEPS * n
+    npe8_counts = None
+    for mode, mcfg in MODES.items():
+        c = mcfg(base)
+        feed = None if mode == "float" else runs["float"]["fed"]
+        if mode == "npe-8bit":
+            kept = []
+            npe8_counts, run = counted(lambda: run_slots(c, tree, feed, kept))
+            sess, last = kept[0], run["fed"][:, -1]
+            prof = profile_call(lambda: sess.step(last, active=np.zeros(SLOTS, bool)),
+                                sorted(run["step_ms"])[NPEC_STEPS // 2])
+        else:
+            run = run_slots(c, tree, feed)
+        runs[mode] = run
+        fed = run["fed"]
+        seq_logits = run_sequences(c, tree, run["kv"], fed)
+        bit = torch.equal(seq_logits, run["logits"])
+        err = float((seq_logits - run["logits"]).abs().max())
+        if mode == "npe-8bit":
+            gate, why = (0.0 if bit else NPEC_SLOTS_TOL), None
+            if not bit:
+                why = ("not bit for bit: the merged and the single-row streams reach the f32 "
+                       "products of attention (QK^T, AV) through different cuBLAS calls, whose "
+                       "order of addition can differ; the MMU rows are per-row scaled and exact")
+        else:
+            nud = run_slots(c, nudged_tree, fed)
+            noise = max(float((nud["logits"] - run["logits"]).abs().max()),
+                        float((nud["first"] - run["first"]).abs().max()))
+            gate, why = NOISE_FACTOR * noise, None
+        agree = float(torch.cat([run["first"].argmax(-1)[None], run["logits"].argmax(-1)]).eq(
+            torch.cat([runs["float"]["first"].argmax(-1)[None],
+                       runs["float"]["logits"].argmax(-1)])).float().mean())
+        finite = bool(torch.isfinite(run["logits"]).all())
+        ok = (bit or err <= gate) and finite
+        step_ms = sorted(run["step_ms"])[NPEC_STEPS // 2]
+        out[mode] = dict(bit_for_bit=bit, max_abs=err, gate=gate, why=why, agreement=agree,
+                         host_ms_per_step=step_ms, step_ms=run["step_ms"], ok=ok,
+                         tokens=fed.tolist())
+        say(f"  {mode:10s} {SLOTS}-slot decode stream vs {SLOTS} per-sequence streams ({NPEC_STEPS} steps, "
+            f"same tokens): {'bit for bit' if bit else f'max-abs {err:.3e} (gate {gate:.3e})'}"
+            f"; top-1 agreement with float {agree:.4f}; {step_ms:.1f} ms host a step "
+            f"(median of {NPEC_STEPS})" + ("" if ok else "  FAIL"))
+        if why:
+            say(f"             {why}")
+        if mode == "npe-8bit":
+            out[mode]["profile"] = prof
+            say_profile("one more NPE-8 step", prof)
+        if not ok:
+            raise SystemExit(f"npec decode stream, {mode}: the 8-slot stream disagrees with "
+                             "the per-sequence streams")
+    say(f"  launches of the NPE-8 decode run ({SLOTS} prefills + {NPEC_STEPS} steps): {npe8_counts} "
+        f"(from the graphs {expected})")
+    if npe8_counts != expected:
+        raise SystemExit("npec decode run: launches differ from the graphs'")
+    results["npec_decode"] = dict(out, launches=npe8_counts, expected_launches=expected)
+    return npe8_counts
+
+
+def npec_phase(dev, results):
+    """[6] The npec compiler and functional executor on the card: (a) its
+    kernel options (held and timed in [3]), (b) the encoder stream, (c) the
+    decode streams, at full width and depth (BERT-base, weights from [4]'s
+    seed in float32)."""
+    opts = [r for r in results["rows"] if "row scales" in r["shape"] or "limit" in r["shape"]]
+    say("  (a) the executor's kernel options, held and timed in [3]: " + "; ".join(
+        f"{r['kernel']} {r['shape']} {r['ms']:.4f} ms (bound {r['bound_ms']:.6f}, "
+        f"{'bit for bit' if r['bit_exact_walk'] else 'DIFFERS'})" for r in opts))
+    if len(opts) != 4 or not all(r["ok"] and r["bit_exact_walk"] for r in opts):
+        raise SystemExit("npec kernel options missing or not bit for bit")
+    base = dataclasses.replace(get_config("bert_base"), dtype="float32")
+    model = Bert(base, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    nudged = nudge(model).to(dev)
+    tree = npec.ParamTree(param_tree_from_model(model), dev)
+    reqs = SyntheticRequests(base.vocab_size, max_prompt=SEQ, seed=1)
+    tokens = BertServer(base, seq=SEQ, device=dev, model=model).tokens(
+        [reqs.request(i) for i in range(BATCH)])
+    say(f"  bert_base L={base.num_layers} D={base.d_model} V={base.vocab_size} float32 "
+        f"weights; encoder batch {BATCH} x {SEQ}")
+    enc = npec_encoder(dev, model, tree, nudged, tokens, results)
+    nudged_tree = npec.ParamTree(param_tree_from_model(nudged), dev)
+    dec = npec_decode(dev, model, tree, nudged_tree, results)
+    results["npec_launches"] = {k: enc[k] + dec[k] for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1133,6 +1451,9 @@ def main() -> int:
     decode_phase(dev, card, results)
     decode_route_check(dev, results)
 
+    say("[6] npec: the compiled BERT-base streams through the functional executor on the card")
+    npec_phase(dev, results)
+
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
     # path: the served NPE-8 decode run, or the NPE-8 encoder forward
@@ -1155,7 +1476,18 @@ def main() -> int:
             replaces=REPLACES[name], launches=counts[name], path=path,
             shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"],
+            launches_encoder=results["launches"][name],
+            launches_decode=results["decode_launches"][name],
+            launches_npec=results["npec_launches"][name]))
+        npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
+                          bound_ms=x["bound_ms"], bound_by=x["bound_by"],
+                          library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
+                          launch_floor_ms=x["launch_floor_ms"])
+                     for x in rows if x["kernel"] == name
+                     and ("row scales" in x["shape"] or "limit" in x["shape"])]
+        if npec_rows:
+            kernels[-1]["npec_instances"] = npec_rows
         cold = next((c for c in rows if c["kernel"] == name and c["dtype"] == r["dtype"]
                      and c["shape"] == shape + " cold L2"), None)
         if cold:
@@ -1172,7 +1504,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    say("[6] summary")
+    say("[7] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

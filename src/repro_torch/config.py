@@ -1,4 +1,5 @@
-"""Model configuration (counterpart of `repro/config.py`, the fields BERT uses)."""
+"""Model configuration (counterpart of `repro/config.py`, the fields BERT and
+the npec tracer of BERT use)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,10 +18,18 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
+    # attention structure (the npec tracer reads these)
+    attention: str = "full"     # full | sliding | local_global | none
+    window: int = 4096          # sliding-window size where applicable
+    causal: bool = True
+
     norm: str = "layernorm"
     norm_bias: bool = True
+    qkv_bias: bool = False
+    mlp_bias: bool = False
     activation: str = "gelu"
     max_position: int = 512
+    tie_embeddings: bool = False
 
     dtype: str = "bfloat16"
 

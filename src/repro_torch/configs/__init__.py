@@ -40,6 +40,7 @@ def shrink(cfg: ModelConfig, **over) -> ModelConfig:
         d_ff=256,
         vocab_size=512,
         max_position=4096,
+        window=min(cfg.window, 32),
     )
     d.update(over)
     return dataclasses.replace(cfg, **d)

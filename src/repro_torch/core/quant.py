@@ -6,6 +6,7 @@ column weight scales, integer products accumulated exactly, dequantized as
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,11 +28,20 @@ class QTensor(NamedTuple):
 _QDTYPE = {8: torch.int8, 16: torch.int16}
 
 
+@functools.lru_cache(maxsize=None)
+def _qmax_tensor(bits: int, device: torch.device) -> torch.Tensor:
+    """2^(bits-1) - 1 as a 0-dim float32 tensor on `device`.  On the card a
+    Python-number divisor becomes a multiply by its reciprocal, one ulp off
+    the quotient now and then; a tensor divisor is divided by."""
+    return torch.tensor(float(2 ** (bits - 1) - 1), dtype=torch.float32, device=device)
+
+
 def quantize(x: torch.Tensor, bits: int = 8,
              axis: Optional[int] = None) -> QTensor:
     """Symmetric quantization; `axis` is the channel axis of per-channel
     scales (None: per tensor).  torch.round rounds half to even, as jnp does,
-    and x is divided by the scale, not multiplied by its reciprocal."""
+    and amax and x are divided (amax / qmax, x / scale), not multiplied by a
+    reciprocal, on the CPU and the card alike."""
     xf = x.to(torch.float32)
     if axis is None:
         amax = xf.abs().amax()
@@ -39,7 +49,7 @@ def quantize(x: torch.Tensor, bits: int = 8,
         red = tuple(i for i in range(x.ndim) if i != (axis % x.ndim))
         amax = xf.abs().amax(dim=red, keepdim=True)
     qmax = float(2 ** (bits - 1) - 1)
-    scale = torch.clamp(amax, min=1e-12) / qmax
+    scale = torch.clamp(amax, min=1e-12) / _qmax_tensor(bits, xf.device)
     q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax).to(_QDTYPE[bits])
     return QTensor(q, scale)
 

@@ -29,7 +29,11 @@
 // which fold the encoder's `* d**-0.5` and `.to(bf16)` into this launch.  The
 // causal option masks column c of row r when c > r % q + (n - q): the last
 // query of each (q, n) matrix sees the last key, as the reference oracle
-// (kernels/ref.py) has it.
+// (kernels/ref.py) has it.  The limit option is the masked softmax of the
+// npec executor (core/nvu.nvu_softmax with `where`): row r sees columns
+// c < limit[r / limit_rows] (limit_rows 1: a value a row; q: a value a (q, n)
+// matrix).  A masked column takes no part in the max, its exp is 0 before
+// the sum, and it is written as 0; a row with no visible column is all 0.
 #include "pwl.cuh"
 
 namespace {
@@ -41,8 +45,9 @@ static_assert(THREADS >= NPE_PREFIX_KNOTS, "a thread fetches each knot slot and 
 template <int VPT, int R, typename TO, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 nvu_softmax_kernel(const float* __restrict__ x, TO* __restrict__ y, int rows, int n,
-                   int causal_rows, float scale, const float* __restrict__ exp_table,
-                   int exp_segs, const float* __restrict__ recip_table, int recip_segs) {
+                   int causal_rows, const int* __restrict__ limit, int limit_rows, float scale,
+                   const float* __restrict__ exp_table, int exp_segs,
+                   const float* __restrict__ recip_table, int recip_segs) {
   __shared__ NpePrefixTable etab, rtab;
   const NpePrefixFetch efetch(exp_table, exp_segs), rfetch(recip_table, recip_segs);
   const int lane = threadIdx.x & 31;
@@ -69,21 +74,27 @@ nvu_softmax_kernel(const float* __restrict__ x, TO* __restrict__ y, int rows, in
   const float neg_inf = __int_as_float(0xff800000);
   while (r0 < rows) {
     float m[R];
+    int vis[R];          // limit mode: columns c < vis[i] of row r0 + i are visible
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       int visible = n;   // columns c < visible are unmasked
       if (!FULL && causal_rows > 0) visible = (r0 + i) % causal_rows + (n - causal_rows) + 1;
+      vis[i] = n;
+      if (!FULL && limit != nullptr)
+        vis[i] = limit[min(r0 + i, rows - 1) / limit_rows];
 #pragma unroll
       for (int j = 0; j < VPT; ++j) {
         const int c = lane + 32 * j;
         float& t = v[i * VPT + j];
         t = FULL ? __fmul_rn(t, scale)
-                 : (c < n ? (c < visible ? __fmul_rn(t, scale) : -1e30f) : neg_inf);
+                 : (c < n && c < vis[i] ? (c < visible ? __fmul_rn(t, scale) : -1e30f)
+                                         : neg_inf);
       }
       m[i] = v[i * VPT];
 #pragma unroll
       for (int j = 1; j < VPT; ++j) m[i] = fmaxf(m[i], v[i * VPT + j]);
       m[i] = npe_warp_max(m[i]);
+      if (!FULL && limit != nullptr && m[i] == neg_inf) m[i] = 0.f;   // no visible column
     }
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -98,7 +109,7 @@ nvu_softmax_kernel(const float* __restrict__ x, TO* __restrict__ y, int rows, in
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < VPT; ++j) {
-        if (!FULL && lane + 32 * j >= n) v[i * VPT + j] = 0.f;
+        if (!FULL && (lane + 32 * j >= n || lane + 32 * j >= vis[i])) v[i * VPT + j] = 0.f;
         s = __fadd_rn(s, v[i * VPT + j]);
       }
       s = npe_warp_sum(s);
@@ -125,8 +136,9 @@ nvu_softmax_kernel(const float* __restrict__ x, TO* __restrict__ y, int rows, in
 // Blocks for `rows`: enough for every warp to take R rows once, at most the
 // blocks the card holds at once (the rest by the loop).
 template <int VPT, int R, typename TO, bool FULL>
-int launch_softmax(const float* x, void* y, int rows, int n, int causal_rows, float scale,
-                   const float* et, int es, const float* rt, int rs, cudaStream_t stream) {
+int launch_softmax(const float* x, void* y, int rows, int n, int causal_rows, const int* limit,
+                   int limit_rows, float scale, const float* et, int es, const float* rt,
+                   int rs, cudaStream_t stream) {
   static int resident = 0;
   if (resident == 0) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -138,47 +150,53 @@ int launch_softmax(const float* x, void* y, int rows, int n, int causal_rows, fl
   const long long cap = (long long)npe_sm_count() * resident;
   const int blocks = (int)(need < cap ? need : cap);
   nvu_softmax_kernel<VPT, R, TO, FULL><<<blocks, THREADS, 0, stream>>>(
-      x, static_cast<TO*>(y), rows, n, causal_rows, scale, et, es, rt, rs);
+      x, static_cast<TO*>(y), rows, n, causal_rows, limit, limit_rows, scale, et, es, rt, rs);
   return (int)cudaGetLastError();
 }
 
 // FULL: rows of exactly 32 * VPT columns and no mask, so no column test.
 template <int VPT, int R, typename TO>
 int launch_full_or_not(const float* x, void* y, int rows, int n, int causal_rows,
-                       float scale, const float* et, int es, const float* rt, int rs,
-                       cudaStream_t s) {
-  if (n == 32 * VPT && causal_rows == 0)
-    return launch_softmax<VPT, R, TO, true>(x, y, rows, n, 0, scale, et, es, rt, rs, s);
-  return launch_softmax<VPT, R, TO, false>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+                       const int* limit, int limit_rows, float scale, const float* et, int es,
+                       const float* rt, int rs, cudaStream_t s) {
+  if (n == 32 * VPT && causal_rows == 0 && limit == nullptr)
+    return launch_softmax<VPT, R, TO, true>(x, y, rows, n, 0, nullptr, 1, scale, et, es, rt,
+                                            rs, s);
+  return launch_softmax<VPT, R, TO, false>(x, y, rows, n, causal_rows, limit, limit_rows, scale,
+                                           et, es, rt, rs, s);
 }
 
 // R rows a warp: R * VPT values in flight a lane, about 16.
 template <typename TO>
-int launch_n(const float* x, void* y, int rows, int n, int causal_rows, float scale,
-             const float* et, int es, const float* rt, int rs, cudaStream_t s) {
-  if (n <= 32) return launch_full_or_not<1, 8, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
-  if (n <= 64) return launch_full_or_not<2, 8, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
-  if (n <= 128) return launch_full_or_not<4, 4, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
-  if (n <= 256) return launch_full_or_not<8, 2, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
-  if (n <= 512) return launch_full_or_not<16, 1, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
-  return launch_full_or_not<32, 1, TO>(x, y, rows, n, causal_rows, scale, et, es, rt, rs, s);
+int launch_n(const float* x, void* y, int rows, int n, int causal_rows, const int* limit,
+             int limit_rows, float scale, const float* et, int es, const float* rt, int rs,
+             cudaStream_t s) {
+#define NPE_SOFTMAX_ARGS x, y, rows, n, causal_rows, limit, limit_rows, scale, et, es, rt, rs, s
+  if (n <= 32) return launch_full_or_not<1, 8, TO>(NPE_SOFTMAX_ARGS);
+  if (n <= 64) return launch_full_or_not<2, 8, TO>(NPE_SOFTMAX_ARGS);
+  if (n <= 128) return launch_full_or_not<4, 4, TO>(NPE_SOFTMAX_ARGS);
+  if (n <= 256) return launch_full_or_not<8, 2, TO>(NPE_SOFTMAX_ARGS);
+  if (n <= 512) return launch_full_or_not<16, 1, TO>(NPE_SOFTMAX_ARGS);
+  return launch_full_or_not<32, 1, TO>(NPE_SOFTMAX_ARGS);
+#undef NPE_SOFTMAX_ARGS
 }
 
 }  // namespace
 
+// limit: null, or int32 visible-column counts, one for each limit_rows rows.
 extern "C" int npe_nvu_softmax(const float* x, void* y, int rows, int n, int causal_rows,
-                               float scale, int y_bf16, const float* exp_table,
-                               int exp_segments, const float* recip_table,
-                               int recip_segments, void* stream) {
+                               const int* limit, int limit_rows, float scale, int y_bf16,
+                               const float* exp_table, int exp_segments,
+                               const float* recip_table, int recip_segments, void* stream) {
   if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
       recip_segments < 1 || recip_segments + 1 > NPE_MAX_TABLE_COLS ||
-      n > 1024 || causal_rows < 0)
+      n > 1024 || causal_rows < 0 || (limit != nullptr && limit_rows < 1))
     return (int)cudaErrorInvalidValue;
   if (rows <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (y_bf16)
-    return launch_n<__nv_bfloat16>(x, y, rows, n, causal_rows, scale, exp_table,
-                                   exp_segments, recip_table, recip_segments, s);
-  return launch_n<float>(x, y, rows, n, causal_rows, scale, exp_table, exp_segments,
-                         recip_table, recip_segments, s);
+    return launch_n<__nv_bfloat16>(x, y, rows, n, causal_rows, limit, limit_rows, scale,
+                                   exp_table, exp_segments, recip_table, recip_segments, s);
+  return launch_n<float>(x, y, rows, n, causal_rows, limit, limit_rows, scale, exp_table,
+                         exp_segments, recip_table, recip_segments, s);
 }

@@ -36,9 +36,11 @@
 //   finish (counted by an atomic ticket) runs the epilogue and sets the
 //   workspace and the ticket back to zero for the next launch on the
 //   stream.  Exact: integer atomics.
-// Epilogue, unchanged bit for bit: acc * (x_scale * w_scale[col]) in f32 as
-// the reference's quant_dense orders it, the optional PWL (the fused GELU
-// of the TPU kernel), then f32 or bf16.
+// Epilogue: acc * (x_scale[row * xs_stride] * w_scale[col]) in f32 as the
+// reference's quant_dense orders it, the optional PWL (the fused GELU of the
+// TPU kernel), then f32 or bf16.  xs_stride 0 is one activation scale for
+// the tensor (the same bits as before per-row scales existed); 1 is one a
+// row, the executor's per-row quantization of merged decode tiles.
 #include "hopper.cuh"
 #include "pwl.cuh"
 
@@ -122,7 +124,7 @@ struct Tiles {
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool VEC, typename TO>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 qmm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-           const float* __restrict__ x_scale, const float* __restrict__ w_scale,
+           const float* __restrict__ x_scale, int xs_stride, const float* __restrict__ w_scale,
            TO* __restrict__ out, int M, int N, int K, const float* __restrict__ table,
            int segs) {
   using T = Tiles<BM, BN, WARPS_M, WARPS_N>;
@@ -197,7 +199,6 @@ qmm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   }
   if (ktiles == 0) __syncthreads();          // the table, when K is 0
 
-  const float xsc = *x_scale;
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < T::MT; ++i)
@@ -208,6 +209,7 @@ qmm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
         const int row = m0 + wm * T::WM + i * 16 + g + 8 * h;
         const int col = n0 + wn * T::WN + j * 8 + 2 * t4;
         if (row >= M) continue;
+        const float xsc = x_scale[(size_t)row * xs_stride];
         TO* o = out + (size_t)row * N + col;
         const float v0 = col < N ? dequant(acc[i][j][2 * h], xsc, w_scale, col, tab, segs) : 0.f;
         if (col + 1 < N && N % 2 == 0) {
@@ -234,8 +236,9 @@ constexpr size_t ROW_SMEM = (size_t)ROW_STAGES * (16 * BK + BK * DN) + (size_t)D
 template <bool VEC, typename TO>
 __global__ void __launch_bounds__(DTHREADS)
 qmm_rows_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                const float* __restrict__ x_scale, const float* __restrict__ w_scale,
-                TO* __restrict__ out, int M, int N, int K, int slice, int* __restrict__ work,
+                const float* __restrict__ x_scale, int xs_stride,
+                const float* __restrict__ w_scale, TO* __restrict__ out, int M, int N, int K,
+                int slice, int* __restrict__ work,
                 const float* __restrict__ table, int segs) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* xs = smem;                          // ROW_STAGES x (16, 64), npe_sw64
@@ -291,7 +294,6 @@ qmm_rows_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
 
   // acc[mt][e]: column n0 + 16 warp + g + 8 (e / 2), row 8 mt + 2 t + e % 2
   const int g = lane >> 2, t4 = lane & 3;
-  const float xsc = *x_scale;
   if (gridDim.y == 1) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -299,8 +301,8 @@ qmm_rows_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + warp * 16 + g + 8 * (e >> 1), row = 8 * mt + 2 * t4 + (e & 1);
         if (row < M && col < N)
-          out[(size_t)row * N + col] =
-              npe_from_f32<TO>(dequant(acc[mt][e], xsc, w_scale, col, tab, segs));
+          out[(size_t)row * N + col] = npe_from_f32<TO>(
+              dequant(acc[mt][e], x_scale[(size_t)row * xs_stride], w_scale, col, tab, segs));
       }
     return;
   }
@@ -324,7 +326,8 @@ qmm_rows_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     int* w = work + (size_t)row * N + col;
     const int sum = __ldcg(w);
     __stcg(w, 0);
-    out[(size_t)row * N + col] = npe_from_f32<TO>(dequant(sum, xsc, w_scale, col, tab, segs));
+    out[(size_t)row * N + col] = npe_from_f32<TO>(
+        dequant(sum, x_scale[(size_t)row * xs_stride], w_scale, col, tab, segs));
   }
   if (threadIdx.x == 0) *ticket = 0;
 }
@@ -357,33 +360,37 @@ int allow_smem(KernelT kernel, size_t bytes, bool& done) {
 }
 
 template <int BM, int BN, int WM_, int WN_, bool VEC, typename TO>
-int launch_tiles(const int8_t* xq, const int8_t* wq, const float* xs, const float* ws, TO* out,
-                 int m, int n, int k, const float* table, int segs, cudaStream_t s) {
+int launch_tiles(const int8_t* xq, const int8_t* wq, const float* xs, int xs_stride,
+                 const float* ws, TO* out, int m, int n, int k, const float* table, int segs,
+                 cudaStream_t s) {
   using T = Tiles<BM, BN, WM_, WN_>;
   static bool done = false;
   if (int err = allow_smem(qmm_kernel<BM, BN, WM_, WN_, VEC, TO>, T::SMEM, done)) return err;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   qmm_kernel<BM, BN, WM_, WN_, VEC, TO><<<grid, T::THREADS, T::SMEM, s>>>(
-      xq, wq, xs, ws, out, m, n, k, table, segs);
+      xq, wq, xs, xs_stride, ws, out, m, n, k, table, segs);
   return (int)cudaGetLastError();
 }
 
 template <bool VEC, typename TO>
-int launch(const int8_t* xq, const int8_t* wq, const float* xs, const float* ws, TO* out,
-           int m, int n, int k, const float* table, int segs, int* work, cudaStream_t s) {
+int launch(const int8_t* xq, const int8_t* wq, const float* xs, int xs_stride, const float* ws,
+           TO* out, int m, int n, int k, const float* table, int segs, int* work,
+           cudaStream_t s) {
   if (m <= 16) {
     const RowGrid rg = row_grid(n, k);
     if (rg.splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
     static bool done = false;
     if (int err = allow_smem(qmm_rows_kernel<VEC, TO>, ROW_SMEM, done)) return err;
     qmm_rows_kernel<VEC, TO><<<dim3(rg.tiles, rg.splits), DTHREADS, ROW_SMEM, s>>>(
-        xq, wq, xs, ws, out, m, n, k, rg.slice, work, table, segs);
+        xq, wq, xs, xs_stride, ws, out, m, n, k, rg.slice, work, table, segs);
     return (int)cudaGetLastError();
   }
   const long long big = (long long)((m + 127) / 128) * ((n + 127) / 128);
   if (big >= npe_sm_count())
-    return launch_tiles<128, 128, 2, 4, VEC, TO>(xq, wq, xs, ws, out, m, n, k, table, segs, s);
-  return launch_tiles<64, 64, 2, 2, VEC, TO>(xq, wq, xs, ws, out, m, n, k, table, segs, s);
+    return launch_tiles<128, 128, 2, 4, VEC, TO>(xq, wq, xs, xs_stride, ws, out, m, n, k, table,
+                                                  segs, s);
+  return launch_tiles<64, 64, 2, 2, VEC, TO>(xq, wq, xs, xs_stride, ws, out, m, n, k, table,
+                                              segs, s);
 }
 
 }  // namespace
@@ -397,12 +404,15 @@ extern "C" int npe_quant_matmul_workspace(int m, int n, int k) {
   return rg.splits > 1 ? m * n + rg.tiles : 0;
 }
 
+// x_scale: one value (x_scale_stride 0) or one a row (x_scale_stride 1, or
+// the stride between rows' values).
 extern "C" int npe_quant_matmul(const int8_t* xq, const int8_t* wq,
-                                const float* x_scale, const float* w_scale,
+                                const float* x_scale, int x_scale_stride, const float* w_scale,
                                 void* out, int m, int n, int k, int out_bf16,
                                 const float* table, int segments, int* workspace,
                                 void* stream) {
   if (segments < 0 || segments + 1 > NPE_MAX_TABLE_COLS) return (int)cudaErrorInvalidValue;
+  if (x_scale_stride < 0) return (int)cudaErrorInvalidValue;
   if (segments > 0 && table == nullptr) return (int)cudaErrorInvalidValue;
   if (m <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -410,10 +420,14 @@ extern "C" int npe_quant_matmul(const int8_t* xq, const int8_t* wq,
                    reinterpret_cast<uintptr_t>(wq) % 16 == 0;
   if (out_bf16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
-    return vec ? launch<true>(xq, wq, x_scale, w_scale, o, m, n, k, table, segments, workspace, s)
-               : launch<false>(xq, wq, x_scale, w_scale, o, m, n, k, table, segments, workspace, s);
+    return vec ? launch<true>(xq, wq, x_scale, x_scale_stride, w_scale, o, m, n, k, table,
+                              segments, workspace, s)
+               : launch<false>(xq, wq, x_scale, x_scale_stride, w_scale, o, m, n, k, table,
+                               segments, workspace, s);
   }
   auto* o = static_cast<float*>(out);
-  return vec ? launch<true>(xq, wq, x_scale, w_scale, o, m, n, k, table, segments, workspace, s)
-             : launch<false>(xq, wq, x_scale, w_scale, o, m, n, k, table, segments, workspace, s);
+  return vec ? launch<true>(xq, wq, x_scale, x_scale_stride, w_scale, o, m, n, k, table,
+                            segments, workspace, s)
+             : launch<false>(xq, wq, x_scale, x_scale_stride, w_scale, o, m, n, k, table,
+                             segments, workspace, s);
 }

@@ -38,14 +38,14 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     # x, y, n, x_bf16, y_bf16, table, segments, stream
     "npe_pwl_eval": (P, P, LL, I, I, P, I, P),
-    # xq, wq, x_scale, w_scale, out, m, n, k, out_bf16, table, segments,
-    # workspace, stream
-    "npe_quant_matmul": (P, P, P, P, P, I, I, I, I, P, I, P, P),
+    # xq, wq, x_scale, x_scale_stride, w_scale, out, m, n, k, out_bf16, table,
+    # segments, workspace, stream
+    "npe_quant_matmul": (P, P, P, I, P, P, I, I, I, I, P, I, P, P),
     # m, n, k -> int32 values of the zeroed workspace npe_quant_matmul needs
     "npe_quant_matmul_workspace": (I, I, I),
-    # x, y, rows, n, causal_rows, scale, y_bf16, exp_table, exp_segments,
-    # recip_table, recip_segments, stream
-    "npe_nvu_softmax": (P, P, I, I, I, F, I, P, I, P, I, P),
+    # x, y, rows, n, causal_rows, limit, limit_rows, scale, y_bf16, exp_table,
+    # exp_segments, recip_table, recip_segments, stream
+    "npe_nvu_softmax": (P, P, I, I, I, P, I, F, I, P, I, P, I, P),
     # x, y, gamma, beta, rows, n, bf16, eps, rms_only, table, segments, stream
     "npe_nvu_layernorm": (P, P, P, P, I, I, I, F, I, P, I, P),
     # q, k, v, out, 16 element strides (q, k, v, out; each B, H, S, D),

@@ -4,6 +4,11 @@
 and runs `nvu_softmax_plain` for one on the CPU.  `nvu_softmax_walk` is the
 kernel's own arithmetic in torch ops, its order of addition included, which
 the kernel's results equal bit for bit.
+
+Two masks: `causal_rows` (the reference oracle's end-aligned causal mask, a
+masked score set to -1e30) and `limit` (the npec executor's masked softmax,
+`core/nvu.nvu_softmax` with `where`: row r sees columns c < limit of its
+row; a masked column is out of the max and the sum and comes out 0).
 """
 from __future__ import annotations
 
@@ -28,15 +33,34 @@ def causal_mask(rows: int, n: int, causal_rows: int, device) -> torch.Tensor:
     return c <= r + (n - causal_rows)
 
 
+def _limit_rows(limit: torch.Tensor, rows: int) -> int:
+    """Rows that share one limit: 1, or the q rows of a (q, n) matrix."""
+    if limit.numel() == 0 or rows % limit.numel():
+        raise ValueError(f"nvu_softmax: {limit.numel()} limits for {rows} rows")
+    return rows // limit.numel()
+
+
+def limit_mask(limit: torch.Tensor, rows: int, n: int) -> torch.Tensor:
+    """(rows, n) bool: column c of row r is visible when c < the limit of
+    its row (`limit` holds one a row, or one for each run of
+    rows // limit.numel() rows)."""
+    per_row = limit.reshape(-1).to(torch.int64).repeat_interleave(_limit_rows(limit, rows))
+    return torch.arange(n, device=limit.device)[None, :] < per_row[:, None]
+
+
 def nvu_softmax_plain(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
-                      scale: float = 1.0,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      scale: float = 1.0, out_dtype: Optional[torch.dtype] = None,
+                      limit: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x * scale, then max, clamp at -18, PWL exp floored at 0, sum, PWL
     reciprocal, as `core/nvu.py` and the reference oracle compute it; the
-    result cast to out_dtype (default x's)."""
+    result cast to out_dtype (default x's).  With `limit`, the masked
+    softmax of `core/nvu.nvu_softmax(where=)`."""
     xf = x.to(torch.float32)
     if scale != 1.0:
         xf = xf * scale
+    if limit is not None:
+        where = limit_mask(limit.to(x.device), *x.shape)
+        return nvu.nvu_softmax(xf, segments=segments, where=where).to(out_dtype or x.dtype)
     if causal_rows:
         xf = torch.where(causal_mask(*x.shape, causal_rows, x.device), xf, NEG_BIG)
     m = xf.amax(dim=-1, keepdim=True)
@@ -46,22 +70,31 @@ def nvu_softmax_plain(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
 
 
 def nvu_softmax_walk(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
-                     scale: float = 1.0,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     scale: float = 1.0, out_dtype: Optional[torch.dtype] = None,
+                     limit: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's arithmetic in float32 torch ops, each op rounding once as
     its `_rn` intrinsics do: x * scale, the mask, the max, the exp table's
     walk (`pwl_eval_walk`) clamped at -18 and floored at 0; the sum in the
     kernel's order (lane l adds columns l + 32j in ascending j, then the
     xor butterfly over the 32 lanes, which leaves every lane the same
     value); 1/sum by the recip table's walk on the mantissa in [0.5, 1) and
-    the exponent put back as an exact power of two (`npe_recip_via_pwl`)."""
+    the exponent put back as an exact power of two (`npe_recip_via_pwl`).
+    With `limit`, a masked column is -inf before the max (a max of -inf
+    becomes 0) and its exp is 0 before the sum."""
     rows, n = x.shape
     xf = x.to(torch.float32) * scale
     if causal_rows:
         xf = torch.where(causal_mask(rows, n, causal_rows, x.device), xf, NEG_BIG)
+    where = None if limit is None else limit_mask(limit.to(x.device), rows, n)
+    if where is not None:
+        xf = torch.where(where, xf, -torch.inf)
     m = xf.amax(dim=-1, keepdim=True)
+    if where is not None:
+        m = torch.where(m == -torch.inf, 0.0, m)
     z = torch.clamp(xf - m, min=-18.0)
     e = torch.clamp(pwl_eval_walk(z, device_table("exp", segments, x.device)), min=0.0)
+    if where is not None:
+        e = torch.where(where, e, 0.0)
     lanes = -(-n // 32) * 32
     ev = torch.nn.functional.pad(e, (0, lanes - n)).view(rows, lanes // 32, 32)
     s = ev[:, 0]
@@ -79,18 +112,27 @@ def nvu_softmax_walk(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
 
 
 def nvu_softmax(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
-                scale: float = 1.0, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                scale: float = 1.0, out_dtype: Optional[torch.dtype] = None,
+                limit: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax over the last dim of a 2-D f32 tensor, of x * scale (one f32
     multiply, before the max).  With causal_rows=q > 0 the rows are stacked
-    (q, n) matrices, masked causally (see causal_mask).  The result is f32,
-    or bf16 with out_dtype=torch.bfloat16: the f32 probabilities rounded to
-    nearest even, as `.to(torch.bfloat16)` rounds them."""
+    (q, n) matrices, masked causally (see causal_mask).  With `limit`, an
+    integer tensor of one value a row or one for each run of
+    rows // limit.numel() rows, row r sees columns c < its limit (see
+    limit_mask; the masked softmax of `core/nvu.nvu_softmax(where=)`).  The
+    result is f32, or bf16 with out_dtype=torch.bfloat16: the f32
+    probabilities rounded to nearest even, as `.to(torch.bfloat16)` rounds
+    them.  Rows of more than MAX_COLS columns are refused on the card."""
     if x.ndim != 2:
         raise ValueError(f"nvu_softmax takes a 2-D tensor, got {tuple(x.shape)}")
     if causal_rows < 0:
         raise ValueError(f"nvu_softmax: causal_rows={causal_rows}")
+    if limit is not None:
+        if causal_rows:
+            raise ValueError("nvu_softmax: causal_rows and limit together")
+        limit_rows = _limit_rows(limit, x.shape[0])
     if x.device.type == "cpu":
-        return nvu_softmax_plain(x, segments, causal_rows, scale, out_dtype)
+        return nvu_softmax_plain(x, segments, causal_rows, scale, out_dtype, limit)
     require_cuda(x, "nvu_softmax")
     rows, n = x.shape
     out_dtype = out_dtype or x.dtype
@@ -101,11 +143,18 @@ def nvu_softmax(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
     if n > MAX_COLS:
         raise ValueError(f"nvu_softmax: rows of {n} > {MAX_COLS} columns")
     x = x.contiguous()
+    lim_ptr = None
+    if limit is not None:
+        if limit.device != x.device:
+            raise ValueError(f"nvu_softmax: limit on {limit.device}, scores on {x.device}")
+        limit = limit.to(torch.int32).contiguous()
+        lim_ptr = limit.data_ptr()
     y = torch.empty(rows, n, dtype=out_dtype, device=x.device)
     et = device_table("exp", segments, x.device)
     rt = device_table("recip", segments, x.device)
     err = library().npe_nvu_softmax(
-        x.data_ptr(), y.data_ptr(), rows, n, causal_rows, float(scale),
+        x.data_ptr(), y.data_ptr(), rows, n, causal_rows, lim_ptr,
+        limit_rows if limit is not None else 1, float(scale),
         int(out_dtype == torch.bfloat16), et.data_ptr(), et.shape[1] - 1,
         rt.data_ptr(), rt.shape[1] - 1, stream_handle(x))
     check(err, "nvu_softmax")

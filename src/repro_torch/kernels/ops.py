@@ -2,7 +2,8 @@
 
 They take tensors of any leading shape, reshape them to the 2-D operands the
 kernels take and back, and quantize the MMU's operands (activations per
-tensor, weights per column) outside the kernel, as the reference does.
+tensor or per row, weights per column) outside the kernel, as the reference
+does.
 Flash attention takes (B, H, S, D) operands and the reference's blocking;
 `dense_attention`, its dense mode, is re-exported here for the models.
 Each kernel wrapper launches its kernel for a tensor on the card and runs
@@ -28,23 +29,37 @@ def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tens
     return pwl_eval(x.reshape(-1, x.shape[-1]), name, segments).reshape(x.shape)
 
 
-def quant_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The 8-bit MMU: int8-quantize x per tensor and w (K, N) per column,
-    multiply into int32 and dequantize to x's dtype."""
+def quant_dense(x: torch.Tensor, w: torch.Tensor,
+                act_axis: Optional[int] = None) -> torch.Tensor:
+    """The 8-bit MMU: int8-quantize x per tensor (act_axis=0: each row of
+    the flattened (M, K) x on its own) and w (K, N) per column, multiply
+    into int32 and dequantize to x's dtype."""
     *lead, k = x.shape
-    xq = quantize(x.reshape(-1, k), 8)
+    xq = quantize(x.reshape(-1, k), 8, axis=act_axis)
     wq = quantize(w, 8, axis=1)
     out = quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=x.dtype)
     return out.reshape(*lead, w.shape[1])
 
 
 def softmax(x: torch.Tensor, segments: int = 16, causal: bool = False,
-            scale: float = 1.0, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            scale: float = 1.0, out_dtype: Optional[torch.dtype] = None,
+            limit: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NVU softmax of x * scale over the last axis, in out_dtype (default
     x's); `causal` masks each (q, n) matrix of the last two axes with the
-    last query aligned to the last key."""
+    last query aligned to the last key.  `limit`, an integer tensor that
+    broadcasts to x.shape[:-1], masks instead as `core/nvu.nvu_softmax`'s
+    `where` does: each row sees the columns c < its limit.  A limit of one
+    value for each (q, n) matrix (last axis 1) goes to the kernel as it is."""
     causal_rows = x.shape[-2] if causal else 0
-    out = nvu_softmax(x.reshape(-1, x.shape[-1]), segments, causal_rows, scale, out_dtype)
+    if limit is not None:
+        lead = x.shape[:-1]
+        if limit.ndim >= 1 and limit.shape[-1] == 1 and len(lead) >= 1:
+            limit = limit.expand(*lead[:-1], 1)          # one a matrix
+        else:
+            limit = limit.expand(lead)                   # one a row
+        limit = limit.reshape(-1)
+    out = nvu_softmax(x.reshape(-1, x.shape[-1]), segments, causal_rows, scale, out_dtype,
+                      limit)
     return out.reshape(x.shape)
 
 

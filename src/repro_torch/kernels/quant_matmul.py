@@ -34,13 +34,24 @@ def _workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
+def _row_scales(x_scale: torch.Tensor, m: int) -> torch.Tensor:
+    """x_scale as () for one value, or as (M, 1) for one value a row."""
+    if x_scale.numel() == 1:
+        return x_scale.reshape(())
+    if x_scale.numel() != m:
+        raise ValueError(f"quant_matmul: {x_scale.numel()} activation scales for M={m}")
+    return x_scale.reshape(m, 1)
+
+
 def quant_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
                        w_scale: torch.Tensor, table: Optional[PWLTable] = None,
                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """acc = xq @ wq exactly, then acc * (x_scale * w_scale[col]) as
-    `core/quant.py`'s quant_dense orders it, then the optional PWL."""
+    `core/quant.py`'s quant_dense orders it (x_scale one value, or one a
+    row), then the optional PWL."""
     acc = int_matmul(xq, wq)
-    out = acc.to(torch.float32) * (x_scale.reshape(()) * w_scale.reshape(1, -1))
+    xs = _row_scales(x_scale, xq.shape[0])
+    out = acc.to(torch.float32) * (xs * w_scale.reshape(1, -1))
     if table is not None:
         out = nvu.pwl_eval(out, table)
     return out.to(out_dtype)
@@ -50,16 +61,17 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
                  w_scale: torch.Tensor, activation: Optional[str] = None,
                  segments: int = 16,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(M,K) int8 @ (K,N) int8 -> (M,N) out_dtype, dequantized by the
-    per-tensor x_scale (one value) and per-column w_scale (N values), with
-    the PWL function `activation` fused into the epilogue if given."""
+    """(M,K) int8 @ (K,N) int8 -> (M,N) out_dtype, dequantized by x_scale
+    (one value for the tensor, or M values, one a row) and the per-column
+    w_scale (N values), with the PWL function `activation` fused into the
+    epilogue if given."""
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f"quant_matmul: shapes {tuple(xq.shape)} @ {tuple(wq.shape)}")
     m, k = xq.shape
     n = wq.shape[1]
-    if x_scale.numel() != 1 or w_scale.numel() != n:
+    if x_scale.numel() not in (1, m) or w_scale.numel() != n:
         raise ValueError(f"quant_matmul: scales of {x_scale.numel()} and "
-                         f"{w_scale.numel()} values for N={n}")
+                         f"{w_scale.numel()} values for M={m}, N={n}")
     if xq.device.type == "cpu":
         table = get_table(activation, segments) if activation else None
         return quant_matmul_plain(xq, wq, x_scale, w_scale, table, out_dtype)
@@ -84,7 +96,7 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     work_n = lib.npe_quant_matmul_workspace(m, n, k)
     work = _workspace(work_n, xq.device, stream).data_ptr() if work_n else None
     err = lib.npe_quant_matmul(
-        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), int(xs.numel() != 1), ws.data_ptr(),
         out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16), tab_ptr,
         segs, work, stream)
     check(err, "quant_matmul")

@@ -4,7 +4,10 @@
 The tree arrives as nested dicts of numpy arrays, with each block weight
 stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
 (L, QD), `blocks.mlp.w1` (L, D, F), `blocks.ln1.gamma` (L, D), ...
-KV caches convert both ways, so that tests can compare them.
+KV caches convert both ways, so that tests can compare them.  The npec
+executor takes the stacked tree itself (`param_tree_from_jax`), or the same
+tree built from a port `Bert` (`param_tree_from_model`), as on the card,
+which has no JAX.
 """
 from __future__ import annotations
 
@@ -40,6 +43,39 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
             for k, v in blocks[ln].items():
                 state[f"layers.{i}.{ln}.{k}"] = t(v[i])
     return state
+
+
+def param_tree_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The reference's parameter tree (nested dicts of numpy arrays) as the
+    same nested dicts of float32 tensors on `device`: the same paths, the
+    block weights still stacked over their leading layer axis."""
+    if isinstance(tree, dict):
+        return {k: param_tree_from_jax(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32, copy=True)).to(device)
+
+
+def param_tree_from_model(model) -> Dict[str, Any]:
+    """The tree `param_tree_from_jax` gives, built from a port `Bert`: its
+    weights in float32 on the model's device, block weights stacked over
+    the layer axis, as the reference's `init_params` lays them out."""
+    f = lambda t: t.detach().to(torch.float32)
+    stack = lambda name: torch.stack([f(getattr(l, name)) for l in model.layers])
+
+    def norm(get):
+        out = {"gamma": torch.stack([f(get(l).gamma) for l in model.layers])}
+        if hasattr(get(model.layers[0]), "beta"):
+            out["beta"] = torch.stack([f(get(l).beta) for l in model.layers])
+        return out
+
+    ln = model.ln_embed
+    return {
+        "embed": f(model.embed), "pos_embed": f(model.pos_embed),
+        "type_embed": f(model.type_embed),
+        "ln_embed": {k: f(getattr(ln, k)) for k in ("gamma", "beta") if hasattr(ln, k)},
+        "blocks": {**{name: stack(name) for name in _ATTN},
+                   "mlp": {name: stack(name) for name in _MLP},
+                   "ln1": norm(lambda l: l.ln1), "ln2": norm(lambda l: l.ln2)},
+    }
 
 
 def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:

@@ -509,3 +509,81 @@ def test_dense_attention_ops_on_the_card_match_the_cpu_route(dev):
         kw["out_dtype"] = torch.float32
         got = ops.dense_attention(q.to(dev), k.to(dev), v.to(dev), **kw).cpu()
         _dense_close(q, k, v, kw, got)
+
+
+# --- per-row MMU scales and the softmax key limit (the npec executor's) ---
+
+@pytest.mark.parametrize("m,k,n", [(1, 768, 64), (8, 768, 768), (8, 768, 64), (16, 3072, 768),
+                                   (17, 768, 64), (1024, 768, 64), (1024, 768, 768),
+                                   (8, 768, 30720), (5, 100, 30)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_row_scales_exact(dev, m, k, n, out_dtype):
+    """(M, 1) activation scales in both kernels (split-K decode rows,
+    tiles), the unaligned route and the executor's 64-column head slices:
+    the plain version's bits; with every row's scale equal, the bits of the
+    per-tensor call."""
+    g = _gen(dev, 21)
+    x = torch.randn(m, k, generator=g, device=dev) * (1 + torch.rand(m, 1, generator=g, device=dev))
+    xq = quantize(x, 8, axis=0)
+    wq = quantize(torch.randn(k, n, generator=g, device=dev), 8, axis=1)
+    before = LAUNCHES["quant_matmul"]
+    got = qm.quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=out_dtype)
+    _launched("quant_matmul", before)
+    assert torch.equal(got, qm.quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale,
+                                                  out_dtype=out_dtype))
+    one = xq.scale.reshape(-1)[:1]
+    same = qm.quant_matmul(xq.q, wq.q, one.expand(m, 1).contiguous(), wq.scale,
+                           out_dtype=out_dtype)
+    assert torch.equal(same, qm.quant_matmul(xq.q, wq.q, one, wq.scale, out_dtype=out_dtype))
+
+
+def test_quant_dense_row_scales_on_the_card(dev):
+    """ops.quant_dense(act_axis=0) on the card against the CPU route, bit for
+    bit, at the executor's tied logits head ((768, 30720) after the transpose)."""
+    g = _gen(dev, 22)
+    x = torch.randn(8, 768, generator=g, device=dev)
+    table = torch.randn(30720, 768, generator=g, device=dev) * 0.02
+    got = ops.quant_dense(x, table.T, act_axis=0)
+    want = ops.quant_dense(x.cpu(), table.cpu().T, act_axis=0)
+    assert torch.equal(got.cpu(), want)
+
+
+LIMIT_SHAPES = [(96, 256, 8), (96, 256, 1), (12288, 128, 1), (40, 1000, 1), (33, 64, 1),
+                (7, 32, 7), (50, 200, 5)]
+
+
+@pytest.mark.parametrize("rows,cols,per", LIMIT_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_nvu_softmax_limit_is_the_walk_bit_for_bit(dev, rows, cols, per, out_dtype):
+    """A key limit per row or per `per` rows, limits from 0 to every
+    column: the walk's bits, masked entries exactly 0, within the plain
+    version's gate."""
+    g = _gen(dev, 23)
+    x = torch.randn(rows, cols, generator=g, device=dev) * 8
+    limit = torch.randint(0, cols + 1, (rows // per,), generator=g, device=dev,
+                          dtype=torch.int32)
+    limit[0], limit[-1] = cols, 0
+    before = LAUNCHES["nvu_softmax"]
+    got = sm.nvu_softmax(x, limit=limit, out_dtype=out_dtype)
+    _launched("nvu_softmax", before)
+    want = sm.nvu_softmax_walk(x, limit=limit, out_dtype=out_dtype)
+    assert torch.equal(_bits(got), _bits(want))
+    assert bool((got[~sm.limit_mask(limit, rows, cols)] == 0).all())
+    plain = sm.nvu_softmax_plain(x, limit=limit, out_dtype=out_dtype)
+    _close(got, plain, 2e-5, BF16_RTOL if out_dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("segments", [8, 16])
+def test_nvu_softmax_causal_limit_on_the_card(dev, segments):
+    """A square causal matrix by limit (row r sees c <= r) on the card: its
+    walk's bits; and the oracle's causal mode (-1e30, whose exp the -18
+    clamp keeps) its own walk's bits, so the two differ where the table's
+    exp at -18 is not 0 (8 segments) and agree where it is (16)."""
+    x = torch.randn(1280, 128, generator=_gen(dev, 24), device=dev) * 3
+    limit = (torch.arange(1280, device=dev) % 128 + 1).to(torch.int32)
+    by_limit = sm.nvu_softmax(x, segments, limit=limit)
+    by_rows = sm.nvu_softmax(x, segments, causal_rows=128)
+    assert torch.equal(_bits(by_limit), _bits(sm.nvu_softmax_walk(x, segments, limit=limit)))
+    assert torch.equal(_bits(by_rows), _bits(sm.nvu_softmax_walk(x, segments, causal_rows=128)))
+    assert bool((by_limit[~sm.limit_mask(limit, 1280, 128)] == 0).all())
+    assert torch.equal(by_limit, by_rows) == (segments == 16)

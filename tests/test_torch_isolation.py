@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert lines["leaked"] == "[]"
-    assert int(lines["modules"]) >= 22
+    assert int(lines["modules"]) >= 34
     names = set(lines["names"].split())
-    for new in ("kernels.flash_attention", "models.registry", "launch.steps", "launch.serve"):
+    for new in ("kernels.flash_attention", "models.registry", "launch.steps", "launch.serve",
+                "npec.exec", "npec.trace", "npec.lower", "core.overlay"):
         assert "repro_torch." + new in names

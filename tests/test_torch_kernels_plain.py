@@ -142,3 +142,116 @@ def test_cpu_route_counts_no_launches():
     ops.layernorm(x, torch.ones(64), torch.zeros(64))
     ops.quant_dense(x, torch.from_numpy(_x((64, 32), 9)))
     assert LAUNCHES == before
+
+
+# --- per-row MMU scales and the softmax key limit (the npec executor's) ---
+
+@pytest.mark.parametrize("m,k,n", [(1, 128, 64), (8, 128, 64), (8, 768, 64), (100, 300, 70)])
+def test_quant_matmul_plain_row_scales(m, k, n):
+    """(M, 1) activation scales: the reference's quant_dense(act_axis=0),
+    bit for bit, through the plain version, the wrapper's CPU route and
+    `ops.quant_dense(act_axis=0)` (the reference's dense_maybe_quant)."""
+    from repro.core.quant import dense_maybe_quant as ref_dense
+    from repro.core.quant import quant_dense as ref_quant_dense
+    from repro_torch.core.quant import quantize
+    x, w = _x((m, k), 4, scale=2.0) * _x((m, 1), 5, scale=3.0), _x((k, n), 6) / np.sqrt(k)
+    wq_ref = ref_quantize(jnp.asarray(w), 8, axis=1)
+    want = np.asarray(ref_quant_dense(jnp.asarray(x), wq_ref, act_axis=0))
+    xq = quantize(torch.from_numpy(x), 8, axis=0)
+    wq = quantize(torch.from_numpy(w), 8, axis=1)
+    assert xq.scale.shape == (m, 1)
+    assert np.array_equal(xq.q.numpy(), np.asarray(ref_quantize(jnp.asarray(x), 8, axis=0).q))
+    got = quant_matmul_plain(xq.q, wq.q, xq.scale, wq.scale)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(quant_matmul(xq.q, wq.q, xq.scale, wq.scale), got)
+    dense = ops.quant_dense(torch.from_numpy(x), torch.from_numpy(w), act_axis=0)
+    assert np.array_equal(dense.numpy(), np.asarray(ref_dense(
+        jnp.asarray(x), jnp.asarray(w), npe_quant=True, bits=8, act_axis=0)))
+
+
+def test_quant_matmul_plain_equal_row_scales_are_the_tensor_scale():
+    x, w = _x((8, 128), 7), _x((128, 64), 8) / 12
+    xq, wq = ref_quantize(jnp.asarray(x), 8), ref_quantize(jnp.asarray(w), 8, axis=1)
+    a, b, xs, ws = (torch.from_numpy(np.array(t)) for t in (xq.q, wq.q, xq.scale, wq.scale))
+    rows = xs.reshape(1, 1).expand(8, 1).contiguous()
+    assert torch.equal(quant_matmul_plain(a, b, rows, ws), quant_matmul_plain(a, b, xs, ws))
+    with pytest.raises(ValueError, match="scales"):
+        quant_matmul(a, b, xs.reshape(1).expand(3).contiguous(), ws)
+
+
+def _limits(rows, cols, per, seed):
+    """Visible-column counts in [0, cols], one for each `per` rows, with a
+    row that sees every column and one that sees none."""
+    lim = np.random.default_rng(seed).integers(0, cols + 1, rows // per)
+    lim[0], lim[-1] = cols, 0
+    return torch.from_numpy(lim.astype(np.int32))
+
+
+@pytest.mark.parametrize("rows,cols,per", [(96, 256, 8), (96, 256, 1), (40, 1000, 1),
+                                           (33, 64, 1), (24, 32, 3)])
+def test_nvu_softmax_plain_and_walk_with_limit(rows, cols, per):
+    """Row r sees columns c < its limit: the reference's
+    core.nvu.nvu_softmax(where=) within one f32 ulp per column of the row,
+    masked entries exactly 0 and rows with no visible column all 0."""
+    from repro.core import nvu as ref_nvu
+    from repro_torch.kernels.nvu_softmax import limit_mask
+    x = _x((rows, cols), 9, scale=6.0)
+    limit = _limits(rows, cols, per, 10)
+    where = limit_mask(limit, rows, cols)
+    want = np.asarray(ref_nvu.nvu_softmax(jnp.asarray(x), where=jnp.asarray(where.numpy())))
+    tol = cols * np.finfo(np.float32).eps
+    for fn in (nvu_softmax_plain, nvu_softmax_walk):
+        got = fn(torch.from_numpy(x), limit=limit)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+        assert bool((got[~where] == 0).all())
+        empty = ~where.any(dim=1)
+        assert bool(empty.any()) and bool((got[empty] == 0).all())
+    assert torch.equal(ops.softmax(torch.from_numpy(x), limit=limit.repeat_interleave(per)),
+                       nvu_softmax_plain(torch.from_numpy(x), limit=limit))
+
+
+def test_ops_softmax_limit_broadcasts():
+    """The executor's masks through ops.softmax: one limit for each (q, n)
+    matrix (decode, last axis 1) and one a row (a chunked slice)."""
+    from repro.core import nvu as ref_nvu
+    x = _x((3, 2, 16), 11, scale=4.0)
+    got = ops.softmax(torch.from_numpy(x), limit=torch.tensor([7], dtype=torch.int32))
+    where = np.arange(16) < 7
+    want = ref_nvu.nvu_softmax(jnp.asarray(x), where=jnp.asarray(np.broadcast_to(where, x.shape)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=16 * 1.2e-7)
+    pos = torch.tensor([3, 4], dtype=torch.int32)
+    got = ops.softmax(torch.from_numpy(x), limit=pos + 1)
+    where = np.arange(16)[None, :] <= pos.numpy()[:, None]
+    want = ref_nvu.nvu_softmax(jnp.asarray(x), where=jnp.asarray(np.broadcast_to(where, x.shape)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=16 * 1.2e-7)
+
+
+def test_nvu_softmax_limit_refusals():
+    from repro_torch.kernels.nvu_softmax import nvu_softmax
+    x = torch.zeros(8, 16)
+    with pytest.raises(ValueError, match="limits for 8 rows"):
+        nvu_softmax(x, limit=torch.ones(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="together"):
+        nvu_softmax(x, causal_rows=8, limit=torch.ones(8, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("segments", [8, 16])
+def test_causal_by_limit_is_not_the_oracles_causal_mode(segments):
+    """The executor's causal softmax (`where`, masked scores out of the max
+    and 0 before the sum) is not the oracle's causal mode (-1e30, exp taken
+    at the -18 clamp), even on a square matrix: they differ wherever the
+    table's exp at -18 is not 0 (8 segments: 2.4e-5) and agree where it is
+    (16 segments)."""
+    from repro.core import nvu as ref_nvu
+    x = _x((2, 64, 64), 12, scale=3.0)
+    flat = torch.from_numpy(x.reshape(-1, 64))
+    limit = (torch.arange(128) % 64 + 1).to(torch.int32)
+    by_limit = nvu_softmax_plain(flat, segments, limit=limit)
+    by_rows = nvu_softmax_plain(flat, segments, causal_rows=64)
+    where = np.broadcast_to(np.tril(np.ones((64, 64), bool)), x.shape)
+    want = ref_nvu.nvu_softmax(jnp.asarray(x), segments=segments, where=jnp.asarray(where))
+    np.testing.assert_allclose(by_limit.numpy().reshape(x.shape), np.asarray(want), rtol=0,
+                               atol=64 * np.finfo(np.float32).eps)
+    assert torch.equal(by_limit, by_rows) == (segments == 16)
+    assert torch.equal(nvu_softmax_walk(flat, segments, limit=limit) != 0,
+                       by_limit != 0)
