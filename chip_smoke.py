@@ -63,15 +63,31 @@
    5e-3; float and NPE-16 within twice the stream's change under 1-ulp
    weights), with top-1 agreement, host ms a step and the launches of the
    NPE-8 run against the graphs';
-7. prints the kernel list, one JSON line of per-kernel numbers (launches on
-   the encoder, decode and npec paths; the npec instances of quant_matmul
-   and nvu_softmax), the card, and last `{"ok": true, "device": {...}}`.
+7. serves from compiled streams through `NPEEngine` (`repro_torch.npec.runtime`)
+   at full width and depth, [6]'s weights: (a) the NPE-8 engine (8 slots,
+   capacity 64, 16 tokens) on 12 EOS-aware requests, so slots are recycled:
+   its launches by kind checked exactly against the prefill and decode
+   graphs it ran, each request's tokens bit for bit those of its own
+   per-request streams (`compile_prefill` loaded into a batch=1
+   `compile_decode(64)`), host ms per engine step and one step's device
+   busy and idle share (torch.profiler), and the report's p50/p99 and
+   tokens/s, which are the FPGA overlay model's at 200 MHz, not card time;
+   (b) the float engine with `prefill_chunk=16` against whole-prompt
+   prefill: the same tokens, or a difference at a top-2 logit margin below
+   twice [6](c)'s float change under 1-ulp weights; (c) the cost-only engine
+   and fleet rebuild the bert rows of `results/npec_serve_cycles.json`
+   (kind "engine") and `results/npec_tensor_cycles.json` exactly;
+8. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode, npec and engine paths; the npec instances of
+   quant_matmul and nvu_softmax), the card, and last
+   `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before the last line.  Details go to
 `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1391,6 +1407,358 @@ def npec_phase(dev, results):
     nudged_tree = npec.ParamTree(param_tree_from_model(nudged), dev)
     dec = npec_decode(dev, model, tree, nudged_tree, results)
     results["npec_launches"] = {k: enc[k] + dec[k] for k in KERNELS}
+    return base, tree
+
+
+# --- phase 7: the npec serving runtime --------------------------------------
+
+ENGINE = dict(slots=8, capacity=64, max_new_tokens=16)
+ENGINE_REQUESTS, ENGINE_MAX_PROMPT, ENGINE_CHUNK = 12, 32, 16   # 12 on 8 slots: recycled
+PROFILE_STEP = 4            # the engine step run under torch.profiler
+
+
+def engine_requests(vocab: int):
+    reqs = SyntheticRequests(vocab, max_prompt=ENGINE_MAX_PROMPT)
+    return [(reqs.request(i), reqs.eos_id(i)) for i in range(ENGINE_REQUESTS)]
+
+
+def _signature(a):
+    return (tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+
+
+def _kept(a):
+    return a.clone() if torch.is_tensor(a) else a
+
+
+@contextlib.contextmanager
+def kept_kernel_calls():
+    """Within: each kernel that `kernels/ops` launches keeps a copy of the
+    inputs of its first call at each shape and option set, in the dict
+    yielded, {signature: (kernel, args, kwargs)}."""
+    from repro_torch.kernels import ops as ops_mod
+    kept, saved = {}, {name: getattr(ops_mod, name) for name in NPEC_KERNELS}
+
+    def keeper(name, fn):
+        def call(*args, **kw):
+            key = (name, *map(_signature, args), *sorted((k, _signature(v))
+                                                          for k, v in kw.items()))
+            if key not in kept:
+                kept[key] = (name, [_kept(a) for a in args],
+                             {k: _kept(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return call
+
+    try:
+        for name, fn in saved.items():
+            setattr(ops_mod, name, keeper(name, fn))
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(ops_mod, name, fn)
+
+
+def kernel_and_plain(name, args, kw):
+    """(kernel's result, its plain version's, the result it must equal bit
+    for bit or None) of one kept call: quant_matmul's plain version, the
+    walks of nvu_softmax and pwl_eval, as [3] and [6] hold them."""
+    if name == "quant_matmul":
+        if len(args) != 4:
+            raise SystemExit(f"npec engine: quant_matmul called with {len(args)} arguments")
+        plain = qm_mod.quant_matmul_plain(*args, None, kw.get("out_dtype", torch.float32))
+        return qm_mod.quant_matmul(*args, **kw), plain, plain
+    if name == "nvu_softmax":
+        return (sm_mod.nvu_softmax(*args, **kw), sm_mod.nvu_softmax_plain(*args, **kw),
+                sm_mod.nvu_softmax_walk(*args, **kw))
+    if name == "pwl_eval":
+        x, fn, segments = args
+        return (pe_mod.pwl_eval(x, fn, segments), pe_mod.pwl_eval_plain(x, get_table(fn, segments)),
+                pe_mod.pwl_eval_walk(x, pe_mod.device_table(fn, segments, x.device)).to(x.dtype))
+    return ln_mod.nvu_layernorm(*args, **kw), ln_mod.nvu_layernorm_plain(*args, **kw), None
+
+
+def check_kept_calls(kept):
+    """Each kept call of the engine's run once more through its kernel, on
+    the same card inputs, against its plain version within TOLS, and bit for
+    bit against quant_matmul's plain version and the softmax and PWL walks.
+    A softmax under one key limit for all its rows (a decode step's slot
+    and kv head) runs at every limit 1..n of its rows.  These launches are not counted."""
+    out = {k: dict(shapes=[], calls=0, max_abs_err=0.0,
+                   bit_for_bit=None if k == "nvu_layernorm" else True, ok=True)
+           for k in NPEC_KERNELS}
+    for name, args, kw in kept.values():
+        cases = [args]
+        if name == "nvu_softmax" and args[5] is not None and args[5].numel() == 1:
+            cases = [args[:5] + [torch.full_like(args[5], n)]
+                     for n in range(1, args[0].shape[1] + 1)]
+        r = out[name]
+        r["shapes"].append(" x ".join(str(tuple(a.shape)) for a in args[:2]
+                                      if torch.is_tensor(a))
+                           + ("" if name != "nvu_softmax" or args[5] is None
+                              else f" limit {tuple(args[5].shape)}"))
+        for a in cases:
+            got, plain, exact = kernel_and_plain(name, a, kw)
+            atol, rtol = TOLS[(name, got.dtype)]
+            err, ok = compare(got, plain, atol, rtol)
+            bit = exact is None or same_bits(got, exact)
+            r["calls"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if exact is not None:
+                r["bit_for_bit"] &= bit
+            r["ok"] &= ok and bit
+    torch.cuda.synchronize()
+    return out
+
+
+def run_engine(base, tree, dev, *, npe, bits, prefill_chunk=None, profile_step=None):
+    """Serve `engine_requests` through `NPEEngine` step by step: (stats,
+    host ms of each step, whether each step admitted, profile of one step)."""
+    from repro_torch.npec.runtime import NPEEngine
+    eng = NPEEngine(base, slots=ENGINE["slots"], capacity=ENGINE["capacity"],
+                    max_new_tokens=ENGINE["max_new_tokens"], bits=bits, npe=npe, params=tree,
+                    device=dev, prefill_chunk=prefill_chunk)
+    for prompt, eos in engine_requests(base.vocab_size):
+        eng.submit(prompt, eos_id=eos)
+    ms, admitted, prof = [], [], None
+    torch.cuda.synchronize()
+    while eng.queue or len(eng.pool):
+        before = len(eng.stats.queue_wait.samples_ms)     # one sample an admission
+        step = eng.step
+        holder = {}
+
+        def timed_step():
+            t0 = time.perf_counter()
+            holder["more"] = step()
+            torch.cuda.synchronize()
+            holder["ms"] = 1e3 * (time.perf_counter() - t0)
+
+        if profile_step is not None and len(ms) == profile_step:
+            prof = profile_call(timed_step, float("nan"))
+        else:
+            timed_step()
+        more = holder["more"]
+        ms.append(holder["ms"])
+        admitted.append(len(eng.stats.queue_wait.samples_ms) != before)
+        if not more:
+            break
+    eng.stats.total_cycles = eng.clock.cycles
+    return eng, ms, admitted, prof
+
+
+def engine_expected_launches(base, stats, decode_graph, bits):
+    """Launches of an NPE-8 engine run from the graphs it ran: one prefill
+    stream a request at its prompt's length, one decode stream a step."""
+    total = {k: 0 for k in KERNELS}
+    for r in stats.requests:
+        g = npec.compile_prefill(base, len(r.prompt), bits=bits).graph
+        for k, n in npec.expected_launches(g, npe_quant=True, bits=bits, use_pwl=True).items():
+            total[k] += n
+    for k, n in npec.expected_launches(decode_graph, npe_quant=True, bits=bits,
+                                       use_pwl=True).items():
+        total[k] += stats.decode_steps * n
+    return total
+
+
+def per_request_streams(base, tree, dev, cfg, stats, bits):
+    """Each request's tokens from its own streams: `compile_prefill` at the
+    prompt's length, loaded into `compile_decode(base, 64, batch=1)`, run
+    greedily for as many tokens as the engine served it."""
+    seq_prog = npec.compile_decode(base, ENGINE["capacity"], bits=bits)
+    out = {}
+    for r in stats.requests:
+        res = npec.execute(npec.compile_prefill(base, len(r.prompt), bits=bits), tree,
+                           {"tokens": r.prompt}, cfg=cfg, device=dev)
+        sess = npec.DecodeSession(seq_prog, tree, cfg=cfg, device=dev)
+        for name, rows in res.kv_exports.items():
+            sess.caches[name][0, :len(r.prompt)] = rows
+        sess.pos = len(r.prompt)
+        toks = [int(res[0][-1].argmax())]
+        while len(toks) < len(r.generated):
+            toks.append(int(sess.step(torch.tensor([[toks[-1]]], device=dev))[0, 0].argmax()))
+        out[r.rid] = toks
+    return out
+
+
+def engine_records():
+    """(c) the cost-only engine and fleet rebuild the bert rows of the serve
+    (kind "engine") and tensor records, with the arguments of
+    benchmarks/paper_tables.py npec_serve and npec_tensor."""
+    from repro_torch.core.overlay import NPEHardware
+    from repro_torch.npec.fleet import NPEFleet, partition_tensor
+    from repro_torch.npec.runtime import NPEEngine, StreamCache
+    hw = NPEHardware(vrwidth=1024)
+    cfg = get_config("bert_base")
+    serve_rows = []
+    for bits in (8, 16):
+        eng = NPEEngine(cfg, hw, slots=8, capacity=48, max_new_tokens=16, bits=bits)
+        reqs = SyntheticRequests(cfg.vocab_size, max_prompt=32)
+        for i in range(16):
+            eng.submit(reqs.request(i), eos_id=reqs.eos_id(i))
+        rep = eng.run().report()
+        serve_rows.append(dict(
+            kind="engine", arch="bert_base", slots=8, mmu_bits=bits,
+            cycle_model=rep["cycle_model"], requests=rep["requests"],
+            generated_tokens=rep["generated_tokens"], p50_ms=rep["p50_ms"],
+            p99_ms=rep["p99_ms"], first_token_p50_ms=rep["first_token_p50_ms"],
+            tok_s=round(rep["tokens_per_sec"], 1), decode_step_cycles=rep["decode_step_cycles"],
+            decode_step_cycles_dag=rep["decode_step_cycles_dag"],
+            mmu_row_occupancy=round(rep["mmu_row_occupancy"], 4),
+            total_cycles=rep["total_cycles"], decode_steps=rep["decode_steps"],
+            prefills=rep["prefills"]))
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=24)
+    dec = npec.compile_decode(cfg, 48, hw, bits=16, batch=4)
+    pre = npec.compile_prefill(cfg, 24, hw, bits=16)
+    shared, tensor_rows = StreamCache(), []
+
+    def critical(plan):
+        costs = [(npec.stream_schedule(q)["total_cycles"], npec.transfer_cycles(q))
+                 for q in plan.shards]
+        return int(max(c for c, _ in costs)), int(max(x for _, x in costs))
+
+    for n in (1, 2, 4):
+        fleet = NPEFleet(cfg, hw, overlays=n, shard="tensor", slots=4, capacity=48,
+                         max_new_tokens=12, bits=16, stream_cache=shared)
+        for i in range(4):
+            fleet.submit(reqs.request(i), eos_id=reqs.eos_id(i))
+        rep = fleet.run().report()
+        dplan, pplan = partition_tensor(dec, n), partition_tensor(pre, n)
+        (d_cyc, d_x), (p_cyc, p_x) = critical(dplan), critical(pplan)
+        tensor_rows.append(dict(
+            family="bert", shard="tensor", overlays=n, mmu_bits=16,
+            heads_per_overlay=cfg.num_heads // n, boundaries=dplan.boundaries,
+            requests=rep["requests"], tokens=rep["tokens"], p50_ms=rep["p50_ms"],
+            p99_ms=rep["p99_ms"], service_p50_ms=rep["service_p50_ms"],
+            tok_s=round(rep["tokens_per_sec"], 1), makespan_cycles=rep["makespan_cycles"],
+            transfer_cycles=rep["transfer_cycles"], overlay_util=rep["overlay_util"],
+            decode_step_cycles=d_cyc, decode_allreduce_cycles=d_x, prefill_cycles=p_cyc,
+            prefill_allreduce_cycles=p_x))
+    return {"npec_serve_cycles.json": (serve_rows, lambda r: r.get("kind") == "engine"),
+            "npec_tensor_cycles.json": (tensor_rows, lambda r: r.get("family") == "bert")}
+
+
+def engine_phase(dev, base, tree, results):
+    """[7] `NPEEngine` serving on the card: (a) the NPE-8 engine and its
+    launches, tokens against per-request streams; (b) chunked float prefill
+    against whole prompts; (c) the cost-only cycle records."""
+    out = {}
+    t_phase = time.perf_counter()
+    c8 = base.with_npe(quant_bits=8)
+    say(f"  (a) NPEEngine(bert_base, slots={ENGINE['slots']}, capacity={ENGINE['capacity']}, "
+        f"max_new_tokens={ENGINE['max_new_tokens']}, bits=8, npe=True, device=cuda), "
+        f"{ENGINE_REQUESTS} requests of SyntheticRequests(max_prompt={ENGINE_MAX_PROMPT}) "
+        "with their EOS ids")
+    counts, (eng, ms, admitted, prof) = counted(
+        lambda: run_engine(base, tree, dev, npe=True, bits=8, profile_step=PROFILE_STEP))
+    stats = eng.stats
+    expected = engine_expected_launches(base, stats, eng.decode_prog.graph, 8)
+    # host ms of the steps the profiler did not run
+    plain = [(m, a) for i, (m, a) in enumerate(zip(ms, admitted)) if i != PROFILE_STEP]
+    decode_only = [m for m, a in plain if not a]
+    host_med = float(np.median([m for m, _ in plain]))
+    busy = prof["device_busy_ms"]
+    # the profiled step's own host time runs under the profiler (its trace
+    # is read after the step's clock stops); the idle
+    # share is also given against the median of the decode-only steps run
+    # without it, which do the same work (one decode graph over 8 slots)
+    prof["host_ms_profiled_step"] = ms[PROFILE_STEP]
+    prof["idle_share_profiled_step"] = 1 - busy / ms[PROFILE_STEP] if busy > 0 else None
+    prof["host_ms"] = float(np.median(decode_only)) if decode_only else host_med
+    prof["idle_share"] = (1 - busy / prof["host_ms"]) if busy > 0 else None
+    rep = stats.report()
+    say(f"      launches of the run {counts} (from the {stats.prefills} prefill and "
+        f"{stats.decode_steps} decode graphs {expected})")
+    say(f"      {len(ms)} engine steps: {host_med:.1f} ms host a step (median), "
+        f"{prof['host_ms']:.1f} ms a decode-only step (median of {len(decode_only)})")
+    say_profile(f"engine step {PROFILE_STEP} ("
+                + ("it admitted" if admitted[PROFILE_STEP] else "decode only")
+                + "), idle share against the decode-only median of the other steps", prof)
+    idle_own = prof["idle_share_profiled_step"]
+    say(f"             the same step's own host time under the profiler: "
+        f"{ms[PROFILE_STEP]:.1f} ms, idle share "
+        + ("not measured" if idle_own is None else f"{idle_own:.3f}"))
+    say(f"      overlay model (FPGA, 200 MHz), not card time: p50 {rep['p50_ms']} ms, "
+        f"p99 {rep['p99_ms']} ms, {rep['tokens_per_sec']:.1f} tokens/s, "
+        f"{rep['generated_tokens']} tokens, {rep['total_cycles']} cycles")
+    if counts != expected or any(counts[k] == 0 for k in NPEC_KERNELS):
+        raise SystemExit("npec engine: launches differ from the graphs'")
+    want = per_request_streams(base, tree, dev, c8, stats, 8)
+    same = {r.rid: r.generated == want[r.rid] for r in stats.requests}
+    say(f"      served tokens vs per-request streams: {sum(same.values())}/{len(same)} "
+        "requests bit for bit" + ("" if all(same.values()) else "  FAIL"))
+    if not all(same.values()) or len(same) != ENGINE_REQUESTS:
+        raise SystemExit("npec engine: served tokens differ from the per-request streams")
+    tokens = {r.rid: r.generated for r in stats.requests}
+
+    # the kernels at the engine's shapes: the same run once more, untimed,
+    # keeping the inputs of each kernel's first call at each shape
+    with kept_kernel_calls() as kept:
+        again, _, _, _ = run_engine(base, tree, dev, npe=True, bits=8)
+    rerun_same = {r.rid: r.generated for r in again.stats.requests} == tokens
+    checks = check_kept_calls(kept)
+    say(f"      each kernel at the engine's shapes, on the inputs of its first call at each "
+        f"(a second, untimed run{'' if rerun_same else ' that served OTHER tokens  FAIL'}), "
+        "against its plain version; quant_matmul, nvu_softmax and pwl_eval also bit for "
+        "bit (plain, walk, walk):")
+    for k, r in checks.items():
+        exact = {None: "within atol {:g}, rtol {:g}".format(*TOLS[(k, torch.float32)]),
+                 True: "bit for bit",
+                 False: "NOT bit for bit"}[r["bit_for_bit"]]
+        say(f"        {k:13s} {len(r['shapes'])} shapes, {r['calls']} calls, max-abs "
+            f"{r['max_abs_err']:.2e} from plain, {exact}"
+            f"{'' if r['ok'] else '  FAIL'}: " + "; ".join(r["shapes"][:14])
+            + (" ..." if len(r["shapes"]) > 14 else ""))
+    if not rerun_same or not all(r["ok"] and r["shapes"] for r in checks.values()):
+        raise SystemExit("npec engine: a kernel disagrees with its plain version at the "
+                         "engine's shapes")
+    out["npe8"] = dict(launches=counts, expected_launches=expected, step_ms=ms,
+                       admitted=admitted, host_ms_per_step=host_med,
+                       host_ms_per_decode_step=prof["host_ms"], profile=prof, report=rep,
+                       tokens=tokens, kernel_checks=checks)
+
+    gate = results["npec_decode"]["float"]["gate"]
+    say(f"  (b) float engine, prefill_chunk={ENGINE_CHUNK} vs whole prompts; a differing "
+        f"token must sit at a top-2 margin below {gate:.3e} (twice the float stream's "
+        "change under 1-ulp weights, [6](c)), the margin of a float prefill over the "
+        "prompt and the tokens before it")
+    runs = {}
+    for chunk in (None, ENGINE_CHUNK):
+        e, ms_c, _, _ = run_engine(base, tree, dev, npe=False, bits=16, prefill_chunk=chunk)
+        runs[chunk] = (e.stats, float(np.median(ms_c)))
+    (whole, ms_w), (chunked, ms_ch) = runs[None], runs[ENGINE_CHUNK]
+    gw = {r.rid: r.generated for r in whole.requests}
+    diffs = []
+    for r in chunked.requests:
+        a, b = gw[r.rid], r.generated
+        if a != b:
+            j = next(i for i in range(min(len(a), len(b)) + 1)
+                     if i == min(len(a), len(b)) or a[i] != b[i])
+            seq = list(r.prompt) + a[:j]
+            logits = npec.execute(npec.compile_prefill(base, len(seq), bits=16), tree,
+                                  {"tokens": np.asarray(seq, np.int32)}, device=dev)[0][-1]
+            top = logits.double().topk(2).values
+            margin = float(top[0] - top[1])
+            diffs.append(dict(rid=r.rid, index=j, margin=margin))
+            say(f"      request {r.rid} token {j}: {a[j:j + 1]} vs {b[j:j + 1]}, top-2 "
+                f"margin {margin:.3e}")
+    ok = all(d["margin"] < gate for d in diffs)
+    say(f"      {len(gw) - len(diffs)}/{len(gw)} requests the same tokens; {ms_w:.1f} / "
+        f"{ms_ch:.1f} ms host a step (median, whole / chunked)" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("npec engine: chunked prefill changed a token past a near tie")
+    out["chunked_float"] = dict(differences=diffs, gate=gate, host_ms_whole=ms_w,
+                                host_ms_chunked=ms_ch)
+
+    say("  (c) cost-only engine and fleet vs the committed records (bert rows)")
+    for name, (rows, keep) in engine_records().items():
+        want = [r for r in json.loads((ROOT / "results" / name).read_text())["rows"] if keep(r)]
+        same = rows == want
+        say(f"      results/{name}: {len(rows)} rows rebuilt, "
+            + ("equal" if same else "DIFFER  FAIL"))
+        if not same:
+            raise SystemExit(f"npec engine: the rebuilt rows of results/{name} differ")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase [7]: {out['seconds']:.1f} s, {ENGINE_REQUESTS} requests")
+    results["engine"] = out
+    results["engine_launches"] = counts
 
 
 def main() -> int:
@@ -1452,7 +1820,10 @@ def main() -> int:
     decode_route_check(dev, results)
 
     say("[6] npec: the compiled BERT-base streams through the functional executor on the card")
-    npec_phase(dev, results)
+    base, tree = npec_phase(dev, results)
+
+    say("[7] npec serving runtime: NPEEngine on the card")
+    engine_phase(dev, base, tree, results)
 
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
@@ -1479,7 +1850,8 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"], library=r["library"],
             launches_encoder=results["launches"][name],
             launches_decode=results["decode_launches"][name],
-            launches_npec=results["npec_launches"][name]))
+            launches_npec=results["npec_launches"][name],
+            launches_engine=results["engine_launches"][name]))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
@@ -1504,7 +1876,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    say("[7] summary")
+    say("[8] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

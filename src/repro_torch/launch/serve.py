@@ -14,10 +14,20 @@ the start.  Every attention goes through the flash-attention kernel.
 
 prints the prefill ms per slot, the ms per decode step and tokens/s on the
 card, with the card's name and power limit.
+
+`--backend npec` serves from compiled overlay streams instead (counterpart
+of the reference's `run_npec` / `run_npec_fleet`): `NPEEngine` runs the npec
+executor on the card (`--device`), and `--overlays N` / `--shard` / `--rate`
+run the cost-only `NPEFleet`.  The latencies and tokens/s they print are the
+FPGA overlay model's at 200 MHz, never time on the card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend npec --npe \
+        --bits 8 --batch 8 --capacity 64 --gen 16 --requests 12
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -123,16 +133,208 @@ class Server:
         return stats
 
 
+# cycle reports carry full precision; these keys are rounded here, at the
+# presentation layer, so the printed lines match the reference's records
+_PRINT_ROUND = {"tokens_per_sec": 1, "mmu_row_occupancy": 4}
+OVERLAY_LABEL = "overlay model (FPGA, 200 MHz), not time on the card"
+
+
+def _print_report(report: Dict) -> None:
+    for k, v in report.items():
+        if k in _PRINT_ROUND and isinstance(v, float):
+            v = round(v, _PRINT_ROUND[k])
+        unit = "  [overlay model]" if k.endswith("_ms") or k == "tokens_per_sec" else ""
+        print(f"  {k}: {v}{unit}")
+
+
+def _make_tracer(args, clock_hz: float):
+    """A live cycle tracer when --trace is set, else None (the engine and
+    fleet then default to the no-op NULL_TRACER)."""
+    if not args.trace:
+        return None
+    from repro_torch.npec.obs import Tracer
+    return Tracer(clock_hz=clock_hz)
+
+
+def _npec_outputs(args, tracer, snapshot: Dict) -> None:
+    """--json / --trace artifacts from one run's stats snapshot."""
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(snapshot, f, indent=1)
+            f.write("\n")
+        print(f"wrote json report -> {args.json}")
+    if tracer is not None:
+        from repro_torch.npec.obs import write_chrome_trace
+        write_chrome_trace(tracer, args.trace, report=snapshot["report"],
+                           metrics=snapshot["metrics"])
+        print(f"wrote trace -> {args.trace} ({len(tracer.events)} events)")
+
+
+def _max_prompt(args) -> int:
+    max_prompt = args.capacity - args.gen
+    if max_prompt < 4:
+        raise SystemExit(
+            f"--capacity ({args.capacity}) must be at least --gen ({args.gen}) + 4: "
+            f"prompts are 4..{max_prompt} tokens and every request must fit "
+            "prompt + generation in its cache slot")
+    return max_prompt
+
+
+def run_npec_fleet(args) -> Dict[str, float]:
+    """Multi-overlay serving: N overlays pull from one admission queue, as
+    replicas or with one model's streams sharded (pipeline, tensor,
+    prefill_decode), inter-overlay transfers itemized.  Cost-only, as in the
+    reference: no tensor, no device; arrivals from the seeded Poisson
+    process when --rate is set."""
+    from repro_torch.core.overlay import NPEHardware
+    from repro_torch.npec.fleet import NPEFleet
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    hw = NPEHardware(vrwidth=args.vrwidth)
+    tracer = _make_tracer(args, hw.clock_hz)
+    max_prompt = _max_prompt(args)
+    fleet = NPEFleet(cfg, hw, overlays=args.overlays, shard=args.shard,
+                     slots=args.batch, capacity=args.capacity,
+                     max_new_tokens=args.gen, bits=args.bits,
+                     cycle_model=args.cycle_model,
+                     prefill_chunk=args.prefill_chunk,
+                     prefill_overlays=args.prefill_overlays,
+                     seq_buckets=args.seq_buckets, window=args.window,
+                     tracer=tracer)
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=min(16, max_prompt),
+                             rate_rps=args.rate, clock_hz=hw.clock_hz)
+    arrivals = reqs.arrival_cycles(args.requests)
+    for i in range(args.requests):
+        fleet.submit(reqs.request(i), eos_id=reqs.eos_id(i),
+                     arrival_cycle=int(arrivals[i]))
+    snapshot = fleet.run().snapshot()
+    report = snapshot["report"]
+    print(f"npec fleet ({args.arch}, {args.overlays} overlays, shard={args.shard}, "
+          f"{args.bits}-bit MMU, rate={args.rate or 'all-at-t0'}, "
+          f"{args.cycle_model} cycle model), cost-only; {OVERLAY_LABEL}:")
+    _print_report(report)
+    _npec_outputs(args, tracer, snapshot)
+    return report
+
+
+def run_npec(args) -> Dict[str, float]:
+    """Compiled-stream serving: `NPEEngine` over the synthetic workload, the
+    executor's kernels on `--device`.  The weights are the port's own
+    `models/bert` initialisation at --seed (through `param_tree_from_model`),
+    not the reference's `registry.init_params`.  Latency and tokens/s come
+    from the compiled streams' cycle counts (the overlay model at 200 MHz);
+    the host seconds of the run on the device are printed beside them."""
+    from repro_torch.core.overlay import NPEHardware
+    from repro_torch.models.convert import param_tree_from_model
+    from repro_torch.npec.runtime import NPEEngine
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    max_prompt = _max_prompt(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve --backend npec: no CUDA device; pass --device cpu")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = param_tree_from_model(Bert(cfg, device=device).init(gen))
+    hw = NPEHardware(vrwidth=args.vrwidth)
+    tracer = _make_tracer(args, hw.clock_hz)
+    engine = NPEEngine(cfg, hw, slots=args.batch, capacity=args.capacity,
+                       max_new_tokens=args.gen, bits=args.bits, npe=args.npe,
+                       params=params, cycle_model=args.cycle_model,
+                       prefill_chunk=args.prefill_chunk,
+                       seq_buckets=args.seq_buckets, window=args.window,
+                       tracer=tracer, device=device)
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=min(16, max_prompt))
+    for i in range(args.requests):
+        # EOS-aware workload: each request carries a sampled stop token
+        engine.submit(reqs.request(i), eos_id=reqs.eos_id(i))
+    t0 = time.perf_counter()
+    snapshot = engine.run().snapshot()
+    host_s = time.perf_counter() - t0
+    report = snapshot["report"]
+    print(f"npec engine ({args.arch}, B={args.batch} slots, T={args.capacity}, "
+          f"{args.bits}-bit MMU, {'NPE' if args.npe else 'float'} numerics on "
+          f"{device}, {args.cycle_model} cycle model); {OVERLAY_LABEL}:")
+    _print_report(report)
+    where = card_info() if device.type == "cuda" else "the CPU"
+    print(f"host time of the run: {host_s:.3f} s for {report['decode_steps']} "
+          f"engine steps on {where}")
+    _npec_outputs(args, tracer, snapshot)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="bert_base")
+    ap.add_argument("--backend", choices=("torch", "npec"), default="torch",
+                    help="torch: Server.generate, the model's own decode step; "
+                         "npec: compiled overlay streams (NPEEngine / NPEFleet)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--max-prompt", type=int, default=128)
-    ap.add_argument("--gen", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=None,
+                    help="tokens generated a request (default 64; --backend npec 16)")
     ap.add_argument("--mode", default="npe-8bit", choices=sorted(MODES))
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weights: the port's own models/bert initialisation at "
+                         "this seed (the card has no JAX, so never the "
+                         "reference's registry.init_params)")
+    npec = ap.add_argument_group("--backend npec")
+    npec.add_argument("--device", default="cuda",
+                      help="where NPEEngine's executor runs (default: the card)")
+    npec.add_argument("--requests", type=int, default=8)
+    npec.add_argument("--capacity", type=int, default=48,
+                      help="compiled KV-cache capacity per slot")
+    npec.add_argument("--cycle-model", choices=("dag", "streaming"),
+                      default="streaming",
+                      help="cycles each serving step charges: tile-streaming "
+                           "(the paper's model) or whole-op DAG")
+    npec.add_argument("--npe", action="store_true",
+                      help="NPE numerics (quantized MMU at --bits, PWL NVU)")
+    npec.add_argument("--bits", type=int, default=16)
+    npec.add_argument("--vrwidth", type=int, default=1024)
+    npec.add_argument("--overlays", type=int, default=1,
+                      help="overlays in the cost-only fleet (1: the lone engine)")
+    npec.add_argument("--shard", choices=("replicate", "expert", "pipeline",
+                                          "prefill_decode", "tensor"),
+                      default="replicate",
+                      help="fleet: replicas, pipeline layer groups, prefill/decode "
+                           "disaggregation or column-carved tensor parallelism "
+                           "(expert needs an MoE family, which the port lacks)")
+    npec.add_argument("--rate", type=float, default=None,
+                      help="fleet: Poisson request rate (requests/s at the overlay "
+                           "clock); default all at cycle 0")
+    npec.add_argument("--prefill-chunk", type=int, default=None,
+                      help="stream each prompt as ceil(S/C) causal cache slices")
+    npec.add_argument("--prefill-overlays", type=int, default=1,
+                      help="fleet: prefill overlays under --shard prefill_decode")
+    npec.add_argument("--seq-buckets", default=None,
+                      help="length-bucketed decode: 'auto' or a comma list")
+    npec.add_argument("--window", type=int, default=None,
+                      help="ring (sliding-window) decode at W rows")
+    npec.add_argument("--trace", default=None, metavar="PATH",
+                      help="write a Chrome trace-event/Perfetto JSON of the run "
+                           "(cycle-stamped); read it with python -m "
+                           "repro_torch.npec.obs.profile PATH")
+    npec.add_argument("--json", "--report", dest="json", default=None, metavar="PATH",
+                      help="write the cycle report + metrics snapshot as JSON")
+    npec.add_argument("--smoke", action="store_true",
+                      help="the smoke configuration and a tiny workload: 2 slots, "
+                           "4 requests, 4 tokens")
     args = ap.parse_args(argv)
+    if args.gen is None:
+        args.gen = 16 if args.backend == "npec" else 64
+    if args.backend == "npec":
+        if args.seq_buckets and args.seq_buckets != "auto":
+            args.seq_buckets = tuple(int(b) for b in args.seq_buckets.split(","))
+        if args.smoke:
+            args.batch, args.requests, args.gen = 2, 4, 4
+            args.capacity = min(args.capacity, 24)
+        if (args.overlays, args.shard, args.rate) == (1, "replicate", None):
+            run_npec(args)
+        else:
+            run_npec_fleet(args)
+        print("serve OK")
+        return
     if not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device")
     card = card_info()

@@ -110,6 +110,15 @@ class ParamTree:
                                        dtype=torch.float32).contiguous()
         return v
 
+    @classmethod
+    def on(cls, params: Any, device) -> "ParamTree":
+        """`params` as a ParamTree on `device`: itself when it already is
+        one there (its resolved slices kept), else a new one."""
+        device = torch.device(device)
+        if isinstance(params, cls):
+            return params if params.device == device else cls(params.tree, device)
+        return cls(params, device)
+
 
 def _matmul(node: Node, a, b, bias, *, weight_resident: bool,
             npe_quant: bool, bits: int, act_axis=None):
@@ -200,9 +209,7 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
     if cfg is not None:
         npe_quant, bits = cfg.npe_quant, cfg.npe_quant_bits
         use_pwl, segments = cfg.npe_pwl, cfg.npe_pwl_segments
-    if not isinstance(params, ParamTree) or params.device != device:
-        params = ParamTree(params.tree if isinstance(params, ParamTree) else params,
-                           device)
+    params = ParamTree.on(params, device)
 
     # batched-slot decode streams (vector `pos` input) quantize MMU
     # activations per ROW: each row of a merged (B, K) tile is a different
@@ -242,7 +249,12 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
         return val
 
     def feed(name: str, dtype: torch.dtype):
-        return torch.as_tensor(feeds[name]).to(device=device, dtype=dtype)
+        x = torch.as_tensor(feeds[name])
+        if device.type == "cuda" and x.device.type == "cpu":
+            # a host feed (tokens, positions) goes through pinned memory, so
+            # its copy does not wait for the card's queued work
+            return x.to(dtype).pin_memory().to(device, non_blocking=True)
+        return x.to(device=device, dtype=dtype)
 
     for node in graph.nodes:
         op = node.op
@@ -364,9 +376,7 @@ class DecodeSession:
                              "(trace with repro_torch.npec.trace.trace_decode)")
         self.device = resolve_device(device)
         self.compiled = compiled
-        self.params = (params if isinstance(params, ParamTree)
-                       and params.device == self.device
-                       else ParamTree(params, self.device))
+        self.params = ParamTree.on(params, self.device)
         self.cfg = cfg
         self.kw = dict(npe_quant=npe_quant, bits=bits, use_pwl=use_pwl,
                        segments=segments)

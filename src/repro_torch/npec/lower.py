@@ -125,6 +125,11 @@ def shard_tile(hw: NPEHardware, n: int, k: int, m: int, bits: int, *,
     full_k, full_m = k, m
     if axis == "m":
         m = m // of + (1 if idx < m % of else 0)
+        if m == 0:
+            # the reference divides by this shard's zero tiled cycles here
+            raise ValueError(
+                f"column shard {idx} of {of} gets no columns: m={full_m} "
+                f"output columns do not reach every overlay (need m >= of)")
     else:
         if k % of:
             raise ValueError(

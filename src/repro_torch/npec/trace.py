@@ -27,8 +27,10 @@ CLI (on the card unless --device cpu):
         [--bits 8|16] [--check]
 prints the graph, its instruction counts by unit and the greedy and
 streaming schedules' totals, which are cycles of the FPGA overlay model
-(200 MHz), not time on a GPU.  --check runs the compiled stream through the
-executor and holds it against the port's `models/bert`.
+(200 MHz), not time on a GPU.  --check holds the compiled encoder's cycles
+within 1% of the hand-built program (`core.cycles.build_encoder_program`),
+then runs the compiled stream through the executor and holds it against the
+port's `models/bert`; it exits non-zero past either gate.
 """
 from __future__ import annotations
 
@@ -587,11 +589,30 @@ def trace_decode_bert_shape(shape, cache_len: int, *, layers: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# CLI: trace + compile + schedule, and with --check the executor against
-# the port's BERT
+# CLI: trace + compile + schedule, and with --check the compiled encoder
+# against the hand-built program and the executor against the port's BERT
 # ---------------------------------------------------------------------------
 
 CHECK_TOL = 1e-2        # the reference's gate for its executor vs its model
+HAND_TOL = 0.01         # compiled cycles/encoder vs the hand-built program
+
+
+def _check_hand(cfg: ModelConfig, args, total_cycles: float) -> bool:
+    """The compiled encoder's whole-op cycles per layer against
+    `core.cycles.build_encoder_program` at the same dims: within 1%."""
+    from repro_torch.core import cycles as cy
+    from repro_torch.core.overlay import NPEHardware
+
+    hand = cy.schedule(cy.build_encoder_program(
+        NPEHardware(vrwidth=args.vrwidth),
+        cy.BertShape(seq=args.seq, hidden=cfg.d_model, heads=cfg.num_heads,
+                     d_ff=cfg.d_ff, encoders=cfg.num_layers), args.bits))
+    per_enc = total_cycles / cfg.num_layers
+    dev = abs(per_enc - hand["total_cycles"]) / hand["total_cycles"]
+    print(f"compiled {per_enc:.0f} cycles/encoder vs hand-built "
+          f"{hand['total_cycles']:.0f} ({100 * dev:.2f}% deviation, gate "
+          f"{100 * HAND_TOL:g}%; overlay model cycles)")
+    return dev < HAND_TOL
 
 
 def _check(args, device) -> bool:
@@ -698,6 +719,10 @@ def main(argv=None) -> int:
         print(f"skinny matmuls: {t['skinny_matmuls']} "
               f"(MMU row occupancy {100 * t['efficiency']:.2f}%)")
     if args.check:
+        if not args.decode and not _check_hand(cfg, args, stats["total_cycles"]):
+            print("npec check FAILED: the compiled schedule deviates more than "
+                  f"{100 * HAND_TOL:g}% from the hand-built program")
+            return 1
         if not _check(args, args.device):
             print("npec check FAILED")
             return 1

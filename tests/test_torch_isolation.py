@@ -49,5 +49,6 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(lines["modules"]) >= 34
     names = set(lines["names"].split())
     for new in ("kernels.flash_attention", "models.registry", "launch.steps", "launch.serve",
-                "npec.exec", "npec.trace", "npec.lower", "core.overlay"):
+                "npec.exec", "npec.trace", "npec.lower", "core.overlay",
+                "core.cycles", "npec.runtime.engine", "npec.fleet.sim", "npec.obs.tracer"):
         assert "repro_torch." + new in names
