@@ -17,7 +17,13 @@
    torch ops (`pwl_eval` in its vector and scalar (unaligned) instance,
    `nvu_softmax` f32 and, with the encoder's scale 0.125, bf16 out);
    flash's blocked mode and its dense mode (the decode path's attention:
-   decode steps over 256, 1024, 2048 and 16384 keys, a 128-token prefill); beside
+   decode steps over 256, 1024, 2048 and 16384 keys, a 128-token prefill,
+   and GLM4-9B's (8, 32 over 2, 1, 128) step and (1, 32 over 2, 128, 128)
+   prefill); at GLM4-9B's other shapes RMSNorm (8, 4096) and (1024, 4096),
+   `pwl_eval` SiLU (8, 13696) and every other table at (8, 3072), bit for
+   bit against the walk, and `quant_matmul` at a step's q/o, k/v, gate/up,
+   down and head products and at the longest prompt's (120 rows) gate/up,
+   down and head products; beside
    `pwl_eval`, `nvu_softmax` and `nvu_layernorm` a yardstick of the same
    bytes with exact math, not the same function (`F.gelu`,
    `torch.softmax`, `F.layer_norm`), and beside `nvu_softmax` a copy of its
@@ -77,8 +83,20 @@
    twice [6](c)'s float change under 1-ulp weights; (c) the cost-only engine
    and fleet rebuild the bert rows of `results/npec_serve_cycles.json`
    (kind "engine") and `results/npec_tensor_cycles.json` exactly;
-8. prints the kernel list, one JSON line of per-kernel numbers (launches on
-   the encoder, decode, npec and engine paths; the npec instances of
+8. serves full-width, 40-layer GLM4-9B (bf16, 9.40 B parameters drawn from a
+   torch generator) through `launch.serve.Server`: 8 slots, [5]'s prompts,
+   16 greedy tokens, a 256-row cache, in float, NPE-8 and NPE-16, printing
+   prefill ms per slot, decode ms per step and tokens/s; checks the launches
+   of one step and of one one-slot prefill exactly (NPE-8 281 quant_matmul,
+   81 nvu_layernorm, 40 pwl_eval, 40 flash_attention, 0 nvu_softmax);
+   holds every launch of one NPE-8 step and of the 8 one-slot NPE-8
+   prefills (33 to 120 rows) to its plain version; profiles one
+   NPE-8 step and counts the device launches of one step in each mode;
+   prints teacher-forced top-1 agreement with float (not
+   gated); and holds the kernel route (float32, 2 layers, full width,
+   prefill plus 4 steps) against the port's plain route on the CPU;
+9. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode, npec, engine and GLM4 paths; the npec instances of
    quant_matmul and nvu_softmax), the card, and last
    `{"ok": true, "device": {...}}`.
 
@@ -113,7 +131,7 @@ from repro_torch.kernels import nvu_layernorm as ln_mod  # noqa: E402
 from repro_torch.kernels import nvu_softmax as sm_mod  # noqa: E402
 from repro_torch.kernels import pwl_eval as pe_mod  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm_mod  # noqa: E402
-from repro_torch.core.pwl import get_table  # noqa: E402
+from repro_torch.core.pwl import _FUNCS, get_table  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
 from repro_torch.models import bert, registry  # noqa: E402
@@ -148,6 +166,22 @@ BF16_RTOL = 2.0 ** -7          # one bf16 ulp, relative to the value
 NPE16_TOL = 5e-3               # the reference's NPE-mode gate
 FLOAT_TOL = 1e-3               # float32 route on the card vs the CPU, 2 layers
 NOISE_FACTOR, TOP1_MARGIN = 2.0, 0.02
+# GLM4-9B decode serving: 8 slots, prompts of up to 128 tokens, 16 steps, 256 rows
+GLM4_GEN = 16
+# launches of one GLM4-9B decode step, and of one one-slot prefill: 40 layers
+# of q/k/v/o/gate/up/down and the head; two RMSNorms a layer and the final one;
+# the SiLU of each gate; one dense attention a layer
+GLM4_LAUNCHES = {
+    "npe-8bit": {"quant_matmul": 281, "nvu_layernorm": 81, "pwl_eval": 40,
+                 "flash_attention": 40, "nvu_softmax": 0},
+    "npe-16bit": {"quant_matmul": 0, "nvu_layernorm": 81, "pwl_eval": 40,
+                  "flash_attention": 40, "nvu_softmax": 0},
+    "float": {"quant_matmul": 0, "nvu_layernorm": 0, "pwl_eval": 0,
+              "flash_attention": 40, "nvu_softmax": 0},
+}
+# (K, N) of a GLM4-9B decode step's products: q/o, k/v, gate/up, down, head
+GLM4_PRODUCTS = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096), (4096, 151552)]
+GLM4_PREFILL_ROWS = 120     # the longest of [5]'s prompts: M of the tiled instance
 REPLACES = {
     "pwl_eval": "src/repro/kernels/pwl_eval.py:79",
     "quant_matmul": "src/repro/kernels/quant_matmul.py:73",
@@ -398,7 +432,7 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
 def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
                library_fn=None, library_name="torch._int_mm", cold=False,
                walk_fn=None, yardstick_fn=None, yardstick_name=None, check_fn=None,
-               copy_fn=None, walk_name="walk"):
+               copy_fn=None, walk_name="walk", cell=None):
     """Hold one kernel call against its plain version, time it and append
     its row to `rows`.  `work`: (operations, rate) pairs of the bound.  With
     `cold`, the kernel, library, yardstick and copy times are taken with the
@@ -408,7 +442,8 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
     same function).  `check_fn(got)`: (max-abs error, ok) in place of the
     TOLS comparison with plain_fn.  `copy_fn`: one torch copy that moves the
     kernel's bytes with no arithmetic, timed as the floor of its memory
-    stream."""
+    stream.  `cell`: the model whose shapes the row takes where it is not
+    BERT ("glm4")."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     atol, rtol = TOLS[(kernel, dtype)]
@@ -432,7 +467,7 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
              library=library_name if library_fn else None,
              yardstick_ms=(yms if yms is not None else yev) if yardstick_fn else None,
              yardstick=yardstick_name, launch_floor_ms=floor_ms,
-             copy_ms=(cms if cms is not None else cev) if copy_fn else None)
+             copy_ms=(cms if cms is not None else cev) if copy_fn else None, cell=cell)
     rows.append(r)
     lib = f"  {library_name} {r['library_ms']:.4f}" if library_fn else ""
     extra = "" if exact is None else f", {walk_name} {'bit-exact' if exact else 'DIFFERS'}"
@@ -554,8 +589,65 @@ def kernel_rows(dev, floor_ms):
 
     flash_rows(dev, g, row)
     dense_rows(dev, g, row)
+    glm4_kernel_rows(dev, g, row)
     npec_kernel_rows(dev, floor_ms, rows)
     return rows
+
+
+def glm4_kernel_rows(dev, g, row):
+    """The kernels at GLM4-9B's shapes that BERT never reached (its dense
+    rows are in DENSE_ROWS): RMSNorm rows of 4096 columns (the layernorm
+    kernel's rms_only mode, eps 1e-6; past 2048 columns the block instance),
+    a decode step's (8, 4096) and a prefill's (1024, 4096); the SiLU of the
+    gate, (8, 13696), and every other table at (8, 3072) f32, bit for bit
+    against the walk of the prefix search; the MMU at a decode step's
+    projections (q/o, k/v, gate/up, down, head) and at the longest prompt's
+    prefill (120 rows: gate/up, down, head)."""
+    import torch.nn.functional as F
+    row = functools.partial(row, cell="glm4")
+    gam = 1 + 0.1 * torch.randn(4096, generator=g, device=dev)
+    rms = getattr(F, "rms_norm", None)
+    for m in (8, 1024):
+        x = (torch.randn(m, 4096, generator=g, device=dev) * 2).to(torch.bfloat16)
+        gam_t = gam.to(torch.bfloat16)
+        row("nvu_layernorm", f"({m}, 4096) rms_only", torch.bfloat16,
+            lambda: ln_mod.nvu_layernorm(x, gam, None, eps=1e-6, rms_only=True),
+            lambda: ln_mod.nvu_layernorm_plain(x, gam, None, eps=1e-6, rms_only=True),
+            x.numel() * 2 * x.element_size() + 4096 * 4,
+            # square-add, two multiplies; one PWL a row
+            [(x.numel() * 4 + x.shape[0] * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)],
+            yardstick_fn=(lambda: rms(x, (4096,), gam_t, eps=1e-6)) if rms else None,
+            yardstick_name="F.rms_norm" if rms else None)
+    tables = [("silu", 13696, torch.bfloat16)] + [
+        (n, 3072, torch.float32) for n in sorted(_FUNCS) if n not in ("silu", "gelu")]
+    for name, n, dt in tables:
+        if name in ("recip", "rsqrt", "sqrt"):          # mantissas in [0.25, 1)
+            x = (0.25 + 0.75 * torch.rand(8, n, generator=g, device=dev)).to(dt)
+        else:
+            x = (torch.randn(8, n, generator=g, device=dev) * 4).to(dt)
+        tab = pe_mod.device_table(name, 16, dev)
+        row("pwl_eval", f"(8, {n}) {name}", dt,
+            lambda: pe_mod.pwl_eval(x, name),
+            lambda: pe_mod.pwl_eval_plain(x, get_table(name, 16)),
+            x.numel() * 2 * x.element_size(),
+            [(x.numel() * pwl_prefix_ops(name), F32_OPS_PER_S)],
+            walk_fn=lambda: pe_mod.pwl_eval_walk(x, tab).to(x.dtype),
+            yardstick_fn=(lambda: F.silu(x)) if name == "silu" else None,
+            yardstick_name="F.silu" if name == "silu" else None)
+    products = [(8, k, n) for k, n in GLM4_PRODUCTS] + [
+        (GLM4_PREFILL_ROWS, k, n) for k, n in GLM4_PRODUCTS[2:]]
+    for m, k, n in products:
+        xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
+        a, b = xq.q.contiguous(), wq.q.contiguous()
+        lib_a = torch.cat([a, a.new_zeros(32 - m, k)]) if m < 32 else a  # _int_mm: M > 16
+        row("quant_matmul", f"({m}, {k}) @ ({k}, {n})", torch.bfloat16,
+            lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale, out_dtype=torch.bfloat16),
+            lambda: qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale, None, torch.bfloat16),
+            m * k + k * n + 4 + 4 * n + m * n * 2, [(2 * m * n * k, INT8_OPS_PER_S)],
+            library_fn=lambda: torch._int_mm(lib_a, b),
+            library_name="torch._int_mm" + (", rows zero-padded to 32" if m < 32 else ""))
+        del xq, wq, a, b, lib_a
 
 
 def visible_pairs(sq: int, kv_len: int, causal: bool, window: int) -> int:
@@ -629,15 +721,23 @@ def flash_rows(dev, g, row):
                     library_fn=lib, library_name="scaled_dot_product_attention", cold=cold)
 
 
-# dense rows: (name, b, hq, hkv, sq, skv, kv_len); the decode path's shapes,
-# bf16 q, cache and output, PWL and exact exp
+# dense rows: (name, b, hq, hkv, sq, skv, kv_len, d, cell); the decode
+# path's shapes, bf16 q, cache and output, PWL and exact exp: BERT-base's
+# (cell None), and GLM4-9B's (32 query heads over 2 kv heads, head dim 128)
 DENSE_ROWS = [
-    ("dense decode", 8, 12, 12, 1, 256, 256),
-    ("dense decode", 8, 12, 12, 1, 1024, 1024),
-    ("dense decode", 8, 12, 12, 1, 2048, 2048),
-    ("dense decode", 8, 12, 12, 1, 16384, 16384),
-    ("dense prefill", 1, 12, 12, 128, 256, 128),
+    ("dense decode", 8, 12, 12, 1, 256, 256, 64, None),
+    ("dense decode", 8, 12, 12, 1, 1024, 1024, 64, None),
+    ("dense decode", 8, 12, 12, 1, 2048, 2048, 64, None),
+    ("dense decode", 8, 12, 12, 1, 16384, 16384, 64, None),
+    ("dense prefill", 1, 12, 12, 128, 256, 128, 64, None),
+    ("dense decode", 8, 32, 2, 1, 256, 256, 128, "glm4"),
+    ("dense prefill", 1, 32, 2, 128, 256, 128, 128, "glm4"),
 ]
+
+
+def heads(hq: int, hkv: int) -> str:
+    """A row's head count: `12`, or `32 over 2` under grouped-query attention."""
+    return str(hq) if hq == hkv else f"{hq} over {hkv}"
 
 
 def dense_rows(dev, g, row):
@@ -648,8 +748,7 @@ def dense_rows(dev, g, row):
     passes read again).  The decode rows are timed once more with the L2
     flushed before each launch."""
     import torch.nn.functional as F
-    for name, b, hq, hkv, sq, skv, kv_len in DENSE_ROWS:
-        d = 64
+    for name, b, hq, hkv, sq, skv, kv_len, d, cell in DENSE_ROWS:
         q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
@@ -666,14 +765,14 @@ def dense_rows(dev, g, row):
                     q, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
             for cold in (False, True) if name == "dense decode" else (False,):
                 row("flash_attention",
-                    f"{name} ({b}, {hq}, {sq}, {d}) kv {kv_len}/{skv}" + (" pwl" if use_pwl else "")
-                    + (" cold L2" if cold else ""),
+                    f"{name} ({b}, {heads(hq, hkv)}, {sq}, {d}) kv {kv_len}/{skv}"
+                    + (" pwl" if use_pwl else "") + (" cold L2" if cold else ""),
                     torch.bfloat16,
                     lambda: fa_mod.dense_attention(q, k, v, **kw),
                     lambda: fa_mod.dense_attention_plain(q, k, v, **kw),
                     nbytes, [(pairs * 4 * d, BF16_OPS_PER_S), (pairs * (exp_ops + 5), F32_OPS_PER_S)],
                     library_fn=lib, library_name="scaled_dot_product_attention", cold=cold,
-                    check_fn=lambda got: dense_compare(q, k, v, kw, got))
+                    check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell)
 
 
 # --- phase 4: full-width BERT-base ------------------------------------------
@@ -794,9 +893,9 @@ def device_launches(fn) -> int:
     return sum(n for _, _, n in _kernel_times(prof, with_counts=True))
 
 
-def nudge(model: Bert) -> Bert:
-    """A copy of `model` with every weight moved up by one ulp."""
-    other = Bert(model.cfg, device="cpu", dtype=torch.float32)
+def nudge(model):
+    """A float32 copy of `model` on the CPU with every weight moved up by one ulp."""
+    other = registry.build_model(model.cfg, device="cpu", dtype=torch.float32)
     with torch.no_grad():
         for (_, p), (_, q) in zip(model.named_parameters(), other.named_parameters()):
             q.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
@@ -1059,23 +1158,26 @@ def decode_phase(dev, card, results):
         "dense mode: " + ", ".join(f"{m} {a:.4f}" for m, a in before.items()))
 
 
-def decode_route_check(dev, results):
+def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
+                       long_run=True):
     """The decode path's kernel route on the card against the port's plain
-    route on the CPU: full width cut to 2 layers, float32 weights, bf16
-    cache, the slots prefilled alone, then 4 steps fed the same tokens.  Two
-    runs: prompts of up to 128 tokens over a 256-row cache, and prompts of
-    1100 and 300 tokens over an 1152-row cache (past one 256-key block, and
-    past the 1024 keys one pass of the dense mode holds)."""
-    cfg = dataclasses.replace(get_config("bert_base"), num_layers=2, dtype="float32")
-    cpu_model = Bert(cfg, device="cpu").init(torch.Generator().manual_seed(1))
-    card_model = Bert(cfg, device=dev)
+    route on the CPU: `arch` at full width cut to 2 layers, float32 weights,
+    bf16 cache, the slots prefilled alone, then 4 steps fed the same tokens.
+    Two runs: prompts of up to 128 tokens over a 256-row cache, and (with
+    `long_run`) prompts of 1100 and 300 tokens over an 1152-row cache (past
+    one 256-key block, and past the 1024 keys one pass of the dense mode
+    holds)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+    cpu_model = registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    card_model = registry.build_model(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
     noisy = nudge(cpu_model)
     rng = np.random.default_rng(3)
     long_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1100, 300)]
     feed = rng.integers(0, cfg.vocab_size, (2, 4))
-    runs = {"short": (decode_prompts(cfg.vocab_size, seed=2, n=2), MAX_SEQ),
-            "long": (long_prompts, 1152)}
+    runs = {"short": (decode_prompts(cfg.vocab_size, seed=2, n=2), MAX_SEQ)}
+    if long_run:
+        runs["long"] = (long_prompts, 1152)
 
     def run(c, model, device, prompts, max_seq):
         start = max(len(p) for p in prompts)
@@ -1109,15 +1211,16 @@ def decode_route_check(dev, results):
             out[f"{name} {mode}"] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
                                          noise_max_abs=noise, noise_top1=noise_top1, ok=ok,
                                          prompts=[len(p) for p in prompts], max_seq=max_seq)
-            say(f"  {mode:10s} decode, card kernels vs CPU plain route (float32, 2 layers, "
+            say(f"  {mode:10s} {arch} decode, card kernels vs CPU plain route (float32, 2 layers, "
                 f"prompts {[len(p) for p in prompts]}, {max_seq} rows, prefill + 4 steps): "
                 f"max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} (gate {gate_top1:.4f}); "
                 f"CPU plain route under 1-ulp weights: max-abs {noise:.3e}, top-1 "
                 f"{noise_top1:.4f}" + ("" if ok else "  FAIL"))
             if not ok:
-                raise SystemExit(f"{name} {mode}: the decode kernel route disagrees with the "
-                                 "plain route")
-    results["decode_route_check"] = out
+                raise SystemExit(f"{arch} {name} {mode}: the decode kernel route disagrees "
+                                 "with the plain route")
+    del cpu_model, card_model, noisy
+    results[key] = out
 
 
 # --- phase 6: the npec compiler and executor --------------------------------
@@ -1761,6 +1864,126 @@ def engine_phase(dev, base, tree, results):
     results["engine_launches"] = counts
 
 
+# --- phase 8: GLM4-9B decode serving --------------------------------------
+
+def glm4_phase(dev, card, results):
+    """Full-width, 40-layer GLM4-9B in bf16 through `launch.serve.Server`,
+    random weights from a torch generator: (a) 8 slots, [5]'s prompts, 16
+    greedy tokens, a 256-row cache, in float, NPE-8 and NPE-16; (b) the
+    launches of one step and of one one-slot prefill in each mode, and of
+    the served run, checked exactly; (c) every launch of one NPE-8 step and
+    of the 8 one-slot NPE-8 prefills held to its plain version; (d) one
+    NPE-8 step profiled; (e) teacher-forced top-1 agreement with float,
+    reported; (f) the kernel route at 2 layers, float32, against the CPU's
+    plain route (after the served model is freed)."""
+    cfg = get_config("glm4_9b")
+    prompts = decode_prompts(cfg.vocab_size)
+    start = max(len(p) for p in prompts)
+    t0 = time.perf_counter()
+    since = lambda: f"({time.perf_counter() - t0:.1f} s into [8])"   # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = registry.build_model(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  glm4_9b L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"Dh={cfg.head_dim} d_ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}, {n_params:,} "
+        f"parameters ({torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s); {SLOTS} slots, prompts of "
+        f"{[len(p) for p in prompts]} tokens, {GLM4_GEN} steps from position {start}, "
+        f"cache of {MAX_SEQ} rows")
+    servers, out = {}, {}
+    for mode in MODES:
+        srv = servers[mode] = Server("glm4_9b", batch=SLOTS, max_seq=MAX_SEQ, mode=mode,
+                                     device=dev, model=model)
+        srv.generate(prompts, gen_tokens=2)                 # warm-up
+        srv.cache = registry.init_cache(srv.cfg, SLOTS, MAX_SEQ, dev)
+        counts, stats = counted(lambda: srv.generate(prompts, gen_tokens=GLM4_GEN))
+        rep = stats.report()
+        toks = stats.generated
+        if toks.shape != (SLOTS, GLM4_GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"glm4 {mode}: generated tokens of shape {toks.shape} or out of range")
+        cur = torch.as_tensor(toks[:, -1:], device=dev)
+        step, (logits, _) = counted(lambda: registry.decode_step(
+            srv.cfg, srv.model, srv.cache, cur, start + GLM4_GEN))
+        if logits.shape != (SLOTS, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise SystemExit(f"glm4 {mode}: step logits of shape {tuple(logits.shape)} "
+                             "or not finite")
+        prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
+        out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts,
+                         step_launches=step, prefill_launches=prefill, step_ms=stats.step_ms)
+        say(f"  {mode:10s} prefill {rep['prefill_ms_per_slot']:8.3f} ms per slot, decode "
+            f"{rep['decode_ms_per_step']:8.3f} ms per step (median of {GLM4_GEN}), "
+            f"{rep['tokens_per_sec']:9.1f} tokens/s, on {card}")
+        say(f"             launches of one step {step}, of one one-slot prefill {prefill}")
+        want = GLM4_LAUNCHES[mode]
+        if step != want or prefill != want:
+            raise SystemExit(f"glm4 {mode}: launches of a step or a prefill differ from {want}")
+        runs = len(prompts) + GLM4_GEN
+        if counts != {k: n * runs for k, n in want.items()}:
+            raise SystemExit(f"glm4 {mode}: launches of the served run {counts} differ from "
+                             f"{runs} x {want}")
+    results["glm4"] = out
+    results["glm4_launches"] = out["npe-8bit"]["run_launches"]
+
+    npe8 = servers["npe-8bit"]
+    cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
+    pos = start + GLM4_GEN
+    with Audit() as audit:
+        registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, pos)
+        torch.cuda.synchronize()
+    results["glm4_audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
+                             for k, (n, e, ok) in audit.stats.items()}
+    say(f"  {since()} one NPE-8 GLM4 decode step, every launch vs its plain version on its "
+        "operands: " +
+        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+                  for k, (n, e, ok) in audit.stats.items()))
+    if any(not ok for _, _, ok in audit.stats.values()) or \
+            {k: audit.stats[k][0] for k in KERNELS} != GLM4_LAUNCHES["npe-8bit"]:
+        raise SystemExit("a launch of the NPE-8 GLM4 decode step disagrees with its plain version")
+    with Audit() as audit:
+        for slot, p in enumerate(prompts):
+            npe8.prefill_prompt(slot, p)
+        torch.cuda.synchronize()
+    results["glm4_prefill_audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
+                                     for k, (n, e, ok) in audit.stats.items()}
+    say(f"  {since()} the 8 one-slot NPE-8 GLM4 prefills ({min(map(len, prompts))} to "
+        f"{max(map(len, prompts))} rows), every launch vs its plain version on its operands: " +
+        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+                  for k, (n, e, ok) in audit.stats.items()))
+    if any(not ok for _, _, ok in audit.stats.values()) or \
+            {k: audit.stats[k][0] for k in KERNELS} != {
+                k: n * len(prompts) for k, n in GLM4_LAUNCHES["npe-8bit"].items()}:
+        raise SystemExit("a launch of an NPE-8 GLM4 prefill disagrees with its plain version")
+
+    prof = results["glm4_profile"] = profile_call(
+        lambda: registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, pos),
+        out["npe-8bit"]["decode_ms_per_step"])
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    say(f"  one NPE-8 GLM4 decode step: {prof['host_ms']:.3f} ms host clock (median of the "
+        f"served run), {prof['device_busy_ms']:.3f} ms device busy (torch.profiler), idle share "
+        f"{idle}; {prof['kernels']} kernels by name, device ms by kernel:")
+    for name, ms in prof["top"]:
+        say(f"      {ms:8.4f}  {name}")
+    n_dev = results["glm4_device_launches"] = {
+        mode: device_launches(lambda: registry.decode_step(srv.cfg, srv.model, srv.cache, cur, pos))
+        for mode, srv in servers.items()}
+    say("  device launches of one GLM4 decode step (kernels and copies, torch.profiler): " +
+        ", ".join(f"{m} {n}" for m, n in n_dev.items()))
+
+    feed = np.asarray(out["float"]["generated"])
+    agree = {mode: float((teacher_forced(srv, prompts, feed) == feed).mean())
+             for mode, srv in servers.items()}
+    results["glm4_agreement"] = agree
+    say(f"  {since()} GLM4 top-1 agreement with the float route's tokens, every mode fed them "
+        "(reported, not gated): " + ", ".join(f"{m} {a:.4f}" for m, a in agree.items()))
+    del servers, srv, npe8, model
+    torch.cuda.empty_cache()
+    say(f"  {since()} the route check:")
+    decode_route_check(dev, results, "glm4_9b", key="glm4_route_check", long_run=False)
+    say(f"  {since()} done")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1769,9 +1992,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_info()
     say(f"[1] card: {card}")
-    results = {"card": card}
+    results = {"card": card, "phase_start_s": {}}
+
+    def phase(label: str):
+        """Print a phase's header with the seconds since the start."""
+        results["phase_start_s"][label.split("]")[0] + "]"] = time.perf_counter() - t_start
+        say(f"{label}  (at {time.perf_counter() - t_start:.1f} s)")
 
     res = build.build()
     build.library()
@@ -1802,7 +2031,7 @@ def main() -> int:
             n = sum(c[col] for f, c in sass.items() if key in f)
             say(f"    SASS of {name}: {n} {'HMMA' if col == 0 else 'IMMA'} instructions")
 
-    say("[3] kernels vs plain versions on the card (ms per call: device time "
+    phase("[3] kernels vs plain versions on the card (ms per call: device time "
         "from torch.profiler, CUDA events in brackets)")
     floor_ms, floor_ev = launch_floor()
     floor_ms = floor_ms if floor_ms is not None else floor_ev
@@ -1811,19 +2040,24 @@ def main() -> int:
     rows = kernel_rows(dev, floor_ms)
     results["rows"] = rows
 
-    say("[4] full-width BERT-base encoder serving through the kernels")
+    phase("[4] full-width BERT-base encoder serving through the kernels")
     serve_phase(dev, card, results)
     route_check(dev, results)
 
-    say("[5] full-width BERT-base KV-cache decode serving through the kernels")
+    phase("[5] full-width BERT-base KV-cache decode serving through the kernels")
     decode_phase(dev, card, results)
     decode_route_check(dev, results)
 
-    say("[6] npec: the compiled BERT-base streams through the functional executor on the card")
+    phase("[6] npec: the compiled BERT-base streams through the functional executor on the card")
     base, tree = npec_phase(dev, results)
 
-    say("[7] npec serving runtime: NPEEngine on the card")
+    phase("[7] npec serving runtime: NPEEngine on the card")
     engine_phase(dev, base, tree, results)
+    del base, tree
+    torch.cuda.empty_cache()
+
+    phase("[8] full-width GLM4-9B (40 layers) KV-cache decode serving through the kernels")
+    glm4_phase(dev, card, results)
 
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
@@ -1851,7 +2085,8 @@ def main() -> int:
             launches_encoder=results["launches"][name],
             launches_decode=results["decode_launches"][name],
             launches_npec=results["npec_launches"][name],
-            launches_engine=results["engine_launches"][name]))
+            launches_engine=results["engine_launches"][name],
+            launches_glm4=results["glm4_launches"][name]))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
@@ -1868,6 +2103,11 @@ def main() -> int:
                 kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
         if r["yardstick"]:
             kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
+        kernels[-1]["glm4_rows"] = [
+            dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
+                 bound_ms=x["bound_ms"], bound_by=x["bound_by"], library_ms=x["library_ms"],
+                 max_abs_err=x["max_abs_err"])
+            for x in rows if x["kernel"] == name and x["cell"] == "glm4"]
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["mode"] = "dense"   # the decode path's attention: a mode of this kernel's source
     flash["dense_mode_replaces"] = "src/repro/models/common.py:205 (attention_scores, cache case)"
@@ -1876,7 +2116,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    say("[8] summary")
+    phase("[9] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -1,6 +1,9 @@
 """Architecture registry (counterpart of `repro/configs/__init__.py`).
 
-The port carries the configurations it runs: so far the paper's BERT.
+The port carries the configurations it runs: the paper's BERT and the
+full-attention dense and vlm decoders (glm4_9b, command_r_plus_104b,
+qwen2_vl_7b).  Each records its public source and pads the vocabulary as the
+reference does.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS: List[str] = ["bert_base"]
+ARCH_IDS: List[str] = ["command_r_plus_104b", "glm4_9b", "qwen2_vl_7b", "bert_base"]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -30,17 +33,25 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 def shrink(cfg: ModelConfig, **over) -> ModelConfig:
     """Reduced same-family config for CPU tests: few layers, narrow width,
-    tiny vocab.  With num_heads=4 and num_kv_heads=2 the smoke model is GQA."""
+    tiny vocab, the reference's fields.  With num_heads=4 and num_kv_heads=2
+    the smoke model is GQA."""
     d = dict(
         num_layers=min(cfg.num_layers, 2),
         d_model=128,
         num_heads=4,
         num_kv_heads=min(cfg.num_kv_heads, 2),
         head_dim=32,
-        d_ff=256,
+        d_ff=64 if cfg.moe else 256,
         vocab_size=512,
         max_position=4096,
         window=min(cfg.window, 32),
+        global_every=2 if cfg.attention == "local_global" else cfg.global_every,
+        encoder_layers=min(cfg.encoder_layers, 2),
+        decoder_layers=min(cfg.decoder_layers, 2),
+        encoder_seq=min(cfg.encoder_seq, 64),
+        num_patches=min(cfg.num_patches, 16),
     )
+    if cfg.moe:
+        d["moe"] = dataclasses.replace(cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2))
     d.update(over)
     return dataclasses.replace(cfg, **d)

@@ -11,8 +11,9 @@ def config() -> ModelConfig:
         num_layers=12, d_model=768, num_heads=12, num_kv_heads=12,
         head_dim=64, d_ff=3072, vocab_size=pad_vocab(30522),
         attention="full", causal=False, norm="layernorm", norm_bias=True,
-        qkv_bias=True, mlp_bias=True, activation="gelu", tie_embeddings=True,
-        max_position=32768)  # structural, as in the reference: real BERT caps at 512
+        qkv_bias=True, mlp_bias=True, activation="gelu",
+        mlp_type="plain", rope="learned", max_position=32768,  # structural: real BERT caps at 512
+        tie_embeddings=True, subquadratic=False)
 
 
 def smoke_config() -> ModelConfig:

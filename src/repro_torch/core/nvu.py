@@ -1,8 +1,10 @@
-"""The NVU in plain torch, float mode (counterpart of `repro/core/nvu.py`).
+"""The NVU in plain torch (counterpart of `repro/core/nvu.py`, paper §4, §6).
 
 Every nonlinearity is a continuous piecewise-linear table (core/pwl.py) plus
 vector arithmetic.  Scale-free functions (1/x, 1/sqrt(x)) are evaluated on
-the mantissa and denormalized by an exact power of two.
+the mantissa and denormalized by an exact power of two.  Two modes: float
+(PWL in float32) and fixed (`fixed=True`), which quantizes every
+intermediate to the datapath's Q-formats (core/fixedpoint.py).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import fixedpoint as fp
 from repro_torch.core import pwl
 
 
@@ -63,9 +66,37 @@ def nvu_rsqrt(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
     return torch.ldexp(r, -p).to(x.dtype)
 
 
-def nvu_gelu(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
-    """GELU; its right tail is asymptotically linear, so it extrapolates."""
-    return pwl_eval(x, pwl.get_table("gelu", segments))
+def _elementwise(name: str, extrapolate: bool):
+    """Saturating functions clamp to the table interval; functions with
+    asymptotically linear tails (gelu, silu, softplus) extrapolate the edge
+    segments.  `fixed` quantizes the input and the result to Q16.8."""
+    def f(x: torch.Tensor, segments: int = 16, fixed: bool = False) -> torch.Tensor:
+        t = pwl.get_table(name, segments)
+        ev = pwl_eval if extrapolate else pwl_eval_clamped
+        if fixed:
+            y = ev(fp.quantize(x, fp.Q16_8), t)
+            return fp.quantize(y, fp.Q16_8).to(x.dtype)
+        return ev(x, t)
+    f.__name__ = f"nvu_{name}"
+    return f
+
+
+nvu_gelu = _elementwise("gelu", extrapolate=True)
+nvu_tanh = _elementwise("tanh", extrapolate=False)
+nvu_sigmoid = _elementwise("sigmoid", extrapolate=False)
+nvu_silu = _elementwise("silu", extrapolate=True)
+nvu_erf = _elementwise("erf", extrapolate=False)
+nvu_softplus = _elementwise("softplus", extrapolate=True)
+nvu_exp_neg_exp = _elementwise("exp_neg_exp", extrapolate=False)  # rwkv6 decay
+
+
+def nvu_relu2(x: torch.Tensor, segments: int = 16, fixed: bool = False) -> torch.Tensor:
+    """ReLU^2 needs no table: max and multiply are NVU vector ops."""
+    r = torch.clamp(x, min=0)
+    y = r * r
+    if fixed:
+        y = fp.quantize(y, fp.Q16_8).to(x.dtype)
+    return y
 
 
 def nvu_exp(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
@@ -74,41 +105,105 @@ def nvu_exp(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
 
 
 def nvu_softmax(x: torch.Tensor, axis: int = -1, segments: int = 16,
+                fixed: bool = False,
                 where: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax: max, subtract, PWL exp, sum, PWL reciprocal.  Rows that are
-    masked out entirely come out as zeros."""
+    masked out entirely come out as zeros.  `fixed`: the exponent in Q16.8
+    (clamped to [-18, 0]), exp in Q16.12, the sum in Q32.16, the result in
+    Q16.12."""
     dt = x.dtype
     xf = x.to(torch.float32)
     if where is not None:
         xf = torch.where(where, xf, -torch.inf)
     m = xf.amax(dim=axis, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    e = nvu_exp(xf - m, segments)
+    z = xf - m
+    if fixed:
+        z = fp.quantize(torch.clamp(z, -18.0, 0.0), fp.Q16_8)
+    e = nvu_exp(z, segments)
     if where is not None:
         e = torch.where(where, e, 0.0)
-    s = e.sum(dim=axis, keepdim=True)
+    if fixed:
+        e = fp.quantize(e, fp.Q16_12)
+        s = fp.fixed_sum(e, axis, fp.Q32_16)
+    else:
+        s = e.sum(dim=axis, keepdim=True)
     out = e * nvu_reciprocal(torch.clamp(s, min=1e-30), segments)
+    if fixed:
+        out = fp.quantize(out, fp.Q16_12)
     return out.to(dt)
 
 
 def nvu_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                   beta: Optional[torch.Tensor], eps: float = 1e-5,
-                  axis: int = -1, segments: int = 16) -> torch.Tensor:
-    """LayerNorm: mean and variance by reductions, 1/sqrt by PWL."""
+                  axis: int = -1, segments: int = 16,
+                  fixed: bool = False) -> torch.Tensor:
+    """LayerNorm: mean and variance by reductions, 1/sqrt by PWL.  `fixed`:
+    the input in Q16.8, mean and variance in Q32.16, the normalized value in
+    Q16.12, the result in Q16.8."""
     dt = x.dtype
     xf = x.to(torch.float32)
+    if fixed:
+        xf = fp.quantize(xf, fp.Q16_8)
     mu = xf.mean(dim=axis, keepdim=True)
     var = torch.square(xf - mu).mean(dim=axis, keepdim=True)
+    if fixed:
+        mu = fp.quantize(mu, fp.Q32_16)
+        var = fp.quantize(var, fp.Q32_16)
     inv = nvu_rsqrt(var + eps, segments)
     y = (xf - mu) * inv
+    if fixed:
+        y = fp.quantize(y, fp.Q16_12)
     y = y * gamma.to(torch.float32)
     if beta is not None:
         y = y + beta.to(torch.float32)
+    if fixed:
+        y = fp.quantize(y, fp.Q16_8)
     return y.to(dt)
 
 
-_EXACT = {"gelu": lambda x: F.gelu(x, approximate="none")}
-_NVU = {"gelu": nvu_gelu}
+def nvu_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+                axis: int = -1, segments: int = 16,
+                fixed: bool = False) -> torch.Tensor:
+    """RMSNorm: mean square by a reduction, 1/sqrt by PWL; `fixed` as for
+    `nvu_layernorm`."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    if fixed:
+        xf = fp.quantize(xf, fp.Q16_8)
+    ms = torch.square(xf).mean(dim=axis, keepdim=True)
+    if fixed:
+        ms = fp.quantize(ms, fp.Q32_16)
+    y = xf * nvu_rsqrt(ms + eps, segments)
+    if fixed:
+        y = fp.quantize(y, fp.Q16_12)
+    y = y * gamma.to(torch.float32)
+    if fixed:
+        y = fp.quantize(y, fp.Q16_8)
+    return y.to(dt)
+
+
+_EXACT = {
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "silu": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "relu2": lambda x: torch.square(F.relu(x)),
+    "softplus": F.softplus,
+    "exp_neg_exp": lambda x: torch.exp(-torch.exp(x)),
+    "erf": torch.erf,
+}
+
+_NVU = {
+    "gelu": nvu_gelu,
+    "silu": nvu_silu,
+    "tanh": nvu_tanh,
+    "sigmoid": nvu_sigmoid,
+    "relu2": nvu_relu2,
+    "softplus": nvu_softplus,
+    "exp_neg_exp": nvu_exp_neg_exp,
+    "erf": nvu_erf,
+}
 
 
 def activation(name: str, use_pwl: bool, segments: int = 16):

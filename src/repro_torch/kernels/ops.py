@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import nvu
 from repro_torch.core.quant import quantize
 from repro_torch.kernels.flash_attention import dense_attention
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
@@ -25,7 +26,12 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 
 
 def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:
-    """Elementwise PWL nonlinearity (edge segments extrapolate)."""
+    """Elementwise nonlinearity through the NVU: the PWL table `name` with
+    its edge segments extrapolating (the guard segments of the saturating
+    tables are flat, so for finite x that is their clamped evaluation), or,
+    for relu2, whose table is unused, max and multiply."""
+    if name == "relu2":
+        return nvu.nvu_relu2(x, segments)
     return pwl_eval(x.reshape(-1, x.shape[-1]), name, segments).reshape(x.shape)
 
 
@@ -70,6 +76,13 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor,
     out = nvu_layernorm(x.reshape(-1, x.shape[-1]), gamma, beta, eps, segments,
                         rms_only)
     return out.reshape(x.shape)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+            segments: int = 16) -> torch.Tensor:
+    """NVU RMSNorm over the last axis: the layernorm kernel without the mean
+    and beta."""
+    return layernorm(x, gamma, None, eps=eps, segments=segments, rms_only=True)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

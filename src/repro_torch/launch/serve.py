@@ -1,8 +1,10 @@
 """Batched KV-cache decode serving (counterpart of the jnp backend of
 `repro/launch/serve.py`: `ServeStats`, `Server` and its CLI).
 
-A fixed pool of B decode slots.  Each prompt is prefilled alone, by one
-multi-token `decode_step` at position 0 on its slot's slice of the cache;
+A fixed pool of B decode slots for any ported decoder (`--arch`: BERT's
+causal step, or a full-attention dense or vlm transformer such as glm4_9b).
+Each prompt is prefilled alone, by one multi-token `decode_step` at
+position 0 on its slot's slice of the cache;
 then every slot decodes one greedy token a step on one common position
 clock that starts at the longest prompt's length.  As in the reference, a
 slot with a shorter prompt attends over the zero cache rows between its
@@ -11,6 +13,7 @@ the start.  Every attention goes through the flash-attention kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --max-seq 256 \
         --gen 64 --mode npe-8bit
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --mode npe-8bit
 
 prints the prefill ms per slot, the ms per decode step and tokens/s on the
 card, with the card's name and power limit.
@@ -65,13 +68,16 @@ class ServeStats:
 
 
 class Server:
-    """Decode-slot server for BERT in one mode (float, NPE-8 or NPE-16).
+    """Decode-slot server for a ported decoder (`arch`: BERT's causal decode
+    step, or a dense or vlm transformer such as glm4_9b) in one mode (float,
+    NPE-8 or NPE-16).
 
     `model` shares weights between servers; without it the server draws
-    random weights from `seed` on its device.  Full width unless `smoke`."""
+    random weights from `seed` on its device (`registry.build_model`).  Full
+    width and depth unless `smoke`."""
 
     def __init__(self, arch: str = "bert_base", batch: int = 4, max_seq: int = 128,
-                 mode: str = "float", device="cuda", model: Optional[Bert] = None,
+                 mode: str = "float", device="cuda", model: Optional[torch.nn.Module] = None,
                  seed: int = 0, smoke: bool = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -86,7 +92,7 @@ class Server:
         self.batch, self.max_seq, self.device = batch, max_seq, device
         if model is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            model = Bert(cfg, device=device).init(gen)
+            model = registry.build_model(cfg, device=device, generator=gen)
         self.model = model
         self.decode = build_decode_step(self.cfg)
         self.cache = registry.init_cache(self.cfg, batch, max_seq, device)
@@ -264,7 +270,9 @@ def run_npec(args) -> Dict[str, float]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="bert_base")
+    ap.add_argument("--arch", default="bert_base",
+                    help="a ported decoder: bert_base, glm4_9b, command_r_plus_104b, "
+                         "qwen2_vl_7b (--backend npec: bert_base only)")
     ap.add_argument("--backend", choices=("torch", "npec"), default="torch",
                     help="torch: Server.generate, the model's own decode step; "
                          "npec: compiled overlay streams (NPEEngine / NPEFleet)")
@@ -275,7 +283,7 @@ def main(argv=None):
                     help="tokens generated a request (default 64; --backend npec 16)")
     ap.add_argument("--mode", default="npe-8bit", choices=sorted(MODES))
     ap.add_argument("--seed", type=int, default=0,
-                    help="weights: the port's own models/bert initialisation at "
+                    help="weights: the port's own initialisation of the model at "
                          "this seed (the card has no JAX, so never the "
                          "reference's registry.init_params)")
     npec = ap.add_argument_group("--backend npec")

@@ -21,21 +21,11 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models.common import Norm
+from repro_torch.models.common import param as _param
 
 LN_EPS = 1e-12
 KV = Tuple[torch.Tensor, torch.Tensor]
-
-
-class Norm(nn.Module):
-    def __init__(self, dim: int, bias: bool, **kw):
-        super().__init__()
-        self.gamma = nn.Parameter(torch.ones(dim, **kw), requires_grad=False)
-        if bias:
-            self.beta = nn.Parameter(torch.zeros(dim, **kw), requires_grad=False)
-
-
-def _param(*shape, **kw) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape, **kw), requires_grad=False)
 
 
 class BertLayer(nn.Module):
@@ -122,6 +112,9 @@ class Bert(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return apply(self.cfg, self, tokens)
+
+
+Model = Bert
 
 
 def _embed(cfg: ModelConfig, model: Bert, tokens: torch.Tensor,

@@ -1,22 +1,41 @@
-"""Shared model pieces BERT uses (counterpart of `repro/models/common.py`).
+"""Shared model pieces (counterpart of `repro/models/common.py`): weights,
+norms, projections, activations, RoPE and M-RoPE, attention, KV caches.
 
 In NPE mode the 8-bit projections go through the MMU kernel, and the
-softmax, the layernorms and GELU through the NVU kernels (kernels/ops.py);
-on the CPU those wrappers run their plain versions.  The 16-bit MMU is
-fake-quantization with a float32 product, outside any kernel, as in the
-reference.  Attention over the KV cache goes through the flash-attention
-kernel's dense mode in every mode.
+softmax, the norms and the activations through the NVU kernels
+(kernels/ops.py); on the CPU those wrappers run their plain versions.  The
+16-bit MMU is fake-quantization with a float32 product, outside any kernel,
+as in the reference.  Causal attention, over a KV cache or over the
+sequence itself, goes through the flash-attention kernel's dense mode in
+every mode.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import nvu
 from repro_torch.core.quant import dense_maybe_quant
 from repro_torch.kernels import ops
+
+
+def param(*shape, **kw) -> nn.Parameter:
+    """A zeroed weight that takes no gradient (the port serves, it does not train)."""
+    return nn.Parameter(torch.zeros(*shape, **kw), requires_grad=False)
+
+
+class Norm(nn.Module):
+    """A norm's weights: `gamma`, and `beta` with a bias."""
+
+    def __init__(self, dim: int, bias: bool, **kw):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim, **kw), requires_grad=False)
+        if bias:
+            self.beta = nn.Parameter(torch.zeros(dim, **kw), requires_grad=False)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -34,12 +53,22 @@ def layernorm_exact(x, gamma, beta=None, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def rmsnorm_exact(x, gamma, eps: float = 1e-6):
+    """Float-mode RMSNorm: a bf16 x times the f32 1/sqrt promotes to f32, as
+    in the reference, and the result is cast back to x's dtype."""
+    ms = torch.square(x.to(torch.float32)).mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps) * gamma).to(x.dtype)
+
+
 def norm(cfg: ModelConfig, x, gamma, beta=None, eps: float = 1e-6):
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    seg = cfg.npe_pwl_segments
+    if cfg.norm == "layernorm":
+        if cfg.npe_pwl:
+            return ops.layernorm(x, gamma, beta, eps=eps, segments=seg)
+        return layernorm_exact(x, gamma, beta, eps)
     if cfg.npe_pwl:
-        return ops.layernorm(x, gamma, beta, eps=eps, segments=cfg.npe_pwl_segments)
-    return layernorm_exact(x, gamma, beta, eps)
+        return ops.rmsnorm(x, gamma, eps=eps, segments=seg)
+    return rmsnorm_exact(x, gamma, eps)
 
 
 def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
@@ -66,6 +95,42 @@ def activation_fn(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.npe_pwl:
         return ops.pwl_activation(x, cfg.activation, cfg.npe_pwl_segments)
     return nvu.activation(cfg.activation, False)(x)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x (B, S, H, D) by the f32 angles (B, S, D/2)."""
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) integers."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions3 (B, S, 3) holds (t, h, w) ids; the D/2
+    frequency slots are split into three sections, each rotated by its own
+    position stream."""
+    d2 = x.shape[-1] // 2
+    sec = np.asarray(sections)
+    sec = (sec * d2 / sec.sum()).astype(int)
+    sec[-1] = d2 - sec[:-1].sum()
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    parts, start = [], 0
+    for i, n in enumerate(sec):
+        parts.append(positions3[..., i, None].to(torch.float32) * freqs[start:start + n])
+        start += n
+    return _rotate(x, torch.cat(parts, -1))
 
 
 def attention_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -102,7 +167,10 @@ def attention_over_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tenso
     rounded to the cache's dtype before P.V.  The flash kernel's dense mode
     reads the cache in place through permuted views and never reads keys at
     or past pos + S; PWL exp and reciprocal when cfg.npe_pwl.  The result is
-    (B, S, Hq, D) in the cache's dtype, as the reference's P.V gives it."""
+    (B, S, Hq, D) in the cache's dtype, as the reference's P.V gives it.
+    With pos = 0 and the sequence's own k and v as the "cache", this is
+    causal self-attention (the reference's `attention_auto` for full
+    layers); on the card the dense mode takes bf16 k and v only."""
     out = ops.dense_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
                               cache_v.permute(0, 2, 1, 3), kv_len=pos + q.shape[1],
                               use_pwl=cfg.npe_pwl, segments=cfg.npe_pwl_segments,

@@ -1,5 +1,6 @@
 """Weights from the reference's parameter tree (counterpart of the tree that
-`repro.models.registry.init_params` builds for BERT).
+`repro.models.registry.init_params` builds for BERT and for the dense and
+vlm decoders).
 
 The tree arrives as nested dicts of numpy arrays, with each block weight
 stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
@@ -22,10 +23,33 @@ _ATTN = ("wq", "bq", "wk", "bk", "wv", "bv", "wo")
 _MLP = ("w1", "b1", "w2", "b2")
 
 
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def _flat(prefix: str, node, state: Dict[str, torch.Tensor], index=None) -> None:
+    """state[prefix + dotted path] = each leaf of `node` (its row `index`)."""
+    for k, v in node.items():
+        if isinstance(v, dict):
+            _flat(f"{prefix}{k}.", v, state, index)
+        else:
+            state[prefix + k] = _tensor(v if index is None else v[index])
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A state dict for `Bert(cfg)`: float32 tensors, the layer axis unstacked.
-    `Bert.load_state_dict` casts them to the model's dtype."""
-    t = lambda a: torch.from_numpy(np.array(a, np.float32, copy=True))
+    """A state dict for the port's model of `cfg` (`Bert` or `Transformer`):
+    float32 tensors, the layer axis unstacked.  `load_state_dict` casts them
+    to the model's dtype.  A decoder's tree maps path for path: `embed`,
+    `lm_head` (absent with a tied embedding), `ln_f.gamma`, and
+    `blocks.<path>[i]` to `layers.<i>.<path>` (`wq`, `bq`, `q_norm`,
+    `ln1.gamma`, `mlp.wg`, ...)."""
+    if cfg.family != "bert":
+        state: Dict[str, torch.Tensor] = {}
+        _flat("", {k: v for k, v in tree.items() if k != "blocks"}, state)
+        for i in range(cfg.num_layers):
+            _flat(f"layers.{i}.", tree["blocks"], state, i)
+        return state
+    t = _tensor
     state = {
         "embed": t(tree["embed"]),
         "pos_embed": t(tree["pos_embed"]),

@@ -1,14 +1,20 @@
 """Model family registry (counterpart of `repro/models/registry.py`).
 
-The port carries one family so far, BERT; every other family of the
-reference raises until it is ported.
+The port carries BERT and the full-attention decoders of the dense and vlm
+families (models/transformer.py); every other family of the reference
+raises until it is ported.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.config import ModelConfig
 from repro_torch.models import bert as bert_mod
+from repro_torch.models import transformer as tf
 
-_FAMILIES = {"bert": bert_mod}
+_FAMILIES = {"bert": bert_mod, "dense": tf, "vlm": tf}
 
 
 def module_for(cfg: ModelConfig):
@@ -17,6 +23,23 @@ def module_for(cfg: ModelConfig):
     except KeyError:
         raise ValueError(f"family {cfg.family!r} is not ported; have "
                          f"{sorted(_FAMILIES)}") from None
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: Optional[torch.Generator] = None, dtype=None):
+    """The family's model of `cfg` on `device` (weights in cfg.dtype unless
+    `dtype`), with random weights drawn from `generator` when one is given."""
+    model = module_for(cfg).Model(cfg, device=device, dtype=dtype)
+    return model if generator is None else model.init(generator)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of the port's model, counted on the meta device (no memory)."""
+    return sum(p.numel() for p in build_model(cfg, device="meta").parameters())
+
+
+def apply(cfg: ModelConfig, model, tokens, **kw):
+    return module_for(cfg).apply(cfg, model, tokens, **kw)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):

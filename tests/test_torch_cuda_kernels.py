@@ -14,7 +14,7 @@ the tiling or the split of K.
 import pytest
 import torch
 
-from repro_torch.core.pwl import get_table
+from repro_torch.core.pwl import _FUNCS, get_table
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import LAUNCHES, ops
 from repro_torch.kernels import flash_attention as fa
@@ -110,6 +110,21 @@ def test_pwl_eval_is_the_walk_bit_for_bit(dev, n, offset, dtype, fn):
     before = LAUNCHES["pwl_eval"]
     got = pe.pwl_eval(x, fn)
     _launched("pwl_eval", before)
+    want = pe.pwl_eval_walk(x, pe.device_table(fn, 16, dev)).to(dtype)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", sorted(_FUNCS))
+def test_pwl_eval_every_table_is_the_walk(dev, dtype, fn):
+    """Every table of the reference's `_FUNCS` (GLM4-9B's SiLU among them)
+    through the prefix search, at (8, 13696): the walk's bits."""
+    if fn in ("recip", "rsqrt", "sqrt"):
+        x = 0.25 + 0.75 * torch.rand(8, 13696, generator=_gen(dev), device=dev)
+    else:
+        x = torch.randn(8, 13696, generator=_gen(dev), device=dev) * 8
+    x = x.to(dtype)
+    got = pe.pwl_eval(x, fn)
     want = pe.pwl_eval_walk(x, pe.device_table(fn, 16, dev)).to(dtype)
     assert torch.equal(_bits(got), _bits(want))
 
@@ -458,6 +473,8 @@ DENSE_CASES = [
     (1, 12, 12, 300, 320, 64, 300),     # prefill crossing 256
     (1, 4, 2, 37, 2100, 128, 2100),     # 37 rows over three segments, D=128
     (2, 4, 2, 20, 96, 32, 90),          # D=32, ragged
+    (8, 32, 2, 1, 256, 128, 256),       # GLM4-9B decode step: 16 rows a kv head, D=128
+    (1, 32, 2, 128, 256, 128, 128),     # GLM4-9B 128-token prefill
 ]
 
 

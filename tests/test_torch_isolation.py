@@ -50,5 +50,7 @@ def test_port_imports_neither_jax_nor_repro():
     names = set(lines["names"].split())
     for new in ("kernels.flash_attention", "models.registry", "launch.steps", "launch.serve",
                 "npec.exec", "npec.trace", "npec.lower", "core.overlay",
-                "core.cycles", "npec.runtime.engine", "npec.fleet.sim", "npec.obs.tracer"):
+                "core.cycles", "npec.runtime.engine", "npec.fleet.sim", "npec.obs.tracer",
+                "core.fixedpoint", "models.transformer", "configs.glm4_9b",
+                "configs.command_r_plus_104b", "configs.qwen2_vl_7b"):
         assert "repro_torch." + new in names

@@ -7,7 +7,8 @@ the deltas once, in order, into prefix rows P_slope / P_icept
 by binary lifting over the knots padded with NaN, and evaluates
 P_slope[seg] * x + P_icept[seg].  Because the knots ascend, the two agree
 bit for bit; this file checks that in numpy float32, step for step as the
-kernel computes it, over every table the port builds at 16 segments, and
+kernel computes it, over every table of `_FUNCS` at 16 segments (the four
+BERT runs, SiLU of the dense decoders, and the rest), and
 checks `pwl_eval_walk` (the walk in torch ops, which the card's results are
 held to) against it.
 """
@@ -15,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.pwl import get_table
+from repro_torch.core.pwl import _FUNCS, get_table
 from repro_torch.kernels.pwl_eval import pack_table, pwl_eval_plain, pwl_eval_walk
 
-NAMES = ["gelu", "exp", "recip", "rsqrt"]
+NAMES = sorted(_FUNCS)
+MANTISSA = ("recip", "rsqrt", "sqrt")      # evaluated on mantissas in [0.25, 1)
 PREFIX_KNOTS = 128   # NPE_PREFIX_KNOTS in csrc/pwl.cuh
 GUARD = np.float32(65536.0)
 
@@ -154,7 +156,7 @@ def test_torch_walk_computes_the_function(name):
     packed = _packed(name)
     rng = np.random.default_rng(4)
     x = torch.from_numpy((rng.standard_normal(4096) * 4).astype(np.float32))
-    if name in ("recip", "rsqrt"):
+    if name in MANTISSA:
         x = torch.from_numpy(rng.uniform(0.25, 1.0, 4096).astype(np.float32))
     got = pwl_eval_walk(x, torch.from_numpy(packed))
     want = pwl_eval_plain(x[None], get_table(name, 16))[0]

@@ -14,6 +14,11 @@ choice whose top two logits are one bf16 ulp apart can go either way.
 
 The reference's `generate` returns only its statistics, so the test records
 the tokens its jitted decode step returns.
+
+A glm4_9b smoke case (a dense decoder: GQA, RMSNorm, SwiGLU, RoPE) serves
+the same way in float; NPE-8 is held to the reference op by op in
+tests/test_torch_transformer.py, since the compiled reference can move an
+int8 activation by one rounding.
 """
 import dataclasses
 
@@ -30,7 +35,7 @@ from repro_torch.data.pipeline import SyntheticRequests
 from repro_torch.kernels import KERNELS, LAUNCHES, build, reset_launches
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Server, ServeStats
-from repro_torch.models.bert import Bert
+from repro_torch.models import registry
 from repro_torch.models.convert import params_from_jax
 
 BATCH, MAX_SEQ, GEN = 3, 48, 6
@@ -41,10 +46,10 @@ def _prompts(vocab):
     return [reqs.request(i) for i in range(BATCH)]
 
 
-def _model(params):
-    """The port's BERT on the reference server's weights, in float32."""
-    cfg = dataclasses.replace(get_config("bert_base", smoke=True), dtype="float32")
-    model = Bert(cfg, device="cpu")
+def _model(params, arch="bert_base"):
+    """The port's model of `arch` on the reference server's weights, in float32."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model = registry.build_model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(params, cfg))
     return model
 
@@ -57,9 +62,9 @@ def ref_float32(monkeypatch):
         build_cfg(arch, smoke=smoke), dtype="float32"))
 
 
-def _ref_generate(npe: bool):
+def _ref_generate(npe: bool, arch: str = "bert_base"):
     """The reference server's tokens (B, GEN), its params and its cache."""
-    ref = RefServer("bert_base", smoke=True, batch=BATCH, max_seq=MAX_SEQ, npe=npe)
+    ref = RefServer(arch, smoke=True, batch=BATCH, max_seq=MAX_SEQ, npe=npe)
     step, out = ref.decode, []
 
     def recording(*a):
@@ -95,6 +100,18 @@ def test_generate_matches_reference_server(ref_float32, mode, npe):
     k = srv.cache["full"]["k"]
     assert not k[:, 1, 10:15].any() and bool(k[:, 1, 15].any())
     assert not np.asarray(ref_cache["full"]["k"][:, 1, 10:15], np.float32).any()
+
+
+def test_generate_matches_reference_server_glm4(ref_float32):
+    want, params, ref_cache = _ref_generate(False, "glm4_9b")
+    srv = Server("glm4_9b", batch=BATCH, max_seq=MAX_SEQ, mode="float", device="cpu",
+                 smoke=True, model=_model(params, "glm4_9b"))
+    stats = srv.generate(_prompts(srv.cfg.vocab_size), gen_tokens=GEN)
+    np.testing.assert_array_equal(stats.generated, want)
+    k = srv.cache["full"]["k"]
+    assert k.shape == (2, BATCH, MAX_SEQ, 2, 32)
+    np.testing.assert_array_equal(k[:, :, :15].float().numpy() != 0,
+                                  np.asarray(ref_cache["full"]["k"][:, :, :15], np.float32) != 0)
 
 
 def test_prefill_writes_only_its_slot():
