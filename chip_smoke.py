@@ -23,7 +23,12 @@
    `pwl_eval` SiLU (8, 13696) and every other table at (8, 3072), bit for
    bit against the walk, and `quant_matmul` at a step's q/o, k/v, gate/up,
    down and head products and at the longest prompt's (120 rows) gate/up,
-   down and head products; beside
+   down and head products; the dense mode's window, causal switch and soft
+   cap at Gemma3-27B's shapes (a step over a 1024-row ring with every row
+   valid and with 300, a 2048-token prefill with window 1024, a step
+   soft-capped at 50) and StarCoder2-3B's (a 12:1 step over a 4096-row
+   ring), PWL and exact, `scaled_dot_product_attention` with the same mask
+   beside the exact rows without a cap; beside
    `pwl_eval`, `nvu_softmax` and `nvu_layernorm` a yardstick of the same
    bytes with exact math, not the same function (`F.gelu`,
    `torch.softmax`, `F.layer_norm`), and beside `nvu_softmax` a copy of its
@@ -95,10 +100,30 @@
    prints teacher-forced top-1 agreement with float (not
    gated); and holds the kernel route (float32, 2 layers, full width,
    prefill plus 4 steps) against the port's plain route on the CPU;
-9. prints the kernel list, one JSON line of per-kernel numbers (launches on
-   the encoder, decode, npec, engine and GLM4 paths; the npec instances of
-   quant_matmul and nvu_softmax), the card, and last
-   `{"ok": true, "device": {...}}`.
+9. serves full-width, 62-layer Gemma3-27B (bf16, 27.0 B parameters; 52
+   local layers over 1024-row rings, 10 global) through `launch.serve.Server`:
+   8 slots, prompts of 7 to 16 tokens prefilled one token a call, 8 greedy
+   tokens, in float and NPE-8, NPE-16 for one step and one prefill; checks
+   the launches of a step, a prefill and the served run exactly (NPE-8 435
+   quant_matmul, 249 nvu_layernorm, 62 pwl_eval, 62 flash_attention a
+   step); holds every launch of one NPE-8 step to its plain version;
+   profiles one; runs one slot in float to position 1040, past the ring's
+   wrap, through the first 6 layers (one local:global period), and holds
+   that step's launches to their plain versions and to the count before
+   the wrap; and holds the kernel route (2 layers, one
+   local and one global, window 64, float32, float) against the CPU;
+10. serves full-width, 24-layer Granite-3.0-1B-A400M (32 experts, top-8)
+   through `Server`: [5]'s prompts in one prefill each, 16 tokens, in
+   float, NPE-8 and NPE-16; launches checked exactly (NPE-8 97 quant_matmul,
+   49 nvu_layernorm, 24 pwl_eval, 24 nvu_softmax, 24 flash_attention); every
+   launch of one NPE-8 step and of the 8 NPE-8 prefills held to its plain
+   version, with the token-slots capacity dropped in each prefill; one step
+   profiled; teacher-forced agreement with float (not gated); the route
+   check at 2 layers in every mode;
+11. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode, npec, engine, GLM4, Gemma3 and Granite paths; the
+   npec instances of quant_matmul and nvu_softmax; the rows at each model's
+   shapes), the card, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before the last line.  Details go to
 `chiprun_out/chip_smoke.json`.
@@ -106,6 +131,7 @@ Any failure exits non-zero before the last line.  Details go to
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -135,6 +161,7 @@ from repro_torch.core.pwl import _FUNCS, get_table  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
 from repro_torch.models import bert, registry  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import common as cm_mod  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
 from repro_torch.models.convert import param_tree_from_model  # noqa: E402
@@ -182,6 +209,40 @@ GLM4_LAUNCHES = {
 # (K, N) of a GLM4-9B decode step's products: q/o, k/v, gate/up, down, head
 GLM4_PRODUCTS = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096), (4096, 151552)]
 GLM4_PREFILL_ROWS = 120     # the longest of [5]'s prompts: M of the tiled instance
+# Gemma3-27B decode serving: 8 slots, prompts of up to 16 tokens prefilled one
+# token a call (the ring), 8 steps, 32 rows (rings of min(1024, 32)); the
+# wrap: one slot to position 1040 over a 1048-row cache (1024-row rings),
+# through the first 6 layers (one local:global period: 5 local, 1 global),
+# since 1040 one-token steps of all 62 take about 90 s of host launches
+GEMMA3_MAX_PROMPT, GEMMA3_GEN, GEMMA3_MAX_SEQ = 16, 8, 32
+GEMMA3_WRAP_POS, GEMMA3_WRAP_SEQ, GEMMA3_WRAP_LAYERS = 1040, 1048, 6
+# launches of one Gemma3-27B decode step (a prefill: one such step a prompt
+# token): 62 layers of q/k/v/o/gate/up/down and the tied head; two RMSNorms
+# and the q and k norms a layer and the final one; the GELU of each gate;
+# one dense attention a layer (52 over a ring, 10 global)
+GEMMA3_LAUNCHES = {
+    "npe-8bit": {"quant_matmul": 435, "nvu_layernorm": 249, "pwl_eval": 62,
+                 "flash_attention": 62, "nvu_softmax": 0},
+    "npe-16bit": {"quant_matmul": 0, "nvu_layernorm": 249, "pwl_eval": 62,
+                  "flash_attention": 62, "nvu_softmax": 0},
+    "float": {"quant_matmul": 0, "nvu_layernorm": 0, "pwl_eval": 0,
+              "flash_attention": 62, "nvu_softmax": 0},
+}
+# Granite-3.0-1B-A400M decode serving: [5]'s 8 prompts (33 to 120 tokens, one
+# multi-token prefill each), 16 steps, 256 rows
+GRANITE_GEN = 16
+# launches of one Granite step, and of one one-slot prefill: 24 layers of
+# q/k/v/o and the tied head (the expert products are plain products, as in the
+# reference); two RMSNorms a layer and the final one; the SiLU of the
+# experts' gates and the router's softmax a layer; one dense attention a layer
+GRANITE_LAUNCHES = {
+    "npe-8bit": {"quant_matmul": 97, "nvu_layernorm": 49, "pwl_eval": 24,
+                 "flash_attention": 24, "nvu_softmax": 24},
+    "npe-16bit": {"quant_matmul": 0, "nvu_layernorm": 49, "pwl_eval": 24,
+                  "flash_attention": 24, "nvu_softmax": 24},
+    "float": {"quant_matmul": 0, "nvu_layernorm": 0, "pwl_eval": 0,
+              "flash_attention": 24, "nvu_softmax": 0},
+}
 REPLACES = {
     "pwl_eval": "src/repro/kernels/pwl_eval.py:79",
     "quant_matmul": "src/repro/kernels/quant_matmul.py:73",
@@ -591,6 +652,7 @@ def kernel_rows(dev, floor_ms):
     dense_rows(dev, g, row)
     glm4_kernel_rows(dev, g, row)
     npec_kernel_rows(dev, floor_ms, rows)
+    mask_rows(dev, row)
     return rows
 
 
@@ -661,18 +723,6 @@ def visible_pairs(sq: int, kv_len: int, causal: bool, window: int) -> int:
     return n
 
 
-def end_aligned_mask(sq, kv_len, causal, window, dev):
-    """The same mask as a (Sq, kv_len) bool for scaled_dot_product_attention."""
-    p = torch.arange(sq, device=dev)[:, None] + (kv_len - sq)
-    c = torch.arange(kv_len, device=dev)[None, :]
-    m = torch.ones(sq, kv_len, dtype=torch.bool, device=dev)
-    if causal:
-        m &= c <= p
-    if window > 0:
-        m &= c > p - window
-    return m
-
-
 # flash rows: (name, b, hq, hkv, sq, skv, kv_len, causal, window, block_q,
 # block_kv, PWL settings); operands bf16, as the decode path hands them over
 FLASH_ROWS = [
@@ -700,7 +750,7 @@ def flash_rows(dev, g, row):
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         pairs = b * hq * visible_pairs(sq, kv_len, causal, window)
         nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
-        mask = end_aligned_mask(sq, kv_len, causal, window, dev)
+        mask = fa_mod.dense_mask(sq, kv_len, causal, window, dev)
         kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
         for use_pwl in pwls:
             kw = dict(causal=causal, window=window, use_pwl=use_pwl, block_q=bq,
@@ -754,7 +804,7 @@ def dense_rows(dev, g, row):
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         pairs = b * hq * visible_pairs(sq, kv_len, True, 0)
         nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
-        mask = end_aligned_mask(sq, kv_len, True, 0, dev)
+        mask = fa_mod.dense_mask(sq, kv_len, True, 0, dev)
         kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
         for use_pwl in (True, False):
             kw = dict(kv_len=kv_len, use_pwl=use_pwl, out_dtype=torch.bfloat16)
@@ -773,6 +823,63 @@ def dense_rows(dev, g, row):
                     nbytes, [(pairs * 4 * d, BF16_OPS_PER_S), (pairs * (exp_ops + 5), F32_OPS_PER_S)],
                     library_fn=lib, library_name="scaled_dot_product_attention", cold=cold,
                     check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell)
+
+
+# dense rows of the windowed and MoE slice: (name, b, hq, hkv, sq, skv, kv_len,
+# d, cell, causal, window, softcap): Gemma3-27B's 1024-row ring with every row
+# valid and with 300 before the wrap (causality off over kv_len keys), its
+# windowed 2048-token prefill, a soft-capped step (the cap no config sets),
+# and StarCoder2-3B's 12:1 ring of 4096 rows
+MASK_ROWS = [
+    ("ring decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", False, 0, 0.0),
+    ("ring decode", 8, 32, 16, 1, 1024, 300, 128, "gemma3", False, 0, 0.0),
+    ("windowed prefill", 1, 32, 16, 2048, 2048, 2048, 128, "gemma3", True, 1024, 0.0),
+    ("soft-capped decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", True, 0, 50.0),
+    ("ring decode", 8, 24, 2, 1, 4096, 4096, 128, "starcoder2", False, 0, 0.0),
+]
+
+
+def mask_rows(dev, row):
+    """The dense mode's window, causal switch and soft cap (MASK_ROWS), PWL
+    and exact, each held to `dense_attention_plain` on the same inputs with
+    the dense gate; bytes and operations as for `dense_rows` over the keys
+    the mask lets through, plus the soft cap's divide, tanh (PWL: the
+    prefix search) and multiply a score.  The library call is
+    `scaled_dot_product_attention` with the same mask, beside the exact
+    rows without a cap (it has no soft cap).  A generator of its own keeps
+    the other rows' inputs as they were."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name, b, hq, hkv, sq, skv, kv_len, d, cell, causal, window, cap in MASK_ROWS:
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        if cap:
+            q = q * 8                       # scores past the cap's knee
+        pairs = b * hq * visible_pairs(sq, kv_len, causal, window)
+        nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
+        mask = fa_mod.dense_mask(sq, kv_len, causal, window, dev)
+        kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        for use_pwl in (True, False):
+            kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=cap,
+                      use_pwl=use_pwl, out_dtype=torch.bfloat16)
+            exp_ops = pwl_prefix_ops("exp") + 2 if use_pwl else 1
+            cap_ops = 0 if not cap else (pwl_prefix_ops("tanh") + 2 if use_pwl else 1) + 2
+            lib = None
+            if not use_pwl and not cap:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, kk, vv, attn_mask=mask, enable_gqa=hq != hkv)
+            row("flash_attention",
+                f"{name} ({b}, {heads(hq, hkv)}, {sq}, {d}) kv {kv_len}/{skv}"
+                + ("" if causal else " causal off") + (f" window {window}" if window else "")
+                + (f" cap {cap:g}" if cap else "") + (" pwl" if use_pwl else ""),
+                torch.bfloat16,
+                lambda: fa_mod.dense_attention(q, k, v, **kw),
+                lambda: fa_mod.dense_attention_plain(q, k, v, **kw),
+                nbytes, [(pairs * 4 * d, BF16_OPS_PER_S),
+                         (pairs * (exp_ops + 5 + cap_ops), F32_OPS_PER_S)],
+                library_fn=lib, library_name="scaled_dot_product_attention",
+                check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell)
 
 
 # --- phase 4: full-width BERT-base ------------------------------------------
@@ -1159,15 +1266,21 @@ def decode_phase(dev, card, results):
 
 
 def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
-                       long_run=True):
+                       long_run=True, modes=("float", "npe-16bit", "npe-8bit"),
+                       over=None, prompt_lens=None, max_seq=MAX_SEQ, routed=False):
     """The decode path's kernel route on the card against the port's plain
-    route on the CPU: `arch` at full width cut to 2 layers, float32 weights,
-    bf16 cache, the slots prefilled alone, then 4 steps fed the same tokens.
-    Two runs: prompts of up to 128 tokens over a 256-row cache, and (with
-    `long_run`) prompts of 1100 and 300 tokens over an 1152-row cache (past
-    one 256-key block, and past the 1024 keys one pass of the dense mode
-    holds)."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+    route on the CPU: `arch` at full width cut to 2 layers (and `over`),
+    float32 weights, bf16 cache, the slots prefilled alone (one token a call
+    where the cache has window rings), then 4 steps fed the same tokens, in
+    `modes`.  Two runs: prompts of up to 128 tokens (or of `prompt_lens`)
+    over a `max_seq`-row cache, and (with `long_run`) prompts of 1100 and
+    300 tokens over an 1152-row cache (past one 256-key block, and past the
+    1024 keys one pass of the dense mode holds).  `routed`: an MoE
+    decoder, whose top-k routing is discrete, so that an ulp can send a
+    token to another expert; its top-1 agreement is held, in every mode, to
+    twice the plain route's own disagreement under 1-ulp weights plus
+    TOP1_MARGIN (a float32 GLM4 or BERT is held to 0.99)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32", **(over or {}))
     cpu_model = registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     card_model = registry.build_model(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
@@ -1175,7 +1288,9 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
     rng = np.random.default_rng(3)
     long_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1100, 300)]
     feed = rng.integers(0, cfg.vocab_size, (2, 4))
-    runs = {"short": (decode_prompts(cfg.vocab_size, seed=2, n=2), MAX_SEQ)}
+    short = (decode_prompts(cfg.vocab_size, seed=2, n=2) if prompt_lens is None
+             else [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens])
+    runs = {"short": (short, max_seq)}
     if long_run:
         runs["long"] = (long_prompts, 1152)
 
@@ -1184,9 +1299,13 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
         cache = registry.init_cache(c, 2, max_seq, device)
         logits = []
         for slot, p in enumerate(prompts):
-            sub = {"full": {k: t[:, slot:slot + 1] for k, t in cache["full"].items()}}
+            sub = {g: {k: t[:, slot:slot + 1] for k, t in kv.items()} for g, kv in cache.items()}
             toks = torch.as_tensor(p, device=device).long()[None]
-            logits.append(registry.decode_step(c, model, sub, toks, 0)[0][0])
+            if "win" in cache:                  # a ring takes one token a call
+                for t in range(toks.shape[1]):
+                    logits.append(registry.decode_step(c, model, sub, toks[:, t:t + 1], t)[0][0])
+            else:
+                logits.append(registry.decode_step(c, model, sub, toks, 0)[0][0])
         cur = torch.tensor([[int(p[-1])] for p in prompts], device=device)
         for i in range(feed.shape[1]):
             lg, cache = registry.decode_step(c, model, cache, cur, start + i)
@@ -1196,7 +1315,7 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
 
     out = {}
     for name, (prompts, max_seq) in runs.items():
-        for mode in ("float", "npe-16bit", "npe-8bit"):
+        for mode in modes:
             c = MODES[mode](cfg)
             args = (prompts, max_seq)
             want, got = run(c, cpu_model, "cpu", *args), run(c, card_model, dev, *args)
@@ -1207,6 +1326,8 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
             noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
             gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
             gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if mode == "npe-8bit" else 0.99
+            if routed:
+                gate_top1 = 1 - NOISE_FACTOR * (1 - noise_top1) - TOP1_MARGIN
             ok = err <= gate and top1 >= gate_top1 and bool(torch.isfinite(got).all())
             out[f"{name} {mode}"] = dict(max_abs=err, top1=top1, gate=gate, gate_top1=gate_top1,
                                          noise_max_abs=noise, noise_top1=noise_top1, ok=ok,
@@ -1866,6 +1987,38 @@ def engine_phase(dev, base, tree, results):
 
 # --- phase 8: GLM4-9B decode serving --------------------------------------
 
+def audit_call(fn, what, expected=None):
+    """Run fn with every kernel launch held to its plain version; raise on a
+    disagreement or, with `expected`, on other launch counts."""
+    with Audit() as audit:
+        fn()
+        torch.cuda.synchronize()
+    stats = {k: dict(launches=n, max_abs_err=e, ok=ok) for k, (n, e, ok) in audit.stats.items()}
+    say(f"  {what}, every launch vs its plain version on its operands: " +
+        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+                  for k, (n, e, ok) in audit.stats.items()))
+    if any(not ok for _, _, ok in audit.stats.values()):
+        raise SystemExit(f"{what}: a launch disagrees with its plain version")
+    if expected is not None and {k: audit.stats[k][0] for k in KERNELS} != expected:
+        raise SystemExit(f"{what}: launches differ from {expected}")
+    return stats
+
+
+def check_logits(logits, shape, what):
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits.float()).all()):
+        raise SystemExit(f"{what}: logits of shape {tuple(logits.shape)} or not finite")
+
+
+def say_profile_step(what, prof):
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+    say(f"  one {what}: {prof['host_ms']:.3f} ms host clock (median of the served run), "
+        f"{prof['device_busy_ms']:.3f} ms device busy (torch.profiler), idle share {idle}; "
+        f"{prof['kernels']} kernels by name, device ms by kernel:")
+    for name, ms in prof["top"]:
+        say(f"      {ms:8.4f}  {name}")
+
+
+
 def glm4_phase(dev, card, results):
     """Full-width, 40-layer GLM4-9B in bf16 through `launch.serve.Server`,
     random weights from a torch generator: (a) 8 slots, [5]'s prompts, 16
@@ -1905,10 +2058,7 @@ def glm4_phase(dev, card, results):
         cur = torch.as_tensor(toks[:, -1:], device=dev)
         step, (logits, _) = counted(lambda: registry.decode_step(
             srv.cfg, srv.model, srv.cache, cur, start + GLM4_GEN))
-        if logits.shape != (SLOTS, 1, cfg.vocab_size) or not bool(
-                torch.isfinite(logits.float()).all()):
-            raise SystemExit(f"glm4 {mode}: step logits of shape {tuple(logits.shape)} "
-                             "or not finite")
+        check_logits(logits, (SLOTS, 1, cfg.vocab_size), f"glm4 {mode} step")
         prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
         out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts,
                          step_launches=step, prefill_launches=prefill, step_ms=stats.step_ms)
@@ -1929,42 +2079,18 @@ def glm4_phase(dev, card, results):
     npe8 = servers["npe-8bit"]
     cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
     pos = start + GLM4_GEN
-    with Audit() as audit:
-        registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, pos)
-        torch.cuda.synchronize()
-    results["glm4_audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
-                             for k, (n, e, ok) in audit.stats.items()}
-    say(f"  {since()} one NPE-8 GLM4 decode step, every launch vs its plain version on its "
-        "operands: " +
-        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
-                  for k, (n, e, ok) in audit.stats.items()))
-    if any(not ok for _, _, ok in audit.stats.values()) or \
-            {k: audit.stats[k][0] for k in KERNELS} != GLM4_LAUNCHES["npe-8bit"]:
-        raise SystemExit("a launch of the NPE-8 GLM4 decode step disagrees with its plain version")
-    with Audit() as audit:
-        for slot, p in enumerate(prompts):
-            npe8.prefill_prompt(slot, p)
-        torch.cuda.synchronize()
-    results["glm4_prefill_audit"] = {k: dict(launches=n, max_abs_err=e, ok=ok)
-                                     for k, (n, e, ok) in audit.stats.items()}
-    say(f"  {since()} the 8 one-slot NPE-8 GLM4 prefills ({min(map(len, prompts))} to "
-        f"{max(map(len, prompts))} rows), every launch vs its plain version on its operands: " +
-        ", ".join(f"{k} {n} launches max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
-                  for k, (n, e, ok) in audit.stats.items()))
-    if any(not ok for _, _, ok in audit.stats.values()) or \
-            {k: audit.stats[k][0] for k in KERNELS} != {
-                k: n * len(prompts) for k, n in GLM4_LAUNCHES["npe-8bit"].items()}:
-        raise SystemExit("a launch of an NPE-8 GLM4 prefill disagrees with its plain version")
-
+    results["glm4_audit"] = audit_call(
+        lambda: registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, pos),
+        f"{since()} one NPE-8 GLM4 decode step", GLM4_LAUNCHES["npe-8bit"])
+    results["glm4_prefill_audit"] = audit_call(
+        lambda: [npe8.prefill_prompt(slot, p) for slot, p in enumerate(prompts)],
+        f"{since()} the 8 one-slot NPE-8 GLM4 prefills ({min(map(len, prompts))} to "
+        f"{max(map(len, prompts))} rows)",
+        {k: n * len(prompts) for k, n in GLM4_LAUNCHES["npe-8bit"].items()})
     prof = results["glm4_profile"] = profile_call(
         lambda: registry.decode_step(npe8.cfg, npe8.model, npe8.cache, cur, pos),
         out["npe-8bit"]["decode_ms_per_step"])
-    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
-    say(f"  one NPE-8 GLM4 decode step: {prof['host_ms']:.3f} ms host clock (median of the "
-        f"served run), {prof['device_busy_ms']:.3f} ms device busy (torch.profiler), idle share "
-        f"{idle}; {prof['kernels']} kernels by name, device ms by kernel:")
-    for name, ms in prof["top"]:
-        say(f"      {ms:8.4f}  {name}")
+    say_profile_step("NPE-8 GLM4 decode step", prof)
     n_dev = results["glm4_device_launches"] = {
         mode: device_launches(lambda: registry.decode_step(srv.cfg, srv.model, srv.cache, cur, pos))
         for mode, srv in servers.items()}
@@ -1981,6 +2107,272 @@ def glm4_phase(dev, card, results):
     torch.cuda.empty_cache()
     say(f"  {since()} the route check:")
     decode_route_check(dev, results, "glm4_9b", key="glm4_route_check", long_run=False)
+    say(f"  {since()} done")
+
+
+# --- phase 9: Gemma3-27B: local:global attention over ring caches -----------
+
+def gemma3_phase(dev, card, results):
+    """Full-width Gemma3-27B (62 layers: 52 local over 1024-row rings, 10
+    global; bf16, 27.0 B parameters drawn from a torch generator) through
+    `launch.serve.Server`: (a) 8 slots, prompts of up to 16 tokens prefilled
+    one token a call, 8 greedy steps, in float and NPE-8; (b) the launches
+    of one step and of one prefill (a step a prompt token), and of the
+    served run, checked exactly; NPE-16 for one step and one prefill; (c)
+    every launch of one NPE-8 step held to its plain version; (d) one NPE-8
+    step profiled, the device launches of one step in each mode; (e) the
+    wrap: one slot in float to position 1040 over 1024-row rings through
+    the first 6 layers (one local:global period), the step there audited,
+    its launches those of a step before the wrap, its logits finite; (f)
+    the route check at 2 layers (one local, one global; window 64, so both
+    routes wrap the ring), float only: a CPU NPE call quantizes every
+    weight of the cut model, some 2.2 B values, for each of the run's 80
+    one-token calls."""
+    cfg = get_config("gemma3_27b")
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=GEMMA3_MAX_PROMPT, seed=1)
+    prompts = [reqs.request(i) for i in range(SLOTS)]
+    start = max(len(p) for p in prompts)
+    t0 = time.perf_counter()
+    since = lambda: f"({time.perf_counter() - t0:.1f} s into [9])"   # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = registry.build_model(cfg, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  gemma3_27b L={cfg.num_layers} (all; 52 local of window {cfg.window}, 10 global) "
+        f"D={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"V={cfg.vocab_size} tied {cfg.dtype}, {n_params:,} parameters "
+        f"({torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s); {SLOTS} slots, prompts of "
+        f"{[len(p) for p in prompts]} tokens one a call, {GEMMA3_GEN} steps from position "
+        f"{start}, cache of {GEMMA3_MAX_SEQ} rows")
+    out, servers = {}, {}
+    for mode in ("float", "npe-8bit"):
+        srv = servers[mode] = Server("gemma3_27b", batch=SLOTS, max_seq=GEMMA3_MAX_SEQ,
+                                     mode=mode, device=dev, model=model)
+        srv.generate(prompts[:1], gen_tokens=1)            # warm-up
+        srv.cache = registry.init_cache(srv.cfg, SLOTS, GEMMA3_MAX_SEQ, dev)
+        counts, stats = counted(lambda: srv.generate(prompts, gen_tokens=GEMMA3_GEN))
+        rep = stats.report()
+        toks = stats.generated
+        if toks.shape != (SLOTS, GEMMA3_GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"gemma3 {mode}: generated tokens of shape {toks.shape} "
+                             "or out of range")
+        out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts, step_ms=stats.step_ms)
+        say(f"  {mode:10s} prefill {rep['prefill_ms_per_slot']:9.3f} ms per slot "
+            f"({sum(map(len, prompts)) / SLOTS:.1f} one-token calls), decode "
+            f"{rep['decode_ms_per_step']:8.3f} ms per step (median of {GEMMA3_GEN}), "
+            f"{rep['tokens_per_sec']:8.1f} tokens/s, on {card} {since()}")
+    srv16 = servers["npe-16bit"] = Server("gemma3_27b", batch=SLOTS, max_seq=GEMMA3_MAX_SEQ,
+                                          mode="npe-16bit", device=dev, model=model)
+    srv16.prefill_prompt(0, prompts[0][:2])               # warm-up
+    out["npe-16bit"] = {}
+    cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
+    pos = start + GEMMA3_GEN
+    for mode, srv in servers.items():
+        t1 = time.perf_counter()
+        prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
+        prefill_ms = 1e3 * (time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        step, (logits, _) = counted(
+            lambda: registry.decode_step(srv.cfg, model, srv.cache, cur, pos))
+        step_ms = 1e3 * (time.perf_counter() - t1)
+        check_logits(logits, (SLOTS, 1, cfg.vocab_size), f"gemma3 {mode} step")
+        out[mode].update(step_launches=step, prefill_launches=prefill,
+                         one_prefill_ms=prefill_ms, one_step_ms=step_ms)
+        say(f"  {mode:10s} launches of one step {step}, of one one-slot prefill of "
+            f"{len(prompts[0])} tokens {prefill} ({prefill_ms:.1f} ms; the step {step_ms:.1f} ms)")
+        want = GEMMA3_LAUNCHES[mode]
+        if step != want or prefill != {k: n * len(prompts[0]) for k, n in want.items()}:
+            raise SystemExit(f"gemma3 {mode}: launches of a step or a prefill differ from {want}")
+        if mode != "npe-16bit":
+            runs = sum(map(len, prompts)) + GEMMA3_GEN
+            if out[mode]["run_launches"] != {k: n * runs for k, n in want.items()}:
+                raise SystemExit(f"gemma3 {mode}: launches of the served run differ from "
+                                 f"{runs} x {want}")
+    del servers["npe-16bit"], srv16
+    results["gemma3"] = out
+    results["gemma3_launches"] = out["npe-8bit"]["run_launches"]
+
+    npe8 = servers["npe-8bit"]
+    results["gemma3_audit"] = audit_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        f"{since()} one NPE-8 Gemma3 decode step", GEMMA3_LAUNCHES["npe-8bit"])
+    prof = results["gemma3_profile"] = profile_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        out["npe-8bit"]["decode_ms_per_step"])
+    say_profile_step("NPE-8 Gemma3 decode step", prof)
+    n_dev = results["gemma3_device_launches"] = {
+        mode: device_launches(lambda: registry.decode_step(srv.cfg, model, srv.cache, cur, pos))
+        for mode, srv in servers.items()}
+    say("  device launches of one Gemma3 decode step (kernels and copies, torch.profiler): " +
+        ", ".join(f"{m} {n}" for m, n in n_dev.items()))
+    fl_cfg = dataclasses.replace(servers["float"].cfg, num_layers=GEMMA3_WRAP_LAYERS)
+    del servers, npe8
+    torch.cuda.empty_cache()
+
+    # the wrap: one slot, greedy, to GEMMA3_WRAP_POS over 1024-row rings,
+    # through the served model's first GEMMA3_WRAP_LAYERS layers
+    full_model, model = model, copy.copy(model)
+    model._modules = dict(full_model._modules)
+    model.layers = torch.nn.ModuleList(list(full_model.layers)[:GEMMA3_WRAP_LAYERS])
+    cache = registry.init_cache(fl_cfg, 1, GEMMA3_WRAP_SEQ, dev)
+    rows = cache["win"]["k"].shape[2]
+    tok = torch.as_tensor(prompts[0][:1], device=dev).long()[None]
+    wrap = {}
+    t1 = time.perf_counter()
+    for p in range(GEMMA3_WRAP_POS):
+        if p == 1000:                   # a step before the wrap at 1024
+            wrap["launches_at_1000"], (lg, _) = counted(
+                lambda: registry.decode_step(fl_cfg, model, cache, tok, p))
+        else:
+            lg, _ = registry.decode_step(fl_cfg, model, cache, tok, p)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    wrap["seconds_to_1040"] = time.perf_counter() - t1
+    snapshot = {g: {k: t.clone() for k, t in kv.items()} for g, kv in cache.items()}
+    wrap["launches_at_1040"], (lg, _) = counted(
+        lambda: registry.decode_step(fl_cfg, model, cache, tok, GEMMA3_WRAP_POS))
+    check_logits(lg, (1, 1, cfg.vocab_size), "gemma3 step at 1040")
+    cache = snapshot                    # the same step once more, audited
+    wrap["audit"] = audit_call(
+        lambda: registry.decode_step(fl_cfg, model, cache, tok, GEMMA3_WRAP_POS),
+        f"{since()} the float Gemma3 step at position {GEMMA3_WRAP_POS} ({rows}-row rings, "
+        f"written {GEMMA3_WRAP_POS // rows} times over)", wrap["launches_at_1040"])
+    say(f"  the wrap: {GEMMA3_WRAP_POS} one-slot float steps of the first "
+        f"{GEMMA3_WRAP_LAYERS} layers in {wrap['seconds_to_1040']:.1f} s; launches at 1000 "
+        f"{wrap['launches_at_1000']}, at 1040 {wrap['launches_at_1040']}; logits finite")
+    if wrap["launches_at_1040"] != wrap["launches_at_1000"] or \
+            wrap["launches_at_1040"]["flash_attention"] != GEMMA3_WRAP_LAYERS:
+        raise SystemExit("gemma3: the launches of a step past the wrap differ")
+    results["gemma3_wrap"] = wrap
+    del cache, snapshot, model, full_model
+    torch.cuda.empty_cache()
+    say(f"  {since()} the route check (2 layers, global_every 2: layer 0 local, layer 1 "
+        "global; window 64; prompts of 66 and 6 tokens one a call and 4 steps, so both "
+        "routes wrap the ring; float only):")
+    decode_route_check(dev, results, "gemma3_27b", key="gemma3_route_check", long_run=False,
+                       modes=("float",), over=dict(global_every=2, window=64),
+                       prompt_lens=(66, 6), max_seq=96)
+    say(f"  {since()} done")
+
+
+# --- phase 10: Granite-3.0-1B-A400M: an MoE block in every layer --------------
+
+class DropCounter:
+    """Record, for each MoE call, the (token, choice) slots that capacity drops."""
+
+    def __enter__(self):
+        self.route, self.drops = moe_mod.route, []
+
+        def counting(cfg, p, x):
+            r = self.route(cfg, p, x)
+            self.drops.append((int((~r.kept).sum()), r.kept.numel(), r.capacity))
+            return r
+
+        moe_mod.route = counting
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self.route
+
+
+def granite_phase(dev, card, results):
+    """Full-width, 24-layer Granite-3.0-1B-A400M (32 experts, top-8, bf16)
+    through `launch.serve.Server`: (a) 8 slots, [5]'s prompts (33 to 120
+    tokens, one multi-token prefill each: full attention), 16 greedy tokens,
+    a 256-row cache, in float, NPE-8 and NPE-16; (b) the launches of one
+    step and of one one-slot prefill, and of the served run, checked
+    exactly; (c) every launch of one NPE-8 step and of the 8 NPE-8
+    prefills held to its plain version, with the token-slots capacity
+    dropped in each prefill; (d) one NPE-8 step profiled; (e)
+    teacher-forced top-1 agreement with float, reported; (f) the route
+    check at 2 layers in every mode."""
+    cfg = get_config("granite_moe_1b_a400m")
+    prompts = decode_prompts(cfg.vocab_size)
+    start = max(len(p) for p in prompts)
+    t0 = time.perf_counter()
+    since = lambda: f"({time.perf_counter() - t0:.1f} s into [10])"   # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = registry.build_model(cfg, device=dev, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    m = cfg.moe
+    say(f"  granite_moe_1b_a400m L={cfg.num_layers} D={cfg.d_model} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} E={m.num_experts} "
+        f"top-{m.top_k} expert d_ff={cfg.d_ff} V={cfg.vocab_size} tied {cfg.dtype}, "
+        f"{n_params:,} parameters; {SLOTS} slots, prompts of {[len(p) for p in prompts]} "
+        f"tokens, {GRANITE_GEN} steps from position {start}, cache of {MAX_SEQ} rows")
+    servers, out = {}, {}
+    for mode in MODES:
+        srv = servers[mode] = Server("granite_moe_1b_a400m", batch=SLOTS, max_seq=MAX_SEQ,
+                                     mode=mode, device=dev, model=model)
+        srv.generate(prompts, gen_tokens=2)                 # warm-up
+        srv.cache = registry.init_cache(srv.cfg, SLOTS, MAX_SEQ, dev)
+        counts, stats = counted(lambda: srv.generate(prompts, gen_tokens=GRANITE_GEN))
+        rep = stats.report()
+        toks = stats.generated
+        if toks.shape != (SLOTS, GRANITE_GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"granite {mode}: generated tokens of shape {toks.shape} "
+                             "or out of range")
+        cur = torch.as_tensor(toks[:, -1:], device=dev)
+        step, (logits, _) = counted(lambda: registry.decode_step(
+            srv.cfg, model, srv.cache, cur, start + GRANITE_GEN))
+        check_logits(logits, (SLOTS, 1, cfg.vocab_size), f"granite {mode} step")
+        prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
+        out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts,
+                         step_launches=step, prefill_launches=prefill, step_ms=stats.step_ms)
+        say(f"  {mode:10s} prefill {rep['prefill_ms_per_slot']:8.3f} ms per slot, decode "
+            f"{rep['decode_ms_per_step']:8.3f} ms per step (median of {GRANITE_GEN}), "
+            f"{rep['tokens_per_sec']:9.1f} tokens/s, on {card}")
+        say(f"             launches of one step {step}, of one one-slot prefill {prefill}")
+        want = GRANITE_LAUNCHES[mode]
+        if step != want or prefill != want:
+            raise SystemExit(f"granite {mode}: launches of a step or a prefill differ from {want}")
+        runs = len(prompts) + GRANITE_GEN
+        if counts != {k: n * runs for k, n in want.items()}:
+            raise SystemExit(f"granite {mode}: launches of the served run {counts} differ from "
+                             f"{runs} x {want}")
+    results["granite"] = out
+    results["granite_launches"] = out["npe-8bit"]["run_launches"]
+
+    npe8 = servers["npe-8bit"]
+    cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
+    pos = start + GRANITE_GEN
+    results["granite_audit"] = audit_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        f"{since()} one NPE-8 Granite decode step", GRANITE_LAUNCHES["npe-8bit"])
+    drops = {}
+    with DropCounter() as dc:
+        results["granite_prefill_audit"] = audit_call(
+            lambda: [npe8.prefill_prompt(slot, p) for slot, p in enumerate(prompts)],
+            f"{since()} the 8 one-slot NPE-8 Granite prefills ({min(map(len, prompts))} to "
+            f"{max(map(len, prompts))} rows)",
+            {k: n * len(prompts) for k, n in GRANITE_LAUNCHES["npe-8bit"].items()})
+    for slot, p in enumerate(prompts):
+        calls = dc.drops[slot * cfg.num_layers:(slot + 1) * cfg.num_layers]
+        drops[len(p)] = dict(capacity=calls[0][2], slots_per_layer=calls[0][1],
+                             dropped_per_layer=[d for d, _, _ in calls],
+                             dropped=sum(d for d, _, _ in calls))
+    results["granite_drops"] = drops
+    say("  token-slots (token, choice) that capacity dropped in each NPE-8 prefill, over its "
+        f"{cfg.num_layers} MoE layers (capacity C = int(S * {m.top_k} / {m.num_experts} * "
+        f"{m.capacity_factor}) a sequence): " +
+        ", ".join(f"S={s} C={d['capacity']}: {d['dropped']} of "
+                  f"{d['slots_per_layer'] * cfg.num_layers}" for s, d in drops.items()))
+    prof = results["granite_profile"] = profile_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        out["npe-8bit"]["decode_ms_per_step"])
+    say_profile_step("NPE-8 Granite decode step", prof)
+    feed = np.asarray(out["float"]["generated"])
+    agree = {mode: float((teacher_forced(srv, prompts, feed) == feed).mean())
+             for mode, srv in servers.items()}
+    results["granite_agreement"] = agree
+    say(f"  {since()} Granite top-1 agreement with the float route's tokens, every mode fed "
+        "them (reported, not gated): " + ", ".join(f"{m} {a:.4f}" for m, a in agree.items()))
+    del servers, srv, npe8, model
+    torch.cuda.empty_cache()
+    say(f"  {since()} the route check:")
+    decode_route_check(dev, results, "granite_moe_1b_a400m", key="granite_route_check",
+                       long_run=False, routed=True)
     say(f"  {since()} done")
 
 
@@ -2059,6 +2451,14 @@ def main() -> int:
     phase("[8] full-width GLM4-9B (40 layers) KV-cache decode serving through the kernels")
     glm4_phase(dev, card, results)
 
+    phase("[9] full-width Gemma3-27B (62 layers, local:global over ring caches) decode "
+          "serving through the kernels")
+    gemma3_phase(dev, card, results)
+
+    phase("[10] full-width Granite-3.0-1B-A400M (24 MoE layers) decode serving through the "
+          "kernels")
+    granite_phase(dev, card, results)
+
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
     # path: the served NPE-8 decode run, or the NPE-8 encoder forward
@@ -2086,7 +2486,9 @@ def main() -> int:
             launches_decode=results["decode_launches"][name],
             launches_npec=results["npec_launches"][name],
             launches_engine=results["engine_launches"][name],
-            launches_glm4=results["glm4_launches"][name]))
+            launches_glm4=results["glm4_launches"][name],
+            launches_gemma3=results["gemma3_launches"][name],
+            launches_granite=results["granite_launches"][name]))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
@@ -2103,11 +2505,14 @@ def main() -> int:
                 kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
         if r["yardstick"]:
             kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
-        kernels[-1]["glm4_rows"] = [
-            dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
-                 bound_ms=x["bound_ms"], bound_by=x["bound_by"], library_ms=x["library_ms"],
-                 max_abs_err=x["max_abs_err"])
-            for x in rows if x["kernel"] == name and x["cell"] == "glm4"]
+        for cell in ("glm4", "gemma3", "starcoder2"):
+            cell_rows = [
+                dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
+                     bound_ms=x["bound_ms"], bound_by=x["bound_by"],
+                     library_ms=x["library_ms"], max_abs_err=x["max_abs_err"])
+                for x in rows if x["kernel"] == name and x["cell"] == cell]
+            if cell_rows or cell == "glm4":
+                kernels[-1][f"{cell}_rows"] = cell_rows
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["mode"] = "dense"   # the decode path's attention: a mode of this kernel's source
     flash["dense_mode_replaces"] = "src/repro/models/common.py:205 (attention_scores, cache case)"
@@ -2116,7 +2521,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    phase("[9] summary")
+    phase("[11] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

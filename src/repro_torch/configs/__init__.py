@@ -1,9 +1,10 @@
 """Architecture registry (counterpart of `repro/configs/__init__.py`).
 
-The port carries the configurations it runs: the paper's BERT and the
-full-attention dense and vlm decoders (glm4_9b, command_r_plus_104b,
-qwen2_vl_7b).  Each records its public source and pads the vocabulary as the
-reference does.
+The port carries the configurations it runs: the paper's BERT, the dense
+and vlm decoders (glm4_9b, command_r_plus_104b, qwen2_vl_7b; starcoder2_3b's
+sliding window and gemma3_27b's local:global layers) and the MoE decoders
+(granite_moe_1b_a400m, llama4_maverick_400b_a17b).  Each records its public
+source and pads the vocabulary as the reference does.
 """
 from __future__ import annotations
 
@@ -13,7 +14,16 @@ from typing import List
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS: List[str] = ["command_r_plus_104b", "glm4_9b", "qwen2_vl_7b", "bert_base"]
+ARCH_IDS: List[str] = [
+    "command_r_plus_104b",
+    "starcoder2_3b",
+    "gemma3_27b",
+    "glm4_9b",
+    "qwen2_vl_7b",
+    "granite_moe_1b_a400m",
+    "llama4_maverick_400b_a17b",
+    "bert_base",
+]
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:

@@ -54,6 +54,34 @@ def quantize(x: torch.Tensor, bits: int = 8,
     return QTensor(q, scale)
 
 
+# Float32 bytes of a weight's columns quantized at once: the quantizer holds
+# a few float32 copies of what it quantizes, and those of a whole tied head
+# (262144 x 5376: 5.6 GB each) do not fit beside a 27 B model on one card.
+QUANT_CHUNK_BYTES = 1 << 30
+
+
+def _column_chunks(w: torch.Tensor):
+    """Column slices of a (K, N) weight, each at most QUANT_CHUNK_BYTES of
+    float32."""
+    cols = max(1, QUANT_CHUNK_BYTES // (4 * w.shape[0]))
+    return [slice(c, min(c + cols, w.shape[1])) for c in range(0, w.shape[1], cols)]
+
+
+def quantize_columns(w: torch.Tensor, bits: int = 8) -> QTensor:
+    """`quantize(w, bits, axis=1)` of a (K, N) weight, a chunk of columns at
+    a time: each column's scale depends on that column alone, so the values
+    and scales are the same, with float32 temporaries of one chunk."""
+    chunks = _column_chunks(w)
+    if len(chunks) == 1:
+        return quantize(w, bits, axis=1)
+    q = torch.empty(w.shape, dtype=_QDTYPE[bits], device=w.device)
+    scale = torch.empty(1, w.shape[1], dtype=torch.float32, device=w.device)
+    for c in chunks:
+        part = quantize(w[:, c], bits, axis=1)
+        q[:, c], scale[:, c] = part.q, part.scale
+    return QTensor(q, scale)
+
+
 def fake_quantize(x: torch.Tensor, bits: int = 8,
                   axis: Optional[int] = None) -> torch.Tensor:
     """Quantize-dequantize, straight-through in the backward pass."""
@@ -89,7 +117,10 @@ def dense_maybe_quant(x: torch.Tensor, w: torch.Tensor,
     """Dense layer through the MMU when the NPE mode is on.
 
     At 8 bits: int8 x int8 products into int32.  At 16 bits: fake-quantization
-    to the int16 grid with a float32 product, as the reference models it."""
+    to the int16 grid with a float32 product, as the reference models it,
+    taken over chunks of the weight's columns (`_column_chunks`), each
+    fake-quantized on its own: the same values, with float32 temporaries of
+    one chunk."""
     if not npe_quant:
         return x @ w if bias is None else x @ w + bias
     *lead, k = x.shape
@@ -99,8 +130,8 @@ def dense_maybe_quant(x: torch.Tensor, w: torch.Tensor,
         y = quant_dense(x2, wq, bias, act_bits=bits, act_axis=act_axis)
     else:
         xq = fake_quantize(x2.to(torch.float32), bits, axis=act_axis)
-        wq = fake_quantize(w.to(torch.float32), bits, axis=1)
-        y = xq @ wq
+        y = torch.cat([xq @ fake_quantize(w[:, c].to(torch.float32), bits, axis=1)
+                       for c in _column_chunks(w)], dim=-1)
         if bias is not None:
             y = y + bias.to(torch.float32)
         y = y.to(x.dtype)

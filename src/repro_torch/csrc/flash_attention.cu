@@ -83,6 +83,20 @@
 //   piece for bf16 q) and the scale multiplies the f32 product, as in
 //   attention_scores; p is one bf16 operand by definition, so it needs no
 //   split.
+// The dense mode also takes the rest of attention_scores' mask and its soft
+// cap.  `causal` = 0 lets every row see every key below kv_len (a ring
+// cache: the reference's prefix validity arange(wlen) <= pos | pos >= wlen
+// is a key count, kv_len = min(pos + 1, wlen)); `window` > 0 hides the keys
+// at or below pos - window; `softcap` > 0 maps each score s (after the
+// scale, before the mask) to c * tanh(s / c), tanh the NVU's PWL table
+// (clamped to its end knots, as nvu_tanh) or tanhf.  A block reads only the
+// keys some row of it sees: from the first row's pos - window + 1 (0
+// without a window) to its last row's pos (kv_len with causality off), so
+// a windowed prefill tile reads about window + 16 keys, not all before it.
+// The row max is taken over visible keys only (masked scores are NEG_BIG),
+// since the PWL exp does not rescale.  With causal = 1, window = 0 and
+// softcap = 0 every key range, mask and sum is the one before these
+// arguments existed, so those launches give the same bits.
 #include "hopper.cuh"
 #include "pwl.cuh"
 
@@ -105,6 +119,11 @@ struct Args {
   int exp_segs;
   const float* recip_table;
   int recip_segs;
+  // the dense mode's soft cap: c (0: none) and the tanh table with its end knots
+  float softcap;
+  const float* tanh_table;
+  int tanh_segs;
+  float tanh_lo, tanh_hi;
 };
 
 __device__ __forceinline__ float load(const void* p, long long i, int bf16) {
@@ -860,6 +879,40 @@ __device__ __forceinline__ float dense_norm(float l, const Args& a, const NpePre
   return a.use_pwl ? npe_softmax_inv(l, rt, rtop) : fmaxf(l, 1e-30f);
 }
 
+// The soft cap of N scores in place: c * tanh(s / c), tanh the PWL table
+// (clamped to its end knots, as nvu_tanh) or tanhf; nothing when c = 0.
+template <int N>
+__device__ __forceinline__ void dense_cap_n(float (&s)[N], const Args& a,
+                                            const NpePrefixTable& t, int top) {
+  if (a.softcap <= 0.f) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = __fdiv_rn(s[i], a.softcap);
+  if (a.use_pwl) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = fminf(fmaxf(s[i], a.tanh_lo), a.tanh_hi);
+    npe_pwl_prefix_n<N>(s, t, top);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = tanhf(s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = __fmul_rn(a.softcap, s[i]);
+}
+
+// The tanh table's prefix form, when the soft cap takes it; every thread
+// of the block calls it.
+__device__ __forceinline__ void dense_cap_table(NpePrefixTable& t, const Args& a) {
+  if (a.softcap > 0.f && a.use_pwl) {
+    const NpePrefixFetch f(a.tanh_table, a.tanh_segs);
+    npe_build_prefix_table(t, f, a.tanh_segs);
+  }
+}
+
+// The first key some row of a block sees, its first row at position pos0.
+__device__ __forceinline__ int dense_kv_lo(int pos0, const Args& a) {
+  return a.window > 0 ? max(0, pos0 - a.window + 1) : 0;
+}
+
 // p = e * (1/l) or e / l, rounded to bf16 (returned as the exact f32 value).
 __device__ __forceinline__ float dense_p(float e, float norm, const Args& a) {
   const float p = a.use_pwl ? __fmul_rn(e, norm) : __fdiv_rn(e, norm);
@@ -876,7 +929,7 @@ flash_dense_decode_kernel(const Args a) {
   constexpr int SEG = DENSE_SCORES / ROWS; // keys a pass keeps
   extern __shared__ float smem[];          // ROWS x SEG: scores, e, p; at the end the partials
   __shared__ float red[ROWS][DEC_WARPS];
-  __shared__ NpePrefixTable etab, rtab;
+  __shared__ NpePrefixTable etab, rtab, ttab;
   const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
 
   const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
@@ -903,8 +956,12 @@ flash_dense_decode_kernel(const Args a) {
     }
   }
   npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+  dense_cap_table(ttab, a);
   const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
-  const int nseg = (a.kv_len + SEG - 1) / SEG;
+  const int ttop = npe_prefix_top(a.tanh_segs);
+  // the keys some row sees: kv_lo.. past the first row's window, up to kv_len
+  const int kv_lo = dense_kv_lo(a.kv_len - a.sq, a);
+  const int nseg = (a.kv_len - kv_lo + SEG - 1) / SEG;
 
   auto load_chunk = [&](uint4 (&w)[U], const __nv_bfloat16* base, long long stride, int s0,
                         int t0, int nk) {
@@ -934,9 +991,11 @@ flash_dense_decode_kernel(const Args a) {
 #pragma unroll
           for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
           if (t < nk) {
-            const float s = s0 + t > pos[r] ? NEG_BIG : __fmul_rn(dot, a.scale);
-            if (sub == 0) smem[r * SEG + t] = s;
-            mx[r] = fmaxf(mx[r], s);
+            float s[1] = {__fmul_rn(dot, a.scale)};
+            dense_cap_n<1>(s, a, ttab, ttop);
+            s[0] = key_masked(s0 + t, pos[r], a) ? NEG_BIG : s[0];
+            if (sub == 0) smem[r * SEG + t] = s[0];
+            mx[r] = fmaxf(mx[r], s[0]);
           }
         }
       }
@@ -973,7 +1032,7 @@ flash_dense_decode_kernel(const Args a) {
         for (int r = 0; r < ROWS; ++r) z[r] = __fsub_rn(z[r], m[r]);
         dense_exp_n<ROWS>(z, a, etab, top);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) z[r] = s0 + t > pos[r] ? 0.f : z[r];
+        for (int r = 0; r < ROWS; ++r) z[r] = key_masked(s0 + t, pos[r], a) ? 0.f : z[r];
       }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
@@ -991,13 +1050,13 @@ flash_dense_decode_kernel(const Args a) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) m[r] = NEG_BIG;
   for (int seg = 0; seg < nseg; ++seg)
-    scores(seg * SEG, min(SEG, a.kv_len - seg * SEG), m);
+    scores(kv_lo + seg * SEG, min(SEG, a.kv_len - kv_lo - seg * SEG), m);
   block_reduce(m, true);                   // also: one segment's scores are in smem
   // pass 2: the sum with the max fixed
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) part[r] = 0.f;
   for (int seg = 0; seg < nseg; ++seg) {
-    const int s0 = seg * SEG, nk = min(SEG, a.kv_len - s0);
+    const int s0 = kv_lo + seg * SEG, nk = min(SEG, a.kv_len - s0);
     if (nseg > 1) {
       float unused[ROWS];
 #pragma unroll
@@ -1013,7 +1072,7 @@ flash_dense_decode_kernel(const Args a) {
   for (int r = 0; r < ROWS; ++r) norm[r] = dense_norm(part[r], a, rtab, rtop);
   // pass 3: P.V with the normalized, rounded p
   for (int seg = 0; seg < nseg; ++seg) {
-    const int s0 = seg * SEG, nk = min(SEG, a.kv_len - s0);
+    const int s0 = kv_lo + seg * SEG, nk = min(SEG, a.kv_len - s0);
     uint4 w[U];
     if (nseg > 1) {
       float unused[ROWS];
@@ -1084,7 +1143,7 @@ flash_dense_mma_kernel(const Args a) {
   __nv_bfloat16* qp = ring + L::RING_ELEMS;
   float* s_s = reinterpret_cast<float*>(qp + L::QP);   // a segment's scores or e, fragment order
   __shared__ float red[MMA_WARPS][16];
-  __shared__ NpePrefixTable etab, rtab;
+  __shared__ NpePrefixTable etab, rtab, ttab;
   const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
 
   const int bh = blockIdx.y;
@@ -1109,7 +1168,9 @@ flash_dense_mma_kernel(const Args a) {
   }
   // ends synced: q pieces staged too
   npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+  dense_cap_table(ttab, a);
   const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
+  const int ttop = npe_prefix_top(a.tanh_segs);
 
   // this lane's rows of the tile: g and g + 8 (-1: past Sq, every key masked)
   int pos[2];
@@ -1118,8 +1179,11 @@ flash_dense_mma_kernel(const Args a) {
     const int i = q0 + g + 8 * e;
     pos[e] = i < a.sq ? a.kv_len - a.sq + i : -1;
   }
-  const int kv_hi = a.kv_len - a.sq + min(q0 + 16, a.sq);   // keys some row of the tile sees
-  const int nseg = (kv_hi + DENSE_SEG - 1) / DENSE_SEG;
+  // the keys some row of the tile sees: kv_lo.. past its first row's window,
+  // below kv_hi (its last row's position + 1, or kv_len with causality off)
+  const int kv_lo = dense_kv_lo(a.kv_len - a.sq + q0, a);
+  const int kv_hi = a.causal ? a.kv_len - a.sq + min(q0 + 16, a.sq) : a.kv_len;
+  const int nseg = (kv_hi - kv_lo + DENSE_SEG - 1) / DENSE_SEG;
   float m[2] = {NEG_BIG, NEG_BIG}, norm[2] = {1.f, 1.f}, part[2] = {0.f, 0.f}, acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -1159,7 +1223,7 @@ flash_dense_mma_kernel(const Args a) {
 #pragma unroll
     for (int x = 0; x < 8; ++x) {
       const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
-      z[x] = col > pos[(x >> 1) & 1] ? 0.f : z[x];
+      z[x] = key_masked(col, pos[(x >> 1) & 1], a) ? 0.f : z[x];
       part[(x >> 1) & 1] = __fadd_rn(part[(x >> 1) & 1], z[x]);
     }
   };
@@ -1218,10 +1282,12 @@ flash_dense_mma_kernel(const Args a) {
         }
         float z[8];
 #pragma unroll
+        for (int x = 0; x < 8; ++x) z[x] = __fmul_rn(s[x >> 2][x & 3], a.scale);
+        dense_cap_n<8>(z, a, ttab, ttop);
+#pragma unroll
         for (int x = 0; x < 8; ++x) {
           const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
-          const float v = s[x >> 2][x & 3];
-          z[x] = col > pos[(x >> 1) & 1] ? NEG_BIG : __fmul_rn(v, a.scale);
+          z[x] = key_masked(col, pos[(x >> 1) & 1], a) ? NEG_BIG : z[x];
         }
         if (phase == 0 || (phase == 2 && nseg == 1)) {
 #pragma unroll
@@ -1272,14 +1338,14 @@ flash_dense_mma_kernel(const Args a) {
   };
 
   if (nseg > 1) {
-    for (int seg = 0; seg < nseg; ++seg) sweep(0, seg * DENSE_SEG);
+    for (int seg = 0; seg < nseg; ++seg) sweep(0, kv_lo + seg * DENSE_SEG);
     rows_reduce(m, true);
-    for (int seg = 0; seg < nseg; ++seg) sweep(1, seg * DENSE_SEG);
+    for (int seg = 0; seg < nseg; ++seg) sweep(1, kv_lo + seg * DENSE_SEG);
     rows_reduce(part, false);
 #pragma unroll
     for (int e = 0; e < 2; ++e) norm[e] = dense_norm(part[e], a, rtab, rtop);
   }
-  for (int seg = 0; seg < nseg; ++seg) sweep(2, seg * DENSE_SEG);
+  for (int seg = 0; seg < nseg; ++seg) sweep(2, kv_lo + seg * DENSE_SEG);
 
   // out = the warps' partial accumulators summed (p was normalized)
   float* comb = reinterpret_cast<float*>(smem_raw);   // MMA_WARPS x 16 x D, over the ring
@@ -1420,11 +1486,15 @@ extern "C" int npe_attention_dense(
     long long vsb, long long vsh, long long vss, long long vsd,
     long long osb, long long osh, long long oss, long long osd,
     int batch, int hq, int hkv, int sq, int skv, int d, int kv_len, int q_bf16,
-    int out_bf16, float scale, int use_pwl, const float* exp_table, int exp_segments,
-    const float* recip_table, int recip_segments, void* stream) {
+    int out_bf16, int causal, int window, float scale, float softcap, int use_pwl,
+    const float* exp_table, int exp_segments, const float* recip_table, int recip_segments,
+    const float* tanh_table, int tanh_segments, float tanh_lo, float tanh_hi, void* stream) {
   if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
       recip_segments < 1 || recip_segments + 1 > NPE_MAX_TABLE_COLS ||
-      hkv < 1 || hq % hkv != 0 || kv_len < sq || kv_len > skv)
+      hkv < 1 || hq % hkv != 0 || kv_len < sq || kv_len > skv || window < 0 ||
+      !(softcap >= 0.f) ||
+      (softcap > 0.f && use_pwl &&
+       (tanh_table == nullptr || tanh_segments < 1 || tanh_segments + 1 > NPE_MAX_TABLE_COLS)))
     return (int)cudaErrorInvalidValue;
   // K and V are the bf16 cache, read as 16-byte vectors
   if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd)))
@@ -1434,9 +1504,10 @@ extern "C" int npe_attention_dense(
          {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
          {osb, osh, oss, osd},
          hq, hkv, sq, kv_len, q_bf16, /*kv_bf16=*/1, out_bf16,
-         /*causal=*/1, /*window=*/0, use_pwl, /*block_q=*/sq, /*block_kv=*/DENSE_SEG, scale,
+         causal ? 1 : 0, window, use_pwl, /*block_q=*/sq, /*block_kv=*/DENSE_SEG, scale,
          /*q_pieces=*/q_bf16 ? 1 : Q_PIECES_MAX,
-         exp_table, exp_segments, recip_table, recip_segments};
+         exp_table, exp_segments, recip_table, recip_segments,
+         softcap, tanh_table, tanh_segments, tanh_lo, tanh_hi};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch_dense<32>(a, batch, s);

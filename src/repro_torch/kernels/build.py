@@ -55,9 +55,11 @@ SIGNATURES = {
     "npe_flash_attention": (P, P, P, P, *(LL,) * 16, *(I,) * 12, F, I, I, I,
                             P, I, P, I, P),
     # the dense mode: q, k, v, out, 16 element strides, batch, hq, hkv, sq,
-    # skv, d, kv_len, q_bf16, out_bf16, scale, use_pwl, exp_table,
-    # exp_segments, recip_table, recip_segments, stream
-    "npe_attention_dense": (P, P, P, P, *(LL,) * 16, *(I,) * 9, F, I, P, I, P, I, P),
+    # skv, d, kv_len, q_bf16, out_bf16, causal, window, scale, softcap,
+    # use_pwl, exp_table, exp_segments, recip_table, recip_segments,
+    # tanh_table, tanh_segments, tanh_lo, tanh_hi, stream
+    "npe_attention_dense": (P, P, P, P, *(LL,) * 16, *(I,) * 11, F, F, I, P, I, P, I, P, I,
+                            F, F, P),
     # stream: one empty 256-thread block, the launch floor chip_smoke.py times
     "npe_launch_floor": (P,),
 }

@@ -13,12 +13,13 @@ Both stream over KV blocks of `block_kv` keys with a running max and sum, as
 rescale multiplies by pwl_exp(m_prev - m_new), and pwl_exp(0) is not 1), so
 the blocking is part of the function and the kernel keeps it.
 
-`dense_attention(q, k, v, ...)` is the kernel's dense mode, the decode
-path's attention: the cache case of the reference's `attention_scores`
-(`repro/models/common.py`, causal with q_offset = kv_len - Sq), one softmax
-over every visible key with no running rescale, the probabilities rounded to
-v's dtype before P.V.  `dense_attention_plain` is that arithmetic in torch
-ops.
+`dense_attention(q, k, v, ...)` is the kernel's dense mode, the models'
+attention: the reference's `attention_scores` (`repro/models/common.py`,
+q_offset = kv_len - Sq), one softmax over every visible key with no running
+rescale, the probabilities rounded to v's dtype before P.V.  It takes that
+function's window, its causal switch (off: every key below kv_len, the ring
+cache's prefix validity as a key count) and its logit soft cap.
+`dense_attention_plain` is that arithmetic in torch ops.
 
 Layout (B, H, S, D), as in the reference.  The mask is end-aligned, as in
 `ref.attention` and the decode path: of `kv_len` visible keys, query i sits
@@ -203,14 +204,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def dense_mask(sq: int, kv_len: int, causal: bool, window: int, device) -> torch.Tensor:
+    """The (Sq, kv_len) visibility of `attention_scores`, end-aligned: query i
+    at position kv_len - Sq + i sees key j iff j <= its position (when
+    causal) and j > its position - window (when window > 0)."""
+    rows = torch.arange(sq, device=device)[:, None] + (kv_len - sq)
+    cols = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones(sq, kv_len, dtype=torch.bool, device=device)
+    if causal:
+        mask &= cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    return mask
+
+
+def soft_cap(s: torch.Tensor, cap: float, use_pwl: bool, segments: int) -> torch.Tensor:
+    """`attention_scores`' logit soft cap on f32 scores: cap * tanh(s / cap),
+    tanh the NVU's (`nvu_tanh`, the PWL table clamped to its end knots) or
+    exact."""
+    t = s / cap
+    return cap * (nvu.nvu_tanh(t, segments) if use_pwl else torch.tanh(t))
+
+
 def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          kv_len: Optional[int] = None, scale: Optional[float] = None,
+                          kv_len: Optional[int] = None, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, scale: Optional[float] = None,
                           use_pwl: bool = True, segments: int = 16,
                           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The dense mode's arithmetic in PyTorch, as `attention_scores` computes
-    it: f32 scores (q . k) * scale, keys past each query's position masked,
-    the NVU softmax (or exact softmax) over all visible keys at once, the
-    probabilities cast to v's dtype, then P.V accumulated in f32."""
+    it: f32 scores (q . k) * scale, soft-capped when softcap > 0, the keys
+    `dense_mask` hides masked, the NVU softmax (or exact softmax) over all
+    visible keys at once, the probabilities cast to v's dtype, then P.V
+    accumulated in f32."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     kv_len = k.shape[2] if kv_len is None else kv_len
@@ -219,29 +244,36 @@ def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kk = k[:, :, :kv_len].repeat_interleave(group, dim=1).to(torch.float32)
     vv = v[:, :, :kv_len].repeat_interleave(group, dim=1)
     s = torch.matmul(q.to(torch.float32), kk.transpose(-1, -2)) * scale
-    rows = torch.arange(sq, device=q.device)[:, None] + (kv_len - sq)
-    mask = torch.arange(kv_len, device=q.device)[None, :] <= rows
+    if softcap > 0:
+        s = soft_cap(s, softcap, use_pwl, segments)
+    mask = dense_mask(sq, kv_len, causal, window, q.device)
     p = nvu.softmax(s, use_pwl=use_pwl, segments=segments, where=mask)
     out = torch.matmul(p.to(v.dtype).to(torch.float32), vv.to(torch.float32))
     return out.to(out_dtype or q.dtype)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_len: Optional[int] = None, scale: Optional[float] = None,
+                    kv_len: Optional[int] = None, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None,
                     use_pwl: bool = True, segments: int = 16,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Causal attention of q (B, Hq, Sq, D) over the first kv_len keys of
-    bf16 k, v (B, Hkv, Skv, D), query i at position kv_len - Sq + i: the
-    counterpart of `attention_scores` over a KV cache.  On the card the
-    operands may be strided views, as for `flash_attention`, and the result
-    is a (B, Hq, Sq, D) view of (B, Sq, Hq, D) memory.  Each launch counts
-    as one of `flash_attention`'s: it is a mode of the same kernel source."""
+    """Attention of q (B, Hq, Sq, D) over the first kv_len keys of bf16 k, v
+    (B, Hkv, Skv, D), query i at position kv_len - Sq + i: the counterpart of
+    `attention_scores` over a KV cache or over the sequence itself.  Each
+    query sees the keys at or before its position (`causal`; with causality
+    off, all kv_len) and after its position - `window` (window > 0); scores
+    are soft-capped at `softcap` (> 0).  On the card the operands may be
+    strided views, as for `flash_attention`, and the result is a (B, Hq, Sq,
+    D) view of (B, Sq, Hq, D) memory.  Each launch counts as one of
+    `flash_attention`'s: it is a mode of the same kernel source."""
     kv_len = _check_operands("dense_attention", q, k, v, kv_len)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     out_dtype = out_dtype or q.dtype
-    kw = dict(kv_len=kv_len, scale=scale, use_pwl=use_pwl, segments=segments,
-              out_dtype=out_dtype)
+    if window < 0 or not softcap >= 0:
+        raise ValueError(f"dense_attention: window {window}, softcap {softcap}")
+    kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=softcap, scale=scale,
+              use_pwl=use_pwl, segments=segments, out_dtype=out_dtype)
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, **kw)
     _check_card("dense_attention", q, k, v)
@@ -255,13 +287,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(b, sq, hq, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
     et = device_table("exp", segments, q.device)
     rt = device_table("recip", segments, q.device)
+    tt = device_table("tanh", segments, q.device)
+    knots = get_table("tanh", segments).knots
     scale = float(scale if scale is not None else d ** -0.5)
     err = library().npe_attention_dense(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride(), *k.stride(), *v.stride(), *out.stride(),
         b, hq, hkv, sq, skv, d, kv_len, int(q.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), scale, int(use_pwl),
-        et.data_ptr(), et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1,
+        int(out_dtype == torch.bfloat16), int(causal), int(window), scale, float(softcap),
+        int(use_pwl), et.data_ptr(), et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1,
+        tt.data_ptr(), tt.shape[1] - 1, float(knots[0]), float(knots[-1]),
         stream_handle(q))
     check(err, "dense_attention")
     LAUNCHES["flash_attention"] += 1

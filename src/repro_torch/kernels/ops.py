@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import nvu
-from repro_torch.core.quant import quantize
+from repro_torch.core.quant import quantize, quantize_columns
 from repro_torch.kernels.flash_attention import dense_attention
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm
@@ -38,11 +38,12 @@ def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tens
 def quant_dense(x: torch.Tensor, w: torch.Tensor,
                 act_axis: Optional[int] = None) -> torch.Tensor:
     """The 8-bit MMU: int8-quantize x per tensor (act_axis=0: each row of
-    the flattened (M, K) x on its own) and w (K, N) per column, multiply
-    into int32 and dequantize to x's dtype."""
+    the flattened (M, K) x on its own) and w (K, N) per column (a chunk of
+    columns at a time, `quantize_columns`), multiply into int32 and
+    dequantize to x's dtype."""
     *lead, k = x.shape
     xq = quantize(x.reshape(-1, k), 8, axis=act_axis)
-    wq = quantize(w, 8, axis=1)
+    wq = quantize_columns(w, 8)
     out = quant_matmul(xq.q, wq.q, xq.scale, wq.scale, out_dtype=x.dtype)
     return out.reshape(*lead, w.shape[1])
 

@@ -2,11 +2,13 @@
 `repro/launch/serve.py`: `ServeStats`, `Server` and its CLI).
 
 A fixed pool of B decode slots for any ported decoder (`--arch`: BERT's
-causal step, or a full-attention dense or vlm transformer such as glm4_9b).
-Each prompt is prefilled alone, by one multi-token `decode_step` at
-position 0 on its slot's slice of the cache;
-then every slot decodes one greedy token a step on one common position
-clock that starts at the longest prompt's length.  As in the reference, a
+causal step, or a dense, vlm or MoE transformer such as glm4_9b, gemma3_27b
+or granite_moe_1b_a400m).  Each prompt is prefilled alone on its slot's
+slice of the cache: by one multi-token `decode_step` at position 0, or,
+where the cache has window rings (starcoder2, gemma3), one token a step at
+positions 0..S-1, as the reference does; then every slot decodes one greedy
+token a step on one common position clock that starts at the longest
+prompt's length.  As in the reference, a
 slot with a shorter prompt attends over the zero cache rows between its
 length and that start, and each slot's last prompt token is fed again at
 the start.  Every attention goes through the flash-attention kernel.
@@ -14,6 +16,8 @@ the start.  Every attention goes through the flash-attention kernel.
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --max-seq 256 \
         --gen 64 --mode npe-8bit
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --mode npe-8bit
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_27b --max-prompt 16 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m
 
 prints the prefill ms per slot, the ms per decode step and tokens/s on the
 card, with the card's name and power limit.
@@ -69,8 +73,8 @@ class ServeStats:
 
 class Server:
     """Decode-slot server for a ported decoder (`arch`: BERT's causal decode
-    step, or a dense or vlm transformer such as glm4_9b) in one mode (float,
-    NPE-8 or NPE-16).
+    step, or a dense, vlm or MoE transformer) in one mode (float, NPE-8 or
+    NPE-16).
 
     `model` shares weights between servers; without it the server draws
     random weights from `seed` on its device (`registry.build_model`).  Full
@@ -102,13 +106,20 @@ class Server:
             torch.cuda.synchronize(self.device)
 
     def prefill_prompt(self, slot: int, prompt: np.ndarray) -> None:
-        """Prefill one slot: the whole prompt through `decode_step` at
-        positions 0..S-1 on this slot's slice of the cache (a view, written
-        in place)."""
-        sub = {"full": {k: c[:, slot:slot + 1] for k, c in self.cache["full"].items()}}
+        """Prefill one slot on its slice of the cache (views, written in
+        place): the whole prompt through one `decode_step` at positions
+        0..S-1, or, where the cache has window rings, one token a call at
+        position t, as the reference's `prefill_prompt` does (a ring is
+        written and made valid one position at a time)."""
+        sub = {group: {k: c[:, slot:slot + 1] for k, c in kv.items()}
+               for group, kv in self.cache.items()}
         toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                device=self.device)[None]
-        registry.decode_step(self.cfg, self.model, sub, toks, 0)
+        if "win" not in sub:
+            registry.decode_step(self.cfg, self.model, sub, toks, 0)
+            return
+        for t in range(toks.shape[1]):
+            registry.decode_step(self.cfg, self.model, sub, toks[:, t:t + 1], t)
 
     def generate(self, prompts: Sequence[np.ndarray], gen_tokens: int = 8) -> ServeStats:
         """Prefill each slot, then `gen_tokens` greedy steps for all slots.
@@ -272,7 +283,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="bert_base",
                     help="a ported decoder: bert_base, glm4_9b, command_r_plus_104b, "
-                         "qwen2_vl_7b (--backend npec: bert_base only)")
+                         "qwen2_vl_7b, starcoder2_3b, gemma3_27b, granite_moe_1b_a400m, "
+                         "llama4_maverick_400b_a17b (--backend npec: bert_base only)")
     ap.add_argument("--backend", choices=("torch", "npec"), default="torch",
                     help="torch: Server.generate, the model's own decode step; "
                          "npec: compiled overlay streams (NPEEngine / NPEFleet)")
@@ -307,7 +319,8 @@ def main(argv=None):
                       default="replicate",
                       help="fleet: replicas, pipeline layer groups, prefill/decode "
                            "disaggregation or column-carved tensor parallelism "
-                           "(expert needs an MoE family, which the port lacks)")
+                           "(expert needs the npec streams of an MoE family, which "
+                           "the port lacks)")
     npec.add_argument("--rate", type=float, default=None,
                       help="fleet: Poisson request rate (requests/s at the overlay "
                            "clock); default all at cycle 0")

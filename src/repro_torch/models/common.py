@@ -5,9 +5,10 @@ In NPE mode the 8-bit projections go through the MMU kernel, and the
 softmax, the norms and the activations through the NVU kernels
 (kernels/ops.py); on the CPU those wrappers run their plain versions.  The
 16-bit MMU is fake-quantization with a float32 product, outside any kernel,
-as in the reference.  Causal attention, over a KV cache or over the
-sequence itself, goes through the flash-attention kernel's dense mode in
-every mode.
+as in the reference.  Attention, over a KV cache (a full one or a
+sliding-window ring) or over the sequence itself, causal or windowed, with or
+without a logit soft cap, goes through the flash-attention kernel's dense
+mode in every mode.
 """
 from __future__ import annotations
 
@@ -159,22 +160,38 @@ def attention_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_over_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tensor,
-                         cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+                         cache_v: torch.Tensor, pos: int, window: int = 0,
+                         ring: Optional[int] = None) -> torch.Tensor:
     """Causal attention of q (B, S, Hq, D), at positions pos..pos+S-1, over a
     (B, max_seq, Hkv, D) cache that holds the keys and values of positions
     < pos + S: the cache case of the reference's `attention_scores`
     (q_offset=pos), one softmax over every visible key, the probabilities
-    rounded to the cache's dtype before P.V.  The flash kernel's dense mode
-    reads the cache in place through permuted views and never reads keys at
-    or past pos + S; PWL exp and reciprocal when cfg.npe_pwl.  The result is
-    (B, S, Hq, D) in the cache's dtype, as the reference's P.V gives it.
-    With pos = 0 and the sequence's own k and v as the "cache", this is
-    causal self-attention (the reference's `attention_auto` for full
-    layers); on the card the dense mode takes bf16 k and v only."""
+    rounded to the cache's dtype before P.V.  With `window` > 0 a query sees
+    only the keys after its position - window.  With `ring` (S = 1), the
+    cache is a sliding-window ring of `ring` rows written at pos % ring, and
+    the query sees every written row with causality off: the reference's
+    `kv_valid = arange(ring) <= pos | pos >= ring`, a prefix of
+    min(pos + 1, ring) rows.  cfg.logit_softcap > 0 soft-caps the scores.
+
+    The flash kernel's dense mode reads the cache in place through permuted
+    views, and of it only the keys some query of a block can see; PWL exp,
+    reciprocal and tanh when cfg.npe_pwl.  The result is (B, S, Hq, D) in the
+    cache's dtype, as the reference's P.V gives it.  With pos = 0 and the sequence's
+    own k and v as the "cache", this is causal (or windowed) self-attention:
+    the reference's `attention_auto`, whose query chunks past 2048 rows
+    bound the memory of its (Sq, Skv) scores; the dense mode keeps no such
+    tensor, so it takes every length in one launch and gives the same
+    function.  On the card the dense mode takes bf16 k and v only."""
+    s = q.shape[1]
+    if ring is not None and s != 1:
+        raise ValueError(f"attention_over_cache: {s} queries over a ring cache; a ring "
+                         "is written one token at a time")
+    kv_len = pos + s if ring is None else min(pos + 1, ring)
     out = ops.dense_attention(q.permute(0, 2, 1, 3), cache_k.permute(0, 2, 1, 3),
-                              cache_v.permute(0, 2, 1, 3), kv_len=pos + q.shape[1],
-                              use_pwl=cfg.npe_pwl, segments=cfg.npe_pwl_segments,
-                              out_dtype=cache_v.dtype)
+                              cache_v.permute(0, 2, 1, 3), kv_len=kv_len,
+                              causal=ring is None, window=window,
+                              softcap=cfg.logit_softcap, use_pwl=cfg.npe_pwl,
+                              segments=cfg.npe_pwl_segments, out_dtype=cache_v.dtype)
     return out.permute(0, 2, 1, 3)
 
 
@@ -202,8 +219,9 @@ def kv_cache(cfg: ModelConfig, layers: int, batch: int, max_seq: int,
 def update_cache_layer(cache_k: torch.Tensor, cache_v: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor,
                        pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write (B, S_new, H, D) at time offset `pos`, in place (the reference
-    returns updated copies), cast to the cache's dtype."""
+    """Write (B, S_new, H, D) at time offset `pos` (a ring cache's pos % its
+    length), in place (the reference returns updated copies), cast to the
+    cache's dtype."""
     s = k_new.shape[1]
     if not 0 <= pos <= cache_k.shape[1] - s:
         raise ValueError(f"update_cache_layer: {s} rows at {pos} in a cache of "

@@ -1,6 +1,6 @@
 """Weights from the reference's parameter tree (counterpart of the tree that
-`repro.models.registry.init_params` builds for BERT and for the dense and
-vlm decoders).
+`repro.models.registry.init_params` builds for BERT and for the dense, vlm
+and moe decoders).
 
 The tree arrives as nested dicts of numpy arrays, with each block weight
 stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.transformer import layer_is_moe
 
 _ATTN = ("wq", "bq", "wk", "bk", "wv", "bv", "wo")
 _MLP = ("w1", "b1", "w2", "b2")
@@ -42,12 +43,21 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
     to the model's dtype.  A decoder's tree maps path for path: `embed`,
     `lm_head` (absent with a tied embedding), `ln_f.gamma`, and
     `blocks.<path>[i]` to `layers.<i>.<path>` (`wq`, `bq`, `q_norm`,
-    `ln1.gamma`, `mlp.wg`, ...)."""
+    `ln1.gamma`, ...).  The MLP and MoE stacks hold only their own layers:
+    `blocks.mlp.<path>[j]` goes to the j-th dense layer's `mlp.<path>`, and
+    `blocks.moe.<path>[j]` (`router`, `wg`, `wu`, `wd`, `shared.wg`, ...)
+    to the j-th MoE layer's `moe.<path>` (`transformer.layer_is_moe`)."""
     if cfg.family != "bert":
         state: Dict[str, torch.Tensor] = {}
         _flat("", {k: v for k, v in tree.items() if k != "blocks"}, state)
-        for i in range(cfg.num_layers):
-            _flat(f"layers.{i}.", tree["blocks"], state, i)
+        blocks = tree["blocks"]
+        shared = {k: v for k, v in blocks.items() if k not in ("mlp", "moe")}
+        counts = {"mlp": 0, "moe": 0}
+        for i, is_moe in enumerate(layer_is_moe(cfg)):
+            _flat(f"layers.{i}.", shared, state, i)
+            stack = "moe" if is_moe else "mlp"
+            _flat(f"layers.{i}.{stack}.", blocks[stack], state, counts[stack])
+            counts[stack] += 1
         return state
     t = _tensor
     state = {
@@ -104,8 +114,9 @@ def param_tree_from_model(model) -> Dict[str, Any]:
 
 def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
     """A KV cache tree of numpy arrays (the reference's bf16 `{"full": {"k",
-    "v"}}`, each (L, B, S, Hkv, D)) as bf16 tensors on `device`; the values
-    pass through float32, which holds every bf16 value exactly."""
+    "v"}}` and, with windowed layers, `"win"`, each (layers, B, rows, Hkv,
+    D)) as bf16 tensors on `device`; the values pass through float32, which
+    holds every bf16 value exactly."""
     return {group: {name: torch.from_numpy(np.array(a, np.float32, copy=True))
                     .to(device=device, dtype=torch.bfloat16)
                     for name, a in kv.items()}

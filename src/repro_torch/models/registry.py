@@ -1,8 +1,8 @@
 """Model family registry (counterpart of `repro/models/registry.py`).
 
-The port carries BERT and the full-attention decoders of the dense and vlm
-families (models/transformer.py); every other family of the reference
-raises until it is ported.
+The port carries BERT and the decoders of the dense, vlm and moe families
+(models/transformer.py); every other family of the reference raises until it
+is ported.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import bert as bert_mod
 from repro_torch.models import transformer as tf
 
-_FAMILIES = {"bert": bert_mod, "dense": tf, "vlm": tf}
+_FAMILIES = {"bert": bert_mod, "dense": tf, "vlm": tf, "moe": tf}
 
 
 def module_for(cfg: ModelConfig):

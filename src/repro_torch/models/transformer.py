@@ -1,55 +1,75 @@
-"""Decoder-only transformer, full attention (counterpart of
-`repro/models/transformer.py`).
+"""Decoder-only transformer (counterpart of `repro/models/transformer.py`).
 
-One implementation covers the reference's dense and vlm stacks whose
-layers all attend in full:
+One implementation covers the reference's dense, vlm and moe stacks:
   * pre-norm GQA blocks (glm4, the qwen2-vl text backbone);
   * parallel attention + MLP blocks off one norm (command-r-plus);
+  * sliding-window layers (starcoder2) and local:global patterns (gemma3,
+    every `global_every`-th layer global), the attention logit soft cap;
+  * MoE blocks every `interleave`-th layer (granite: every layer; llama4:
+    every second, dense MLPs between) through models/moe.py;
   * qkv bias, qk-norm, RoPE, M-RoPE or learned positions, gated or plain
     MLP, RMSNorm or LayerNorm, tied or untied head;
   * NPE mode: projections through the MMU, norms, activations and the
     attention softmax through the NVU (models/common.py).
 
-The reference scans over stacked layers; here each layer is a module and
-the stack a Python loop.  Weights are held in cfg.dtype (the reference casts
-its float32 masters to cfg.dtype once per call, biases and gammas included).
+The reference scans over stacked layers (super-blocks of one local:global
+period or one dense/MoE interleave); here each layer is a module with its
+own window and its own MLP or MoE, and the stack a Python loop, which gives
+the same function.  Weights are held in cfg.dtype (the reference casts its
+float32 masters to cfg.dtype once per call, biases and gammas included).
 Attention, with or without a cache, is the flash kernel's dense mode: one
 softmax over every visible key.
 
-Not ported yet (ROADMAP queue 1, item 6): sliding-window and local:global
-layers (starcoder2, gemma3), whose ring caches need a validity mask the
-dense mode does not take, attention logit soft-capping, and MoE blocks
-(granite, llama4).  They raise NotImplementedError.
+The KV cache holds two groups, as the reference's: `full` (layers with
+window 0, max_seq rows, appended at pos) and `win` (windowed layers, a ring
+of min(window, max_seq) rows written at pos % its length).  A ring takes one
+token a call; `launch/serve.py` prefills such a model one token at a time.
+
+Not ported: a bidirectional decoder (cfg.causal False), which raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import Norm, param
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 ONES = ("gamma", "q_norm", "k_norm")    # initialised to one; other vectors to zero
+SMALL = ("router",)                     # normal x 0.02, as the embeddings
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what this module does not port yet."""
-    if cfg.attention != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attention!r} (ring caches with a validity mask) is "
-            "not ported; ROADMAP queue 1, item 6 (sliding-window and local:global layers)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks (models/moe.py) are not ported; ROADMAP queue 1, item 6")
-    if cfg.logit_softcap > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: attention logit soft-capping is not ported; ROADMAP queue 1, item 6")
     if not cfg.causal:
         raise NotImplementedError(f"{cfg.name}: a bidirectional decoder is not ported")
+
+
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Each layer's attention window (0: full causal attention)."""
+    L = cfg.num_layers
+    if cfg.attention == "sliding":
+        return np.full((L,), cfg.window, np.int32)
+    if cfg.attention == "local_global":
+        w = np.full((L,), cfg.window, np.int32)
+        w[cfg.global_every - 1::cfg.global_every] = 0      # every Nth is global
+        return w
+    return np.zeros((L,), np.int32)
+
+
+def layer_is_moe(cfg: ModelConfig) -> np.ndarray:
+    """Whether each layer's MLP is an MoE block: every `interleave`-th."""
+    flags = np.zeros((cfg.num_layers,), bool)
+    if cfg.moe:
+        flags[cfg.moe.interleave - 1::cfg.moe.interleave] = True
+    return flags
 
 
 class MLP(nn.Module):
@@ -65,7 +85,9 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, **kw):
+    """One layer: attention and norms, and an MLP or (is_moe) an MoE block."""
+
+    def __init__(self, cfg: ModelConfig, is_moe: bool = False, **kw):
         super().__init__()
         D, QD, KD = cfg.d_model, cfg.q_dim(), cfg.kv_dim()
         norm_bias = cfg.norm == "layernorm" and cfg.norm_bias
@@ -81,7 +103,10 @@ class Block(nn.Module):
             self.k_norm.fill_(1.0)
         if not cfg.parallel_block:
             self.ln2 = Norm(D, norm_bias, **kw)
-        self.mlp = MLP(cfg, **kw)
+        if is_moe:
+            self.moe = moe_mod.MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg, **kw)
 
 
 class Transformer(nn.Module):
@@ -104,7 +129,7 @@ class Transformer(nn.Module):
         self.ln_f = Norm(D, cfg.norm == "layernorm" and cfg.norm_bias, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = param(D, V, **kw)
-        self.layers = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, bool(m), **kw) for m in layer_is_moe(cfg))
 
     def head(self) -> torch.Tensor:
         """The (D, V) logits table."""
@@ -113,8 +138,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
         """Random weights with the reference's scales (`common._init_leaf`):
-        normal x 0.02 for the embeddings, normal x fan_in^-0.5 for the
-        matrices, ones for gammas and qk-norms, zeros for the other vectors.
+        normal x 0.02 for the embeddings and the MoE router, normal x
+        fan_in^-0.5 for the matrices (fan_in the second-to-last axis, so an
+        expert stack's D or F), ones for gammas and qk-norms, zeros for the
+        other vectors.
         Drawn in float32 on the generator's device one tensor at a time, so
         the largest temporary is one tensor, not a second copy of the model."""
         dev = generator.device
@@ -125,7 +152,7 @@ class Transformer(nn.Module):
             elif p.ndim == 1:
                 p.zero_()
             else:
-                scale = 0.02 if "embed" in leaf else p.shape[-2] ** -0.5
+                scale = 0.02 if "embed" in leaf or leaf in SMALL else p.shape[-2] ** -0.5
                 p.copy_(torch.randn(p.shape, generator=generator, device=dev).mul_(scale))
         return self
 
@@ -137,11 +164,14 @@ Model = Transformer
 
 
 def _attn(cfg: ModelConfig, p: Block, x: torch.Tensor, positions: torch.Tensor,
-          cache: Optional[KV] = None, pos: Optional[int] = None) -> torch.Tensor:
-    """The attention sublayer.  With `cache`, this layer's (B, max_seq, Hkv,
-    D) k and v: the new k/v are written in place at `pos` and the queries
-    attend over the cache, each to the positions <= its own; without one,
-    causally over x itself."""
+          window: int = 0, cache: Optional[KV] = None, pos: Optional[int] = None,
+          ring: bool = False) -> torch.Tensor:
+    """The attention sublayer.  With `cache`, this layer's (B, rows, Hkv, D)
+    k and v: the new k/v are written in place at `pos` and the queries
+    attend over the cache, each to the positions <= its own; with `ring`, the
+    cache is a window layer's ring, written at pos % rows and read with
+    causality off over its min(pos + 1, rows) written rows.  Without a
+    cache, causally over x itself, within `window` when it is > 0."""
     b, s, _ = x.shape
     q = cm.dense(cfg, x, p.wq, getattr(p, "bq", None)).reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = cm.dense(cfg, x, p.wk, getattr(p, "bk", None)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -156,7 +186,11 @@ def _attn(cfg: ModelConfig, p: Block, x: torch.Tensor, positions: torch.Tensor,
         q = cm.apply_mrope(q, positions, cfg.rope_theta)
         k = cm.apply_mrope(k, positions, cfg.rope_theta)
     if cache is None:                  # causal self-attention: x's keys are the cache
-        out = cm.attention_over_cache(cfg, q, k, v, 0)
+        out = cm.attention_over_cache(cfg, q, k, v, 0, window=int(window))
+    elif ring:
+        rows = cache[0].shape[1]
+        ck, cv = cm.update_cache_layer(cache[0], cache[1], k, v, pos % rows)
+        out = cm.attention_over_cache(cfg, q, ck, cv, pos, ring=rows)
     else:
         ck, cv = cm.update_cache_layer(cache[0], cache[1], k, v, pos)
         out = cm.attention_over_cache(cfg, q, ck, cv, pos)
@@ -171,14 +205,22 @@ def _mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     return cm.dense(cfg, h, p.w2, getattr(p, "b2", None))
 
 
+def _ffn(cfg: ModelConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+    """The layer's MoE block or MLP."""
+    if hasattr(p, "moe"):
+        return moe_mod.apply(cfg, p.moe, x)
+    return _mlp(cfg, p.mlp, x)
+
+
 def block(cfg: ModelConfig, p: Block, x: torch.Tensor, positions: torch.Tensor,
-          cache: Optional[KV] = None, pos: Optional[int] = None) -> torch.Tensor:
+          window: int = 0, cache: Optional[KV] = None, pos: Optional[int] = None,
+          ring: bool = False) -> torch.Tensor:
     h = cm.apply_norm(cfg, p.ln1, x)
-    a = _attn(cfg, p, h, positions, cache, pos)
+    a = _attn(cfg, p, h, positions, window, cache, pos, ring)
     if cfg.parallel_block:             # command-r: attention and MLP read one norm
         return x + a + _mlp(cfg, p.mlp, h)
     x = x + a
-    return x + _mlp(cfg, p.mlp, cm.apply_norm(cfg, p.ln2, x))
+    return x + _ffn(cfg, p, cm.apply_norm(cfg, p.ln2, x))
 
 
 def _positions(cfg: ModelConfig, b: int, s: int, start: int, device) -> torch.Tensor:
@@ -209,25 +251,41 @@ def apply(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
         positions = _positions(cfg, b, s, 0, x.device)
     if cfg.rope == "learned":
         x = x + model.pos_embed[:s][None].to(x.dtype)
-    for layer in model.layers:
-        x = block(cfg, layer, x, positions)
+    for layer, window in zip(model.layers, layer_windows(cfg)):
+        x = block(cfg, layer, x, positions, int(window))
     x = cm.apply_norm(cfg, model.ln_f, x)
     return cm.logits_out(cfg, x, model.head())
 
 
+def _cache_groups(cfg: ModelConfig, max_seq: int) -> Dict[str, Tuple[int, int]]:
+    """{group: (layers, rows)}: `full` for the layers with window 0 (max_seq
+    rows), `win` for the windowed ones (min(window, max_seq) rows), each
+    present only when it has layers, in the reference's order."""
+    windows = layer_windows(cfg)
+    out = {}
+    if (windows == 0).any():
+        out["full"] = (int((windows == 0).sum()), max_seq)
+    if (windows > 0).any():
+        out["win"] = (int((windows > 0).sum()), min(int(windows[windows > 0][0]), max_seq))
+    return out
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Dict]:
-    """Shapes and dtypes of the KV cache: every layer attends in full, so one
-    stacked `full` group of max_seq rows, keyed as the reference's tree."""
+    """Shapes and dtypes of the KV cache, keyed as the reference's tree: a
+    stacked group for the full layers and one for the windowed layers'
+    rings (`_cache_groups`)."""
     check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {"full": {name: (shape, cm.CACHE_DTYPE) for name in ("k", "v")}}
+    return {group: {name: ((layers, batch, rows, cfg.num_kv_heads, cfg.head_dim),
+                           cm.CACHE_DTYPE) for name in ("k", "v")}
+            for group, (layers, rows) in _cache_groups(cfg, max_seq).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """A zeroed cache of `cache_specs`' layout."""
     check_supported(cfg)
-    return {"full": cm.kv_cache(cfg, cfg.num_layers, batch, max_seq, device)}
+    return {group: cm.kv_cache(cfg, layers, batch, rows, device)
+            for group, (layers, rows) in _cache_groups(cfg, max_seq).items()}
 
 
 @torch.no_grad()
@@ -235,16 +293,25 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache, tokens: torch.Tenso
                 pos: int):
     """tokens (B, S) at positions pos..pos+S-1 (S > 1 is a prefill); pos is
     the current cache length.  Returns (logits (B, S, V), cache): the new
-    k/v are written into `cache` in place, and each token attends to the
-    cached positions <= its own."""
+    k/v are written into `cache` in place.  A full layer appends at pos and
+    each token attends to the cached positions <= its own; a window layer
+    writes its ring at pos % its rows and attends over the written rows
+    (S = 1 only: the reference's multi-token call on a ring is not causal)."""
     check_supported(cfg)
     x = _embed(cfg, model, tokens)
     b, s, _ = x.shape
+    if "win" in cache and s != 1:
+        raise ValueError(f"decode_step: {s} tokens into a cache with window rings; "
+                         "prefill them one at a time")
     positions = _positions(cfg, b, s, pos, x.device)
     if cfg.rope == "learned":
         x = x + model.pos_embed[pos:pos + s][None].to(x.dtype)
-    ck, cv = cache["full"]["k"], cache["full"]["v"]
-    for li, layer in enumerate(model.layers):
-        x = block(cfg, layer, x, positions, cache=(ck[li], cv[li]), pos=pos)
+    index = {"full": 0, "win": 0}          # each group's next stacked layer
+    for layer, window in zip(model.layers, layer_windows(cfg)):
+        group = "win" if window > 0 else "full"
+        i = index[group]
+        index[group] += 1
+        kv = (cache[group]["k"][i], cache[group]["v"][i])
+        x = block(cfg, layer, x, positions, cache=kv, pos=pos, ring=group == "win")
     x = cm.apply_norm(cfg, model.ln_f, x)
     return cm.logits_out(cfg, x, model.head()), cache

@@ -528,6 +528,61 @@ def test_dense_attention_ops_on_the_card_match_the_cpu_route(dev):
         _dense_close(q, k, v, kw, got)
 
 
+# the dense mode's window, causal switch and soft cap: (b, hq, hkv, sq, skv, d,
+# kv_len, causal, window, softcap)
+DENSE_MASK_CASES = [
+    (2, 32, 16, 1, 1024, 128, 1024, False, 0, 0.0),    # gemma3 ring, every key valid
+    (2, 32, 16, 1, 1024, 128, 300, False, 0, 0.0),     # the same ring before the wrap
+    (1, 32, 16, 300, 300, 128, 300, True, 64, 0.0),    # windowed prefill, tensor cores
+    (1, 4, 2, 2048, 2048, 64, 2048, True, 1024, 0.0),  # windowed prefill, two segments a tile
+    (2, 4, 2, 3, 2000, 64, 2000, True, 100, 0.0),      # windowed decode instance, 3 queries
+    (2, 24, 2, 1, 4096, 128, 4096, False, 0, 0.0),     # starcoder2 12:1 ring, tensor cores
+    (2, 4, 2, 1, 9000, 64, 9000, False, 0, 0.0),       # a ring past one 8192-key segment
+    (2, 32, 16, 1, 512, 128, 512, True, 0, 50.0),      # soft-capped decode
+    (1, 4, 2, 64, 64, 64, 64, True, 0, 5.0),           # soft-capped prefill, tight cap
+    (1, 4, 2, 64, 64, 64, 64, True, 16, 5.0),          # windowed and soft-capped
+]
+
+
+@pytest.mark.parametrize("case", DENSE_MASK_CASES)
+@pytest.mark.parametrize("use_pwl", [True, False])
+def test_dense_attention_window_ring_softcap(dev, case, use_pwl):
+    b, hq, hkv, sq, skv, d, kv_len, causal, window, softcap = case
+    q, k, v = _flash_inputs(dev, b, hq, hkv, sq, skv, d, torch.bfloat16, torch.bfloat16,
+                            seed=23)
+    q = q * 4                           # scores past the soft caps' knees
+    kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=softcap,
+              use_pwl=use_pwl, out_dtype=torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    got = fa.dense_attention(q, k, v, **kw)
+    _launched("flash_attention", before)
+    assert got.shape == (b, hq, sq, d)
+    _dense_close(q, k, v, kw, got)
+
+
+@pytest.mark.parametrize("sq,kv_len,window", [(1, 700, 64), (3, 700, 64), (40, 700, 64),
+                                              (1, 9000, 100), (40, 2100, 1024)])
+def test_dense_attention_never_reads_outside_the_window(dev, sq, kv_len, window):
+    """Keys below every row's window are not read: NaN there changes nothing."""
+    q, k, v = _flash_inputs(dev, 2, 4, 2, sq, kv_len, 64, torch.bfloat16, torch.bfloat16,
+                            seed=24)
+    kw = dict(kv_len=kv_len, window=window)
+    want = fa.dense_attention(q, k, v, **kw)
+    lo = kv_len - sq - window + 1
+    k[:, :, :lo], v[:, :, :lo] = float("nan"), float("nan")
+    assert torch.equal(fa.dense_attention(q, k, v, **kw), want)
+
+
+def test_dense_attention_default_arguments_keep_their_bits(dev):
+    """causal=True, window=0, softcap=0 spelled out is the call without them."""
+    for sq, kv_len in ((1, 700), (24, 1500)):
+        q, k, v = _flash_inputs(dev, 2, 4, 2, sq, 1500, 64, torch.bfloat16, torch.bfloat16,
+                                seed=25)
+        want = fa.dense_attention(q, k, v, kv_len=kv_len)
+        got = fa.dense_attention(q, k, v, kv_len=kv_len, causal=True, window=0, softcap=0.0)
+        assert torch.equal(got, want)
+
+
 # --- per-row MMU scales and the softmax key limit (the npec executor's) ---
 
 @pytest.mark.parametrize("m,k,n", [(1, 768, 64), (8, 768, 768), (8, 768, 64), (16, 3072, 768),

@@ -253,10 +253,10 @@ def test_decode_step_refuses_rows_past_the_cache():
 
 def test_registry_names_only_bert():
     """BERT's config maps to models/bert; a family the port does not carry
-    raises (the dense and vlm decoders map to models/transformer since
-    their port, tests/test_torch_transformer.py)."""
+    raises (the dense, vlm and moe decoders map to models/transformer since
+    their port, tests/test_torch_transformer.py and tests/test_torch_moe.py)."""
     _, cfg = _cfgs("float")
-    for family in ("moe", "ssm", "hybrid", "encdec"):
+    for family in ("ssm", "hybrid", "encdec"):
         with pytest.raises(ValueError):
             registry.module_for(dataclasses.replace(cfg, family=family))
     assert registry.module_for(cfg) is bert

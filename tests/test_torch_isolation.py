@@ -52,5 +52,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "npec.exec", "npec.trace", "npec.lower", "core.overlay",
                 "core.cycles", "npec.runtime.engine", "npec.fleet.sim", "npec.obs.tracer",
                 "core.fixedpoint", "models.transformer", "configs.glm4_9b",
-                "configs.command_r_plus_104b", "configs.qwen2_vl_7b"):
+                "configs.command_r_plus_104b", "configs.qwen2_vl_7b", "models.moe",
+                "configs.starcoder2_3b", "configs.gemma3_27b",
+                "configs.granite_moe_1b_a400m", "configs.llama4_maverick_400b_a17b"):
         assert "repro_torch." + new in names

@@ -91,3 +91,24 @@ def test_ops_quant_dense_is_the_8bit_mmu():
     got = ops.quant_dense(x, w)
     want = quant.dense_maybe_quant(x, w, npe_quant=True, bits=8)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_column_chunks_quantize_as_the_whole(monkeypatch, bits):
+    """A weight quantized a chunk of columns at a time (7 columns a chunk
+    here; a tied 262144-column head on the card) gives the whole weight's
+    values and scales; the 8-bit MMU's and the 16-bit product's results
+    are those of the unchunked weight (the 16-bit one within ATOL: its
+    float32 product is taken a chunk at a time)."""
+    w = torch.from_numpy(_x((64, 100), seed=5))
+    x = torch.from_numpy(_x((6, 64), seed=6))
+    whole = quant.quantize(w, bits, axis=1)
+    mmu8 = ops.quant_dense(x, w)
+    mmu16 = quant.dense_maybe_quant(x, w, npe_quant=True, bits=16)
+    monkeypatch.setattr(quant, "QUANT_CHUNK_BYTES", 7 * 64 * 4)
+    assert len(quant._column_chunks(w)) == 15
+    got = quant.quantize_columns(w, bits)
+    assert torch.equal(got.q, whole.q) and torch.equal(got.scale, whole.scale)
+    assert torch.equal(ops.quant_dense(x, w), mmu8)
+    np.testing.assert_allclose(quant.dense_maybe_quant(x, w, npe_quant=True, bits=16).numpy(),
+                               mmu16.numpy(), rtol=0, atol=ATOL * float(mmu16.abs().max()))
