@@ -68,7 +68,7 @@
    the launches of one NPE-8 execute against the graph's, and prints host
    ms and the stream's overlay instructions and model cycles; (c) prefills
    [5]'s 8 prompts through `compile_prefill`, loads them into the 8-slot
-   `compile_decode(256, batch=8)` stream and runs 16 steps in each mode
+   `compile_decode(256, batch=8)` stream and runs 8 steps in each mode
    (float greedy, the others fed its tokens), held against 8 per-sequence
    streams on the same tokens (NPE-8 bit for bit, else the reason and
    5e-3; float and NPE-16 within twice the stream's change under 1-ulp
@@ -76,7 +76,7 @@
    NPE-8 run against the graphs';
 7. serves from compiled streams through `NPEEngine` (`repro_torch.npec.runtime`)
    at full width and depth, [6]'s weights: (a) the NPE-8 engine (8 slots,
-   capacity 64, 16 tokens) on 12 EOS-aware requests, so slots are recycled:
+   capacity 64, 8 tokens) on 12 EOS-aware requests, so slots are recycled:
    its launches by kind checked exactly against the prefill and decode
    graphs it ran, each request's tokens bit for bit those of its own
    per-request streams (`compile_prefill` loaded into a batch=1
@@ -100,12 +100,13 @@
    prints teacher-forced top-1 agreement with float (not
    gated); and holds the kernel route (float32, 2 layers, full width,
    prefill plus 4 steps) against the port's plain route on the CPU;
-9. serves full-width, 62-layer Gemma3-27B (bf16, 27.0 B parameters; 52
-   local layers over 1024-row rings, 10 global) through `launch.serve.Server`:
+9. serves full-width Gemma3-27B cut to 18 of its 62 layers (three whole
+   local:global periods: 15 local layers over 1024-row rings, 3 global;
+   bf16, about 8.8 B parameters) through `launch.serve.Server`:
    8 slots, prompts of 7 to 16 tokens prefilled one token a call, 8 greedy
    tokens, in float and NPE-8, NPE-16 for one step and one prefill; checks
-   the launches of a step, a prefill and the served run exactly (NPE-8 435
-   quant_matmul, 249 nvu_layernorm, 62 pwl_eval, 62 flash_attention a
+   the launches of a step, a prefill and the served run exactly (NPE-8 127
+   quant_matmul, 73 nvu_layernorm, 18 pwl_eval, 18 flash_attention a
    step); holds every launch of one NPE-8 step to its plain version;
    profiles one; runs one slot in float to position 1040, past the ring's
    wrap, through the first 6 layers (one local:global period), and holds
@@ -120,10 +121,30 @@
    version, with the token-slots capacity dropped in each prefill; one step
    profiled; teacher-forced agreement with float (not gated); the route
    check at 2 layers in every mode;
-11. prints the kernel list, one JSON line of per-kernel numbers (launches on
-   the encoder, decode, npec, engine, GLM4, Gemma3 and Granite paths; the
-   npec instances of quant_matmul and nvu_softmax; the rows at each model's
-   shapes), the card, and last `{"ok": true, "device": {...}}`.
+11. runs the npec compiler and executor for the dense and MoE families on
+   the card: (a) GLM4-9B at full width, 24 of its 40 layers (float32 weights from
+   [8]'s seed through `param_tree_from_model`): [5]'s 8 prompts through one
+   compiled 16-row chunked prefill slice over 256-row banks, loaded into
+   the 8-slot `compile_decode(256, batch=8)` stream, 8 steps, float and
+   NPE-8 (fed float's tokens): compile seconds, host ms a slice and a step,
+   the NPE-8 run's launches against the graphs', every kernel call of one
+   NPE-8 step held to its plain version, one step profiled, NPE-8's top-1
+   agreement with float; (b) the executor against the port's
+   models/transformer on the card (its plain attention, float32) on the
+   same weights at 2 layers: 2 slots, prefill and 4 steps, float and NPE-8, logits within the
+   gate and the same greedy tokens; (c) Granite-3.0-1B-A400M at full width
+   and depth, float32: `compile_model` prefill streams at S = 64 and 120,
+   float and NPE-8, against models/transformer.apply on the card (given
+   the executor's expert ids, `models/moe.ForcedRouting`), every layer's routing
+   on the card (ids, gates, dispatch bit for bit against models/moe.route,
+   capacity `moe_capacity`, dropped token-slots reported), the launches of
+   an NPE-8 execute against the graph's and each of its kernel calls held
+   to its plain version;
+12. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode, npec, engine, GLM4, Gemma3, Granite, npec GLM4 and
+   npec Granite paths; the npec instances of quant_matmul and nvu_softmax;
+   the rows at each model's shapes and at the decoder executor's), the
+   card, and last `{"ok": true, "device": {...}}`.
 
 Any failure exits non-zero before the last line.  Details go to
 `chiprun_out/chip_smoke.json`.
@@ -216,17 +237,20 @@ GLM4_PREFILL_ROWS = 120     # the longest of [5]'s prompts: M of the tiled insta
 # since 1040 one-token steps of all 62 take about 90 s of host launches
 GEMMA3_MAX_PROMPT, GEMMA3_GEN, GEMMA3_MAX_SEQ = 16, 8, 32
 GEMMA3_WRAP_POS, GEMMA3_WRAP_SEQ, GEMMA3_WRAP_LAYERS = 1040, 1048, 6
+# served depth: 18 of the 62 layers, three whole local:global periods (5
+# local, 1 global), which keeps the whole script inside its time budget
+GEMMA3_LAYERS = 18
 # launches of one Gemma3-27B decode step (a prefill: one such step a prompt
-# token): 62 layers of q/k/v/o/gate/up/down and the tied head; two RMSNorms
-# and the q and k norms a layer and the final one; the GELU of each gate;
-# one dense attention a layer (52 over a ring, 10 global)
+# token) at L layers: q/k/v/o/gate/up/down a layer and the tied head; two
+# RMSNorms and the q and k norms a layer and the final one; the GELU of each
+# gate; one dense attention a layer (25 over a ring, 5 global at L = 30)
 GEMMA3_LAUNCHES = {
-    "npe-8bit": {"quant_matmul": 435, "nvu_layernorm": 249, "pwl_eval": 62,
-                 "flash_attention": 62, "nvu_softmax": 0},
-    "npe-16bit": {"quant_matmul": 0, "nvu_layernorm": 249, "pwl_eval": 62,
-                  "flash_attention": 62, "nvu_softmax": 0},
+    "npe-8bit": {"quant_matmul": 7 * GEMMA3_LAYERS + 1, "nvu_layernorm": 4 * GEMMA3_LAYERS + 1,
+                 "pwl_eval": GEMMA3_LAYERS, "flash_attention": GEMMA3_LAYERS, "nvu_softmax": 0},
+    "npe-16bit": {"quant_matmul": 0, "nvu_layernorm": 4 * GEMMA3_LAYERS + 1,
+                  "pwl_eval": GEMMA3_LAYERS, "flash_attention": GEMMA3_LAYERS, "nvu_softmax": 0},
     "float": {"quant_matmul": 0, "nvu_layernorm": 0, "pwl_eval": 0,
-              "flash_attention": 62, "nvu_softmax": 0},
+              "flash_attention": GEMMA3_LAYERS, "nvu_softmax": 0},
 }
 # Granite-3.0-1B-A400M decode serving: [5]'s 8 prompts (33 to 120 tokens, one
 # multi-token prefill each), 16 steps, 256 rows
@@ -652,6 +676,7 @@ def kernel_rows(dev, floor_ms):
     dense_rows(dev, g, row)
     glm4_kernel_rows(dev, g, row)
     npec_kernel_rows(dev, floor_ms, rows)
+    npec_decoder_kernel_rows(dev, floor_ms, rows)
     mask_rows(dev, row)
     return rows
 
@@ -1346,7 +1371,7 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
 
 # --- phase 6: the npec compiler and executor --------------------------------
 
-NPEC_T, NPEC_STEPS = 256, 16
+NPEC_T, NPEC_STEPS = 256, 8           # 8 steps keep the script within its budget
 NPEC_GATE = 1e-2            # the reference's gate for its executor (tests/test_npec.py:215-245)
 NPEC_SLOTS_TOL = 5e-3       # NPE-8 8-slot vs per-sequence streams, if not bit for bit
 
@@ -1401,6 +1426,71 @@ def npec_kernel_rows(dev, floor_ms, rows):
             x.numel() * 8 + limit.numel() * 4, [(ops_, F32_OPS_PER_S)],
             walk_fn=lambda: sm_mod.nvu_softmax_walk(x, limit=limit),
             yardstick_fn=lambda: torch.softmax(x, dim=-1), yardstick_name="torch.softmax")
+
+
+def npec_decoder_kernel_rows(dev, floor_ms, rows):
+    """The executor's kernel options at the shapes phase [11] gives them
+    (cell "npec_decoders"), timed in [3] with the other rows: the MMU with
+    one activation scale a row (f32 out) at an 8-slot GLM4 step's merged
+    q/o-class (8, 4096) @ (4096, 4096) and gate/up (8, 4096) @ (4096, 13696)
+    products, bit for bit against its plain version; nvu_softmax with a key
+    limit a row on (32, 256) rows (a decode step's rows over a 256-row bank),
+    and without a limit on Granite's (120, 32) router rows (a 120-token
+    prefill's softmax over 32 experts), bit for bit against its walk;
+    nvu_layernorm rms_only and pwl_eval SiLU in f32 at (8, 4096) and
+    (8, 13696), the executor's dtype."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(11)
+    row = functools.partial(kernel_row, rows, floor_ms, cell="npec_decoders")
+    m = SLOTS
+    for k, n in ((4096, 4096), (4096, 13696)):
+        x = torch.randn(m, k, generator=g, device=dev) * (1 + 3 * torch.rand(m, 1, generator=g,
+                                                                              device=dev))
+        xq = quantize(x, 8, axis=0)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
+        a, b = xq.q.contiguous(), wq.q.contiguous()
+        lib_a = torch.cat([a, a.new_zeros(32 - m, k)])
+
+        def plain():
+            return qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale)
+
+        row("quant_matmul", f"({m}, {k}) @ ({k}, {n}) row scales", torch.float32,
+            lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale), plain,
+            m * k + k * n + 4 * m + 4 * n + 4 * m * n, [(2 * m * n * k, INT8_OPS_PER_S)],
+            library_fn=lambda: torch._int_mm(lib_a, b),
+            library_name="torch._int_mm, rows zero-padded to 32", walk_fn=plain,
+            walk_name="plain")
+        del x, xq, wq, a, b, lib_a
+    for r, n, what in ((32, 256, "limit a row (decode)"), (120, 32, "router, no limit")):
+        x = torch.randn(r, n, generator=g, device=dev) * 3
+        limit = (torch.randint(1, n + 1, (r,), generator=g, device=dev, dtype=torch.int32)
+                 if "limit" in what else None)
+        ops_ = x.numel() * (pwl_prefix_ops("exp") + 7) + r * (pwl_ops("recip") + 6)
+        row("nvu_softmax", f"({r}, {n}) {what}", torch.float32,
+            lambda: sm_mod.nvu_softmax(x, limit=limit),
+            lambda: sm_mod.nvu_softmax_plain(x, limit=limit),
+            x.numel() * 8 + (limit.numel() * 4 if limit is not None else 0),
+            [(ops_, F32_OPS_PER_S)],
+            walk_fn=lambda: sm_mod.nvu_softmax_walk(x, limit=limit),
+            yardstick_fn=lambda: torch.softmax(x, dim=-1), yardstick_name="torch.softmax")
+    gam = 1 + 0.1 * torch.randn(4096, generator=g, device=dev)
+    x = torch.randn(m, 4096, generator=g, device=dev) * 2
+    rms = getattr(F, "rms_norm", None)
+    row("nvu_layernorm", f"({m}, 4096) rms_only", torch.float32,
+        lambda: ln_mod.nvu_layernorm(x, gam, None, eps=1e-6, rms_only=True),
+        lambda: ln_mod.nvu_layernorm_plain(x, gam, None, eps=1e-6, rms_only=True),
+        x.numel() * 2 * 4 + 4096 * 4,
+        [(x.numel() * 4 + m * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)],
+        yardstick_fn=(lambda: rms(x, (4096,), gam, eps=1e-6)) if rms else None,
+        yardstick_name="F.rms_norm" if rms else None)
+    xs = torch.randn(m, 13696, generator=g, device=dev) * 4
+    tab = pe_mod.device_table("silu", 16, dev)
+    row("pwl_eval", f"({m}, 13696) silu", torch.float32,
+        lambda: pe_mod.pwl_eval(xs, "silu"),
+        lambda: pe_mod.pwl_eval_plain(xs, get_table("silu", 16)),
+        xs.numel() * 2 * 4, [(xs.numel() * pwl_prefix_ops("silu"), F32_OPS_PER_S)],
+        walk_fn=lambda: pe_mod.pwl_eval_walk(xs, tab),
+        yardstick_fn=lambda: F.silu(xs), yardstick_name="F.silu")
 
 
 def encode_layers(cfg, model: Bert, layers: int, tokens):
@@ -1612,7 +1702,8 @@ def npec_phase(dev, results):
     kernel options (held and timed in [3]), (b) the encoder stream, (c) the
     decode streams, at full width and depth (BERT-base, weights from [4]'s
     seed in float32)."""
-    opts = [r for r in results["rows"] if "row scales" in r["shape"] or "limit" in r["shape"]]
+    opts = [r for r in results["rows"] if r["cell"] is None
+            and ("row scales" in r["shape"] or "limit" in r["shape"])]
     say("  (a) the executor's kernel options, held and timed in [3]: " + "; ".join(
         f"{r['kernel']} {r['shape']} {r['ms']:.4f} ms (bound {r['bound_ms']:.6f}, "
         f"{'bit for bit' if r['bit_exact_walk'] else 'DIFFERS'})" for r in opts))
@@ -1636,7 +1727,7 @@ def npec_phase(dev, results):
 
 # --- phase 7: the npec serving runtime --------------------------------------
 
-ENGINE = dict(slots=8, capacity=64, max_new_tokens=16)
+ENGINE = dict(slots=8, capacity=64, max_new_tokens=8)     # 8 tokens: the script's budget
 ENGINE_REQUESTS, ENGINE_MAX_PROMPT, ENGINE_CHUNK = 12, 32, 16   # 12 on 8 slots: recycled
 PROFILE_STEP = 4            # the engine step run under torch.profiler
 
@@ -2113,8 +2204,9 @@ def glm4_phase(dev, card, results):
 # --- phase 9: Gemma3-27B: local:global attention over ring caches -----------
 
 def gemma3_phase(dev, card, results):
-    """Full-width Gemma3-27B (62 layers: 52 local over 1024-row rings, 10
-    global; bf16, 27.0 B parameters drawn from a torch generator) through
+    """Full-width Gemma3-27B cut to GEMMA3_LAYERS = 18 of its 62 layers (three
+    whole local:global periods: 15 local over 1024-row rings, 3 global;
+    bf16, about 8.8 B parameters drawn from a torch generator) through
     `launch.serve.Server`: (a) 8 slots, prompts of up to 16 tokens prefilled
     one token a call, 8 greedy steps, in float and NPE-8; (b) the launches
     of one step and of one prefill (a step a prompt token), and of the
@@ -2128,7 +2220,7 @@ def gemma3_phase(dev, card, results):
     routes wrap the ring), float only: a CPU NPE call quantizes every
     weight of the cut model, some 2.2 B values, for each of the run's 80
     one-token calls."""
-    cfg = get_config("gemma3_27b")
+    cfg = dataclasses.replace(get_config("gemma3_27b"), num_layers=GEMMA3_LAYERS)
     reqs = SyntheticRequests(cfg.vocab_size, max_prompt=GEMMA3_MAX_PROMPT, seed=1)
     prompts = [reqs.request(i) for i in range(SLOTS)]
     start = max(len(p) for p in prompts)
@@ -2138,7 +2230,9 @@ def gemma3_phase(dev, card, results):
     model = registry.build_model(cfg, device=dev, generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"  gemma3_27b L={cfg.num_layers} (all; 52 local of window {cfg.window}, 10 global) "
+    windows = registry.module_for(cfg).layer_windows(cfg)
+    say(f"  gemma3_27b L={cfg.num_layers} (of 62; {int((windows > 0).sum())} local of window "
+        f"{cfg.window}, {int((windows == 0).sum())} global) "
         f"D={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} Dh={cfg.head_dim} d_ff={cfg.d_ff} "
         f"V={cfg.vocab_size} tied {cfg.dtype}, {n_params:,} parameters "
         f"({torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card, drawn in "
@@ -2376,6 +2470,407 @@ def granite_phase(dev, card, results):
     say(f"  {since()} done")
 
 
+# --- phase 11: npec for the dense and MoE families ---------------------------
+
+# [11](a): GLM4-9B's depth through the executor.  On an H100 80GB HBM3 at
+# 700 W, 32 layers took [11] to 159.7 s, past its 150 s, and the script to
+# 1,144 s; 24 layers took [11] 122.6 s
+NPEC_GLM4_LAYERS = 24
+NPEC_CHUNK, NPEC_GLM4_T, NPEC_GLM4_STEPS = 16, 256, 8
+NPEC_CHECK_SLOTS, NPEC_CHECK_STEPS, NPEC_CHECK_T = 2, 4, 128     # [11](b), 2 layers
+GRANITE_NPEC_SEQS = (64, 120)                                     # [11](c)
+NPEC_MODES = ("float", "npe-8bit")
+
+
+def f32_cache(cfg, rows: int, dev):
+    """A one-sequence float32 KV cache for the model's plain attention: the
+    executor's banks are float32, where the served model's cache is bf16."""
+    kv = lambda: torch.zeros(cfg.num_layers, 1, rows, cfg.num_kv_heads, cfg.head_dim,  # noqa: E731
+                             device=dev)
+    return {"full": {"k": kv(), "v": kv()}}
+
+
+def chunked_prefill(chunk, tree, c, prompt, dev):
+    """One prompt through the 16-row chunked slice stream, slice by slice,
+    carrying the cache banks: (its banks' first len(prompt) rows, the last
+    prompt row's logits, host ms of each slice).  The last slice is padded
+    with token 0 at the positions after the prompt: their k/v rows lie past
+    the prompt and are not loaded, no prompt row sees them (a row sees the
+    slots up to its own position), and in NPE-8 they take part in the
+    slice's per-tensor activation scale."""
+    g = chunk.graph
+    banks = {name: torch.zeros(g.node(nid).shape, dtype=torch.float32, device=dev)
+             for name, nid in g.caches.items()}
+    n, ms, last = len(prompt), [], None
+    for base in range(0, n, NPEC_CHUNK):
+        toks = np.zeros(NPEC_CHUNK, np.int32)
+        real = prompt[base:base + NPEC_CHUNK]
+        toks[:len(real)] = real
+        rows = np.arange(base, base + NPEC_CHUNK, dtype=np.int32)
+        t0 = time.perf_counter()
+        res = npec.execute(chunk, tree, dict(banks, tokens=toks, pos_ids=rows), cfg=c, device=dev)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        banks.update(res.cache_updates)
+        if base + NPEC_CHUNK >= n:
+            last = res[0][n - 1 - base]
+    return {k: v[:n] for k, v in banks.items()}, last, ms
+
+
+def npec_glm4_serve(dev, ptree, base, results):
+    """(a) GLM4-9B at full width, NPEC_GLM4_LAYERS layers, float32 weights
+    from [8]'s seed: [5]'s 8 prompts through one compiled 16-row chunked
+    prefill slice over 256-row banks, loaded into the 8-slot
+    `compile_decode(256, batch=8)` stream, then NPEC_GLM4_STEPS steps; float
+    greedy, NPE-8 fed float's tokens.  Compile seconds, host ms a slice and
+    a step, the NPE-8 run's launches against the graphs', every kernel call
+    of one NPE-8 step held to its plain version, one step profiled, and
+    NPE-8's top-1 agreement with float over the first token and the steps."""
+    prompts = decode_prompts(base.vocab_size)
+    t0 = time.perf_counter()
+    chunk = npec.compile_prefill(base, NPEC_CHUNK, bits=8, cache_len=NPEC_GLM4_T)
+    dec = npec.compile_decode(base, NPEC_GLM4_T, bits=8, batch=SLOTS)
+    compile_s = time.perf_counter() - t0
+    slices = sum(-(-len(p) // NPEC_CHUNK) for p in prompts)
+    say(f"  (a) glm4_9b L={base.num_layers} (of 40) D={base.d_model} float32 weights; compiled "
+        f"the {NPEC_CHUNK}-row slice ({len(chunk.graph.nodes)} nodes, {len(chunk.instrs)} "
+        f"overlay instrs) and the {SLOTS}-slot decode step ({len(dec.graph.nodes)} nodes, "
+        f"{len(dec.instrs)} instrs) in {compile_s:.2f} s; prompts {[len(p) for p in prompts]} "
+        f"in {slices} slices, {NPEC_GLM4_STEPS} steps")
+
+    def run(c, feed=None, keep=None):
+        sess = npec.DecodeSession(dec, ptree, cfg=c, device=dev)
+        if keep is not None:
+            keep.append(sess)
+        first, slice_ms = [], []
+        for slot, p in enumerate(prompts):
+            kv, last, ms = chunked_prefill(chunk, ptree, c, p, dev)
+            sess.load_slot(slot, kv, len(p))
+            first.append(last)
+            slice_ms += ms
+        first = torch.stack(first)
+        cur = first.argmax(-1) if feed is None else feed[:, 0]
+        fed, logits, step_ms = [], [], []
+        for i in range(NPEC_GLM4_STEPS):
+            toks = cur if feed is None else feed[:, i]
+            fed.append(toks)
+            t1 = time.perf_counter()
+            out = sess.step(toks)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            logits.append(out)
+            cur = out.argmax(-1)
+        return dict(first=first, fed=torch.stack(fed, 1), logits=torch.stack(logits),
+                    slice_ms=slice_ms, step_ms=step_ms)
+
+    expected = {k: 0 for k in KERNELS}
+    for graph, n in ((chunk.graph, slices), (dec.graph, NPEC_GLM4_STEPS)):
+        for k, v in npec.expected_launches(graph, npe_quant=True, bits=8, use_pwl=True).items():
+            expected[k] += n * v
+    runs, out = {}, {}
+    for mode in NPEC_MODES:
+        c = MODES[mode](base)
+        t1 = time.perf_counter()
+        if mode == "npe-8bit":
+            kept_sess = []
+            counts, run_ = counted(lambda: run(c, runs["float"]["fed"], kept_sess))
+        else:
+            counts, run_ = counted(lambda: run(c))
+        seconds = time.perf_counter() - t1
+        runs[mode] = run_
+        logits = torch.cat([run_["first"][None], run_["logits"]])
+        if tuple(logits.shape) != (NPEC_GLM4_STEPS + 1, SLOTS, base.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"npec glm4 {mode}: logits of shape {tuple(logits.shape)} "
+                             "or not finite")
+        float_toks = torch.cat([runs["float"]["first"].argmax(-1)[None],
+                                runs["float"]["logits"].argmax(-1)])
+        agree = float(logits.argmax(-1).eq(float_toks).float().mean())
+        slice_ms = sorted(run_["slice_ms"])[len(run_["slice_ms"]) // 2]
+        step_ms = sorted(run_["step_ms"])[NPEC_GLM4_STEPS // 2]
+        out[mode] = dict(seconds=seconds, host_ms_per_slice=slice_ms, host_ms_per_step=step_ms,
+                         slice_ms=run_["slice_ms"], step_ms=run_["step_ms"],
+                         agreement_with_float=agree, launches=counts,
+                         tokens=run_["fed"].tolist())
+        say(f"  {mode:10s} {slices} prefill slices {slice_ms:.1f} ms host each (median), "
+            f"{NPEC_GLM4_STEPS} steps {step_ms:.1f} ms host each (median); top-1 agreement with "
+            f"float {agree:.4f}; {seconds:.1f} s; launches {counts}")
+    npe8 = out["npe-8bit"]
+    npe8["expected_launches"] = expected
+    say(f"  launches of the NPE-8 run ({slices} slices + {NPEC_GLM4_STEPS} steps) from the graphs "
+        f"{expected}")
+    if npe8["launches"] != expected or any(npe8["launches"][k] == 0 for k in NPEC_KERNELS):
+        raise SystemExit("npec glm4: launches differ from the graphs'")
+    sess, last = kept_sess[0], runs["npe-8bit"]["fed"][:, -1]
+    idle = np.zeros(SLOTS, bool)
+    with kept_kernel_calls() as kept:
+        sess.step(last, active=idle)
+    torch.cuda.synchronize()
+    checked = npe8["kept_calls"] = check_kept_calls(kept)
+    say("  every kernel call of one NPE-8 step (first at each shape) once more vs its plain "
+        "version: " + "; ".join(f"{k} {r['calls']} calls at {len(r['shapes'])} shapes max-abs "
+                                f"{r['max_abs_err']:.2e}"
+                                + ("" if r["bit_for_bit"] is None else
+                                   f", {'bit for bit' if r['bit_for_bit'] else 'NOT bit for bit'}")
+                                for k, r in checked.items()))
+    if not all(r["ok"] and r["calls"] for r in checked.values()):
+        raise SystemExit("npec glm4: a kernel call of the NPE-8 step disagrees with its plain "
+                         "version")
+    npe8["profile"] = prof = profile_call(lambda: sess.step(last, active=idle),
+                                          npe8["host_ms_per_step"])
+    say_profile("one more NPE-8 step", prof)
+    results["npec_glm4"] = dict(out, layers=base.num_layers, compile_s=compile_s,
+                                slices=slices, prompts=[len(p) for p in prompts])
+    return npe8["launches"]
+
+
+def npec_glm4_check(dev, ptree, model, results):
+    """(b) The executor against the port's models/transformer on the same
+    weights on the card: GLM4-9B at full width cut to 2 layers, float32
+    weights and a float32 cache, the model's attention its plain version
+    (`ops.plain_dense_attention`).  NPEC_CHECK_SLOTS of [5]'s prompts, each prefilled
+    by its own `compile_prefill` stream and loaded into a 2-slot decode
+    stream, then NPEC_CHECK_STEPS steps; the model runs each prompt alone
+    (one activation scale a row, as the stream's).  All fed the model's
+    float greedy tokens.  Logits within FLOAT_TOL (float) or NPE16_TOL
+    (NPE-8), or past it within twice the model's own change under 1-ulp
+    weights; the executor's greedy token equal to the model's wherever the
+    model's top-2 margin is above that gate."""
+    cfg = model.cfg
+    prompts = decode_prompts(cfg.vocab_size)[:NPEC_CHECK_SLOTS]
+    dec = npec.compile_decode(cfg, NPEC_CHECK_T, bits=8, batch=NPEC_CHECK_SLOTS)
+
+    def model_run(c, m, feed=None):
+        """(logits (steps + 1, slots, V), greedy tokens (slots, steps))"""
+        logits, toks = [], []
+        with ops.plain_dense_attention():
+            for p in prompts:
+                cache = f32_cache(cfg, NPEC_CHECK_T, dev)
+                lg = registry.decode_step(c, m, cache, torch.as_tensor(p, device=dev).long()[None],
+                                          0)[0]
+                rows, cur, seq = [lg[0, -1]], int(lg[0, -1].argmax()), []
+                for i in range(NPEC_CHECK_STEPS):
+                    tok = cur if feed is None else int(feed[len(toks), i])
+                    seq.append(tok)
+                    lg = registry.decode_step(c, m, cache, torch.tensor([[tok]], device=dev),
+                                              len(p) + i)[0]
+                    rows.append(lg[0, -1])
+                    cur = int(lg[0, -1].argmax())
+                logits.append(torch.stack(rows))
+                toks.append(seq)
+        return torch.stack(logits, 1), np.asarray(toks)
+
+    def exec_run(c, feed):
+        sess = npec.DecodeSession(dec, ptree, cfg=c, device=dev)
+        first = []
+        for slot, p in enumerate(prompts):
+            res = npec.execute(npec.compile_prefill(cfg, len(p), bits=8), ptree, {"tokens": p},
+                               cfg=c, device=dev)
+            sess.load_slot(slot, res.kv_exports, len(p))
+            first.append(res[0][-1])
+        rows = [torch.stack(first)]
+        for i in range(NPEC_CHECK_STEPS):
+            rows.append(sess.step(torch.as_tensor(feed[:, i], device=dev)))
+        return torch.stack(rows)
+
+    t0 = time.perf_counter()
+    _, feed = model_run(cfg, model)
+    noisy, out = None, {}
+    for mode in NPEC_MODES:
+        c = MODES[mode](cfg)
+        want, _ = model_run(c, model, feed)
+        got = exec_run(c, feed)
+        err = float((got - want).abs().max())
+        base_tol = FLOAT_TOL if mode == "float" else NPE16_TOL
+        noise = None
+        if err > base_tol:
+            if noisy is None:
+                noisy = nudge(model).to(dev)
+            noise = float((model_run(c, noisy, feed)[0] - want).abs().max())
+        gate = max(base_tol, NOISE_FACTOR * noise) if noise is not None else base_tol
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        differ = got.argmax(-1) != want.argmax(-1)
+        near = bool((margin[differ] <= gate).all())
+        ok = err <= gate and near and bool(torch.isfinite(got).all())
+        out[mode] = dict(max_abs=err, gate=gate, nudge_max_abs=noise,
+                         tokens_differ=int(differ.sum()), tokens=int(differ.numel()),
+                         differ_at_near_ties=near, ok=ok)
+        say(f"  (b) {mode:10s} executor vs models/transformer decode_step (its plain attention, "
+            f"float32 cache), glm4_9b 2 layers full width, {NPEC_CHECK_SLOTS} slots (prompts "
+            f"{[len(p) for p in prompts]}), prefill + {NPEC_CHECK_STEPS} steps: max-abs "
+            f"{err:.3e} (gate {gate:.3e}"
+            + ("" if noise is None else f"; the model under 1-ulp weights {noise:.3e}")
+            + f"), greedy tokens differ at {int(differ.sum())} of {differ.numel()}"
+            + (" (each at a top-2 margin below the gate)" if differ.any() and near else "")
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"npec glm4 check, {mode}: the executor disagrees with "
+                             "models/transformer")
+    results["npec_glm4_check"] = dict(out, seconds=time.perf_counter() - t0)
+
+
+def npec_granite(dev, results):
+    """(c) Granite-3.0-1B-A400M at full width and depth (24 MoE layers,
+    float32 weights from seed 0): `compile_model` prefill streams at S = 64
+    and 120 through the executor against the port's models/transformer.apply
+    on the same weights on the card (its plain attention), float and NPE-8.
+    A routing choice can turn on the last bit of a router probability, and
+    the two sum their products in other orders, so the model takes the
+    executor's expert ids (`models/moe.ForcedRouting`); where its own top-k differs
+    from them, the count and the largest probability gap are reported (a
+    near tie), and in float the gap must stay below NPE16_TOL.  Logits
+    within FLOAT_TOL / NPE16_TOL or twice the model's own change under
+    1-ulp weights (with the same ids), top-1 as `decode_route_check` holds
+    a route.  Routing, layer by layer: each layer's input from the model's
+    run through `trace_moe_block` against `models/moe.route`, both on the
+    card: ids and gates bit for bit, the dispatch buffer bit for bit
+    against the model's slots, capacity `moe_capacity` (20 and 37), the
+    dropped token-slots reported.  The launches of an NPE-8 execute against
+    the graph's, and every kernel call of one at S = 120 held to its plain
+    version."""
+    import types
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"), dtype="float32")
+    t0 = time.perf_counter()
+    model = registry.build_model(cfg, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+    ptree = npec.ParamTree(param_tree_from_model(model), dev)
+    routers = ptree.tree["blocks"]["moe"]["router"]
+    m = cfg.moe
+    say(f"  (c) granite_moe_1b_a400m L={cfg.num_layers} D={cfg.d_model} E={m.num_experts} "
+        f"top-{m.top_k}, float32 weights drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(21)
+    noisy, out, launches_ = None, {}, {k: 0 for k in KERNELS}
+    for S in GRANITE_NPEC_SEQS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(dev)
+        cap = npec.moe_capacity(cfg, S)
+        for mode in NPEC_MODES:
+            c = MODES[mode](cfg)
+            bits = 8 if c.npe_quant else 16
+            compiled = npec.compile_model(cfg, S, bits=bits)
+            g = compiled.graph
+            g.outputs.extend(n.id for n in g.nodes            # each layer's expert ids
+                             if n.op == "topk" and n.attrs["out"] == "indices")
+            exec_ = lambda: npec.execute(compiled, ptree, {"tokens": toks}, cfg=c,  # noqa: E731
+                                         device=dev)
+            exec_()
+            res, host_ms = timed(exec_)
+            got, ids = res.outputs[0], res.outputs[1:]
+            with moe_mod.ForcedRouting(ids) as fr, ops.plain_dense_attention():
+                want = registry.apply(c, model, toks)
+            err = float((got - want).abs().max())
+            top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            base_tol = FLOAT_TOL if mode == "float" else NPE16_TOL
+            if noisy is None:
+                noisy = nudge(model).to(dev)
+            with moe_mod.ForcedRouting(ids), ops.plain_dense_attention():
+                ref2 = registry.apply(c, noisy, toks)
+            noise = float((ref2 - want).abs().max())
+            noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
+            gate = max(base_tol, NOISE_FACTOR * noise)
+            gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if c.npe_quant else 0.99
+            near = mode != "float" or fr.gap <= NPE16_TOL
+            # routing, layer by layer, on the card
+            ids_equal = gates_equal = buf_equal = True
+            dropped = []
+            for layer, (x, _) in enumerate(fr.calls):
+                block = npec.trace_moe_block(cfg, S, layer=layer, debug_outputs=True)
+                bout = npec.execute(block, ptree, {"x": x[0]}, cfg=c, device=dev).outputs
+                r = moe_mod.route(c, types.SimpleNamespace(router=routers[layer]), x)
+                ids_equal &= torch.equal(bout[2].reshape(-1).long(), r.expert_ids.reshape(-1))
+                gates_equal &= same_bits(bout[1].reshape(-1), r.gates.reshape(-1))
+                buf = torch.zeros(m.num_experts, r.capacity, cfg.d_model, device=dev)
+                kept = r.kept[0]
+                buf[r.expert_ids[0][kept], r.slot[0][kept]] = \
+                    x[0].repeat_interleave(m.top_k, 0)[kept]
+                buf_equal &= same_bits(bout[3], buf)
+                dropped.append(int((~r.kept).sum()))
+                if r.capacity != cap:
+                    raise SystemExit(f"npec granite S={S}: capacity {r.capacity} != {cap}")
+            ok = (err <= gate and top1 >= gate_top1 and ids_equal and gates_equal and buf_equal
+                  and near and bool(torch.isfinite(got).all()) and len(fr.calls) == cfg.num_layers)
+            r_out = dict(max_abs=err, gate=gate, top1=top1, gate_top1=gate_top1,
+                         nudge_max_abs=noise, nudge_top1=noise_top1, capacity=cap,
+                         own_routing_differs=fr.differ, own_routing_max_gap=fr.gap,
+                         dropped_per_layer=dropped, dropped=sum(dropped),
+                         token_slots=S * m.top_k * cfg.num_layers,
+                         ids_bit_for_bit=ids_equal, gates_bit_for_bit=gates_equal,
+                         dispatch_bit_for_bit=buf_equal, host_ms=host_ms, ok=ok)
+            say(f"  (c) {mode:10s} S={S}: executor vs models/transformer.apply (plain attention, "
+                f"the executor's expert ids) max-abs {err:.3e} (gate {gate:.3e}), top-1 "
+                f"{top1:.4f} (gate {gate_top1:.4f}); the model's own top-k differs at "
+                f"{fr.differ} of {S * m.top_k * cfg.num_layers} choices (largest probability "
+                f"gap {fr.gap:.2e}); routing layer by layer vs models/moe.route: ids "
+                f"{'bit for bit' if ids_equal else 'DIFFER'}, gates "
+                f"{'bit for bit' if gates_equal else 'DIFFER'}, dispatch "
+                f"{'bit for bit' if buf_equal else 'DIFFERS'}; C={cap}, token-slots dropped "
+                f"{sum(dropped)} of {r_out['token_slots']}; {host_ms:.1f} ms host an execute"
+                + ("" if ok else "  FAIL"))
+            if not ok:
+                raise SystemExit(f"npec granite S={S} {mode}: the executor disagrees with the "
+                                 "model")
+            if mode == "npe-8bit":
+                n, _ = counted(exec_)
+                want_n = npec.expected_launches(g, npe_quant=True, bits=8, use_pwl=True)
+                for kk in KERNELS:
+                    launches_[kk] += n[kk]
+                r_out.update(launches=n, expected_launches=want_n)
+                if n != want_n:
+                    raise SystemExit(f"npec granite S={S}: launches {n} differ from the "
+                                     f"graph's {want_n}")
+                if S == GRANITE_NPEC_SEQS[-1]:
+                    with kept_kernel_calls() as kept_calls:
+                        exec_()
+                    torch.cuda.synchronize()
+                    checked = r_out["kept_calls"] = check_kept_calls(kept_calls)
+                    say(f"             launches of one NPE-8 execute {n} (the graph's); every "
+                        "kernel call (first at each shape) once more vs its plain version: "
+                        + "; ".join(f"{k} {r['calls']} calls max-abs {r['max_abs_err']:.2e}"
+                                    for k, r in checked.items()))
+                    if not all(r["ok"] for r in checked.values()):
+                        raise SystemExit("npec granite: a kernel call disagrees with its "
+                                         "plain version")
+            out[f"S={S} {mode}"] = r_out
+    results["npec_granite"] = dict(out, seconds=time.perf_counter() - t0)
+    return launches_
+
+
+def npec_decoders_phase(dev, results):
+    """[11] The npec compiler and executor for the dense and MoE families on
+    the card: (a) GLM4-9B served from compiled streams, (b) the executor
+    against models/transformer at 2 layers, (c) Granite's MoE prefill
+    streams and their routing."""
+    t0 = time.perf_counter()
+    cfg = get_config("glm4_9b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = registry.build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    t1 = time.perf_counter()
+    tree = param_tree_from_model(model)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model2 = registry.build_model(cfg2, device=dev, dtype=torch.float32)
+    model2.load_state_dict(model.state_dict(), strict=False)
+    del model
+    torch.cuda.empty_cache()
+    say(f"  glm4_9b float32 tree from the bf16 model ([8]'s seed) in {tree_s:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card after the model went "
+        f"(peak {peak:.1f} GiB)")
+    ptree = npec.ParamTree(tree, dev)
+    base = dataclasses.replace(cfg, dtype="float32", num_layers=NPEC_GLM4_LAYERS)
+    glm4_n = npec_glm4_serve(dev, ptree, base, results)
+    say(f"  ({time.perf_counter() - t0:.1f} s into [11])")
+    npec_glm4_check(dev, ptree, model2, results)
+    del ptree, tree, model2
+    torch.cuda.empty_cache()
+    say(f"  ({time.perf_counter() - t0:.1f} s into [11])")
+    granite_n = npec_granite(dev, results)
+    results["npec_glm4_launches"], results["npec_granite_launches"] = glm4_n, granite_n
+    results["npec_decoders_seconds"] = time.perf_counter() - t0
+    say(f"  phase [11]: {results['npec_decoders_seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2451,13 +2946,17 @@ def main() -> int:
     phase("[8] full-width GLM4-9B (40 layers) KV-cache decode serving through the kernels")
     glm4_phase(dev, card, results)
 
-    phase("[9] full-width Gemma3-27B (62 layers, local:global over ring caches) decode "
-          "serving through the kernels")
+    phase(f"[9] full-width Gemma3-27B ({GEMMA3_LAYERS} of 62 layers, local:global over ring "
+          "caches) decode serving through the kernels")
     gemma3_phase(dev, card, results)
 
     phase("[10] full-width Granite-3.0-1B-A400M (24 MoE layers) decode serving through the "
           "kernels")
     granite_phase(dev, card, results)
+
+    phase("[11] npec for the dense and MoE families: GLM4-9B and Granite-3.0-1B-A400M compiled "
+          "and executed on the card")
+    npec_decoders_phase(dev, results)
 
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
@@ -2488,12 +2987,14 @@ def main() -> int:
             launches_engine=results["engine_launches"][name],
             launches_glm4=results["glm4_launches"][name],
             launches_gemma3=results["gemma3_launches"][name],
-            launches_granite=results["granite_launches"][name]))
+            launches_granite=results["granite_launches"][name],
+            launches_npec_glm4=results["npec_glm4_launches"][name],
+            launches_npec_granite=results["npec_granite_launches"][name]))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
                           launch_floor_ms=x["launch_floor_ms"])
-                     for x in rows if x["kernel"] == name
+                     for x in rows if x["kernel"] == name and x["cell"] is None
                      and ("row scales" in x["shape"] or "limit" in x["shape"])]
         if npec_rows:
             kernels[-1]["npec_instances"] = npec_rows
@@ -2505,7 +3006,7 @@ def main() -> int:
                 kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
         if r["yardstick"]:
             kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
-        for cell in ("glm4", "gemma3", "starcoder2"):
+        for cell in ("glm4", "gemma3", "starcoder2", "npec_decoders"):
             cell_rows = [
                 dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                      bound_ms=x["bound_ms"], bound_by=x["bound_by"],
@@ -2521,7 +3022,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    phase("[11] summary")
+    phase("[12] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -11,18 +11,33 @@ its plain version for a tensor on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from repro_torch.core import nvu
 from repro_torch.core.quant import quantize, quantize_columns
-from repro_torch.kernels.flash_attention import dense_attention
+from repro_torch.kernels.flash_attention import dense_attention, dense_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm
 from repro_torch.kernels.nvu_softmax import nvu_softmax
 from repro_torch.kernels.pwl_eval import pwl_eval
 from repro_torch.kernels.quant_matmul import quant_matmul
+
+
+@contextlib.contextmanager
+def plain_dense_attention():
+    """Within: the models' attention (`dense_attention`) is its plain version
+    (torch ops) on every device, which takes float32 k and v on the card,
+    where the kernel takes a bf16 cache only: a float32 model on the card
+    can then be held to a float32 implementation.  The other kernels stay."""
+    global dense_attention
+    saved, dense_attention = dense_attention, dense_attention_plain
+    try:
+        yield
+    finally:
+        dense_attention = saved
 
 
 def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:

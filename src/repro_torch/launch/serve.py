@@ -34,6 +34,7 @@ FPGA overlay model's at 200 MHz, never time on the card:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
@@ -78,7 +79,8 @@ class Server:
 
     `model` shares weights between servers; without it the server draws
     random weights from `seed` on its device (`registry.build_model`).  Full
-    width and depth unless `smoke`."""
+    width and depth unless `smoke`; a given model sets the served depth (a
+    model cut in depth serves at its own number of layers)."""
 
     def __init__(self, arch: str = "bert_base", batch: int = 4, max_seq: int = 128,
                  mode: str = "float", device="cuda", model: Optional[torch.nn.Module] = None,
@@ -90,6 +92,8 @@ class Server:
         if mode not in MODES:
             raise KeyError(f"unknown mode {mode!r}; have {sorted(MODES)}")
         cfg = get_config(arch, smoke=smoke)
+        if model is not None:
+            cfg = dataclasses.replace(cfg, num_layers=model.cfg.num_layers)
         if max_seq > cfg.max_position:
             raise ValueError(f"max_seq {max_seq} > max_position {cfg.max_position}")
         self.cfg = MODES[mode](cfg)

@@ -7,8 +7,8 @@ stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
 (L, QD), `blocks.mlp.w1` (L, D, F), `blocks.ln1.gamma` (L, D), ...
 KV caches convert both ways, so that tests can compare them.  The npec
 executor takes the stacked tree itself (`param_tree_from_jax`), or the same
-tree built from a port `Bert` (`param_tree_from_model`), as on the card,
-which has no JAX.
+tree built from a port `Bert` or `Transformer` (`param_tree_from_model`),
+as on the card, which has no JAX.
 """
 from __future__ import annotations
 
@@ -89,9 +89,49 @@ def param_tree_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
 
 
 def param_tree_from_model(model) -> Dict[str, Any]:
-    """The tree `param_tree_from_jax` gives, built from a port `Bert`: its
-    weights in float32 on the model's device, block weights stacked over
-    the layer axis, as the reference's `init_params` lays them out."""
+    """The tree `param_tree_from_jax` gives, built from a port `Bert` or
+    `Transformer`: its weights in float32 on the model's device, block
+    weights stacked over the layer axis, as the reference's `init_params`
+    lays them out.  A decoder's tree is `params_from_jax`'s mapping turned
+    around: `embed`, `lm_head` (untied), `pos_embed` (learned positions),
+    `ln_f`, and `blocks` with the attention weights, norms and qk-norms of
+    every layer, `blocks.mlp` (wg/wu/wd or w1/b1/w2/b2) over the dense
+    layers alone and `blocks.moe` (router, wg/wu/wd stacked over the
+    experts, `shared`) over the MoE layers alone.
+    Each stack is allocated in float32 once and filled a layer at a time,
+    so beside the model and the tree there is at most one layer's weight
+    in float32: GLM4-9B's tree (37.6 GB) fits beside its bf16 model."""
+    if hasattr(model, "type_embed"):
+        return _bert_tree(model)
+    f = lambda t: t.detach().to(torch.float32)
+    tree: Dict[str, Any] = {"embed": f(model.embed),
+                            "ln_f": {k: f(v) for k, v in model.ln_f.named_parameters()}}
+    if hasattr(model, "lm_head"):
+        tree["lm_head"] = f(model.lm_head)
+    if hasattr(model, "pos_embed"):
+        tree["pos_embed"] = f(model.pos_embed)
+    # each parameter name of a layer -> the layers that hold it, in order
+    # (an mlp.* or moe.* name only the dense or the MoE layers)
+    holders: Dict[str, list] = {}
+    for layer in model.layers:
+        for name, t in layer.named_parameters():
+            holders.setdefault(name, []).append(t)
+    blocks: Dict[str, Any] = {}
+    for name, ts in holders.items():
+        stacked = torch.empty((len(ts),) + tuple(ts[0].shape), dtype=torch.float32,
+                              device=ts[0].device)
+        for i, t in enumerate(ts):
+            stacked[i].copy_(t.detach())
+        node = blocks
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = stacked
+    tree["blocks"] = blocks
+    return tree
+
+
+def _bert_tree(model) -> Dict[str, Any]:
     f = lambda t: t.detach().to(torch.float32)
     stack = lambda name: torch.stack([f(getattr(l, name)) for l in model.layers])
 

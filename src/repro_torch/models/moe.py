@@ -23,7 +23,7 @@ a (B, S*k, E, C) tensor of zeros and ones); here the buffer is filled by an
 index scatter and read back by an index gather.  Every dispatch and combine
 term of the reference has exactly one nonzero product, so the two give the
 same bits; `dispatch_mask` is kept as the reference's function for the
-tests and the npec executor to come.
+tests and the npec executor.
 """
 from __future__ import annotations
 
@@ -151,6 +151,53 @@ def route(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> Routing:
     ids = expert_ids.reshape(b, s * k)
     slot, kept = dispatch_slots(ids, E, cap)
     return Routing(gate_vals.reshape(b, s * k), ids, slot, kept, cap)
+
+
+class ForcedRouting:
+    """Within: each call of `route` (one a MoE layer, in layer order) takes
+    the expert ids `ids[i]` (k a token, e.g. the npec executor's topk
+    output) in place of its own top-k; its gates are its own router
+    probabilities at those ids (renormalized as `route` does), its slots
+    and drops `dispatch_slots` of them.  Records each call's input and
+    routing (`calls`), and where its own top-k differs: the count
+    (`differ`) and the largest probability gap between its own and the
+    forced choice at the same rank (`gap`).  Two implementations that sum
+    router products in other orders can choose other experts on the last
+    bit of a probability; forced to the same ids, their outputs compare."""
+
+    def __init__(self, ids):
+        self.ids, self.calls, self.differ, self.gap = ids, [], 0, 0.0
+
+    def __enter__(self):
+        self.route = own_route = route
+
+        def forced(cfg, p, x):
+            own = own_route(cfg, p, x)
+            m = cfg.moe
+            b, s, _ = x.shape
+            ids = self.ids[len(self.calls)].to(device=x.device, dtype=torch.long)
+            ids = ids.reshape(b, s, m.top_k)
+            probs = _router_probs(cfg, _f32_product(x, p.router))
+            gates = probs.gather(-1, ids)
+            if m.router_act == "softmax" and m.top_k > 1:
+                gates = renormalize_gates(gates)
+            flat = ids.reshape(b, s * m.top_k)
+            slot, kept = dispatch_slots(flat, m.num_experts, own.capacity)
+            mine = own.expert_ids.reshape(b, s, m.top_k)
+            diff = mine != ids
+            self.differ += int(diff.sum())
+            if diff.any():
+                gap = (probs.gather(-1, mine) - probs.gather(-1, ids)).abs()[diff]
+                self.gap = max(self.gap, float(gap.max()))
+            r = Routing(gates.reshape(b, -1), flat, slot, kept, own.capacity)
+            self.calls.append((x.detach().clone(), r))
+            return r
+
+        globals()["route"] = forced
+        return self
+
+    def __exit__(self, *exc):
+        globals()["route"] = self.route
 
 
 @torch.no_grad()

@@ -1,15 +1,19 @@
 """npec — the NPE compiler: model -> overlay instruction stream
-(counterpart of `repro/npec/__init__.py`, for the BERT family).
+(counterpart of `repro/npec/__init__.py`).
 
 The paper's headline claim is software-like programmability (§5, §6): the
 FPGA bitstream is fixed and every model is *compiled* to an instruction
 stream the ICU interprets.  The pipeline, as in the reference:
 
     trace    (npec.trace)    ModelConfig -> graph IR: per-head matmul /
-                             softmax / norm / activation dataflow; encoder
+                             softmax / norm / rope / activation dataflow
+                             for the bert, dense and moe families (MoE
+                             routing as topk / scatter_slot / gather ops
+                             with capacity-bounded per-expert products);
                              prefill, one-token KV-cache decode (batch=B
-                             slots in one stream) and serving prefill
-                             (whole, or chunked slices over cache banks).
+                             slots in one stream, ring banks with
+                             window=True) and serving prefill (whole, or
+                             chunked slices over cache banks).
     lower    (npec.lower)    graph IR -> overlay instructions: matmuls tiled
                              to the MMU geometry, nonlinearities expanded to
                              NVU microprograms with VLIW bundles.
@@ -24,7 +28,8 @@ same graph, instructions and cycle totals (tests/test_torch_npec.py).
 Cycles are the FPGA overlay model's (200 MHz), never time on the card.
 
 Entry points:
-    compile_model(cfg, seq, hw, ...)    trace + lower (encoder prefill).
+    compile_model(cfg, seq, hw, ...)    trace + lower (prefill of any
+                                        traced family).
     compile_decode(cfg, T, hw, ...)     one-token decode step over a KV
                                         cache of capacity T (batch=B: one
                                         merged B-slot stream).
@@ -47,9 +52,10 @@ from repro_torch.npec.lower import (CompiledProgram, LoweredInstr, lower,
                                     make_transfer, nvu_microprogram, tile_matmul)
 from repro_torch.npec.schedule import (greedy_schedule, issue_order, schedule_for,
                                        stream_schedule, transfer_cycles)
-from repro_torch.npec.trace import (CompileError, trace_bert_shape, trace_decode,
-                                    trace_decode_bert_shape, trace_model,
-                                    trace_prefill, trace_prefill_slice_shape)
+from repro_torch.npec.trace import (CompileError, moe_capacity, trace_bert_shape,
+                                    trace_decode, trace_decode_bert_shape, trace_model,
+                                    trace_moe_block, trace_prefill,
+                                    trace_prefill_slice_shape)
 from repro_torch.npec.exec import (DecodeSession, ExecResult, ParamTree, execute,
                                    expected_launches)
 

@@ -1,5 +1,5 @@
 """Functional executor: run a compiled program numerically on torch tensors
-(counterpart of `repro/npec/exec.py`, without its MoE ops).
+(counterpart of `repro/npec/exec.py`).
 
 Interprets the npec graph behind a `CompiledProgram`, node by node in
 float32, on one device: the card unless the caller passes device="cpu".
@@ -8,16 +8,27 @@ Each node is routed as the reference routes it:
                         (activations per row on streams with a vector
                         `pos`); NPE-16: fake quantization and a float32
                         product (`core/quant.dense_maybe_quant`); float: a
-                        float32 product; the bias is added after;
+                        float32 product; the bias is added after.  Matmuls
+                        traced with quantize=False (the MoE router and
+                        expert products) stay float32 products in every
+                        mode, as `models/moe.apply` computes them;
   * QK^T / AV        -> float32 products on the activation path (never
                         quantized, as `common.attention_scores`);
   * softmax          -> PWL: the `nvu_softmax` kernel with a per-row key
                         limit (`ops.softmax(limit=)`), the masked softmax
                         of `core/nvu.nvu_softmax(where=)`; float:
                         `torch.softmax` with the same mask;
-  * layernorm / act  -> the `nvu_layernorm` and `pwl_eval` kernels in PWL
-                        mode, exact LayerNorm and GELU in float mode;
-  * embed, add, concat, reshape, cache, cache_append, slot_select -> torch.
+  * layernorm / rmsnorm / act -> the `nvu_layernorm` (RMSNorm as its
+                        `rms_only` instance) and `pwl_eval` kernels in PWL
+                        mode, exact norms and activations in float mode;
+  * rope             -> `common.apply_rope` at each row's position, or at a
+                        scalar or per-slot `pos`;
+  * MoE routing      -> `models/moe.top_k` (a stable sort: `jax.lax.top_k`'s
+                        order among ties) and `renormalize_gates`; the
+                        dispatch and combine by `models/moe.dispatch_slots`,
+                        an index scatter and gather with the one-hot
+                        products' bits, so capacity drops are the model's;
+  * embed, add, mul, concat, reshape, cache, cache_append, slot_select -> torch.
 On the CPU the kernel wrappers run their plain versions.
 
 Parameters are resolved once: `ParamTree` keeps each param node's slice,
@@ -44,7 +55,8 @@ from repro_torch.core import nvu
 from repro_torch.core.quant import dense_maybe_quant
 from repro_torch.kernels import ops
 from repro_torch.kernels.nvu_softmax import MAX_COLS
-from repro_torch.models.common import layernorm_exact
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import apply_rope, layernorm_exact, rmsnorm_exact
 from repro_torch.npec.ir import FOLDED_OPS, Graph, Node
 from repro_torch.npec.lower import CompiledProgram
 
@@ -122,6 +134,10 @@ class ParamTree:
 
 def _matmul(node: Node, a, b, bias, *, weight_resident: bool,
             npe_quant: bool, bits: int, act_axis=None):
+    if weight_resident and not node.attrs.get("quantize", True):
+        # float-pinned weight matmul (MoE router and expert products):
+        # `models/moe.apply` computes these as float products in NPE mode too
+        weight_resident = False
     if weight_resident:
         # MMU-resident weight; the tied-embedding logits head is stored
         # transposed, as models/common.logits_out feeds embed.T
@@ -172,6 +188,101 @@ def _softmax(node: Node, x, *, pos=None, use_pwl: bool, segments: int):
     return nvu.softmax(x, axis=-1, use_pwl=False, where=where)
 
 
+def _rmsnorm(node: Node, x, gamma, *, use_pwl: bool, segments: int):
+    eps = node.attrs.get("eps", 1e-6)
+    if use_pwl:
+        return ops.rmsnorm(x, gamma, eps=eps, segments=segments)
+    return rmsnorm_exact(x, gamma, eps)
+
+
+def _rope(node: Node, x, pos=None):
+    """pos=None rotates row i at position i (prefill); a scalar `pos`
+    rotates every row there (decode: the one new token); a (B,) vector
+    rotates row s at pos[s] (batched decode: one merged projection, one
+    new token a slot; chunked prefill: each row at its absolute position)."""
+    s = x.shape[-2]
+    lead = tuple(x.shape[:-2])
+    b = 1
+    for d in lead:
+        b *= d
+    x4 = x.reshape(b, s, 1, x.shape[-1])
+    if pos is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    elif pos.ndim == 1:
+        positions = pos.to(torch.int32).expand(b, s)
+    else:
+        positions = pos.to(torch.int32).reshape(1, 1).expand(b, s)
+    y = apply_rope(x4, positions, node.attrs["theta"])
+    return y.reshape(*lead, s, x.shape[-1])
+
+
+def _topk(node: Node, x):
+    """The k largest over the last axis in `jax.lax.top_k`'s order, as
+    `models/moe.route` takes them; the values node renormalizes the
+    selected gates when the router asks for it (softmax routers, k > 1)."""
+    vals, ids = moe_mod.top_k(x, node.attrs["k"])
+    if node.attrs["out"] == "indices":
+        return ids.to(torch.int32)
+    if node.attrs.get("renorm"):
+        vals = moe_mod.renormalize_gates(vals)
+    return vals
+
+
+def _dispatch_mask(memo, key, ids_flat, num_experts: int, capacity: int):
+    """The dispatch decision of (b, t) expert ids: each assignment's slot in
+    its expert and whether it is kept (slot < capacity), from the same
+    `models/moe.dispatch_slots` the model calls, so compiled streams drop
+    the token-slots the model drops.  Needed twice a MoE layer (scatter and
+    combine) from the same ids node, so memoized per `execute` call."""
+    k = (key, num_experts, capacity)
+    if k not in memo:
+        memo[k] = moe_mod.dispatch_slots(ids_flat, num_experts, capacity)
+    return memo[k]
+
+
+def _scatter_slot(node: Node, x, ids, *, memo, key):
+    """Capacity-bounded dispatch: (.., S, D) tokens -> (.., E, C, D) slot
+    buffers (token-slots past capacity drop; empty slots are zero rows).
+    Each kept (token, choice) is copied to its slot: the reference's
+    one-hot product, whose every sum has one nonzero term."""
+    e, cap, k = node.attrs["num_experts"], node.attrs["capacity"], node.attrs["top_k"]
+    lead = tuple(x.shape[:-2])
+    s, d = x.shape[-2:]
+    xf = x.reshape(-1, s, d)
+    b = xf.shape[0]
+    ids_flat = ids.reshape(-1, s * k).long()
+    slot, kept = _dispatch_mask(memo, key, ids_flat, e, cap)
+    x_rep = xf.repeat_interleave(k, dim=1) if k > 1 else xf
+    rows = torch.arange(b, device=x.device)[:, None].expand_as(ids_flat)
+    # a dropped choice writes a spill slot past the capacity, never read
+    buf = x.new_zeros(b, e, cap + 1, d)
+    buf[rows, ids_flat, torch.where(kept, slot, cap)] = x_rep
+    return buf[:, :, :cap].reshape(*lead, e, cap, d)
+
+
+def _gather_combine(node: Node, stacked, ids, gates, *, memo, key):
+    """Weighted combine of the (.., E*C, D) stacked expert outputs back to
+    (.., S, D) token order: each kept (token, choice) takes its gate times
+    its slot's row, a dropped one zero, and the k choices are summed; gates
+    are not renormalized after a drop (`models/moe.apply`)."""
+    e, cap, k = node.attrs["num_experts"], node.attrs["capacity"], node.attrs["top_k"]
+    lead = tuple(stacked.shape[:-2])
+    d = stacked.shape[-1]
+    s = node.shape[-2]
+    out_buf = stacked.reshape(-1, e, cap, d)
+    b = out_buf.shape[0]
+    ids_flat = ids.reshape(-1, s * k).long()
+    slot, kept = _dispatch_mask(memo, key, ids_flat, e, cap)
+    rows = torch.arange(b, device=stacked.device)[:, None].expand_as(ids_flat)
+    picked = out_buf[rows, ids_flat, slot.clamp(max=cap - 1)]
+    gated = gates.reshape(-1, s * k)[..., None] * picked
+    out = torch.where(kept[..., None], gated, torch.zeros((), dtype=gated.dtype,
+                                                         device=gated.device))
+    if k > 1:
+        out = out.reshape(b, s, k, d).sum(dim=2)
+    return out.reshape(*lead, s, d)
+
+
 def _nbytes(x: torch.Tensor) -> int:
     return int(x.numel()) * x.element_size()
 
@@ -179,17 +290,20 @@ def _nbytes(x: torch.Tensor) -> int:
 def expected_launches(graph: Graph, *, npe_quant: bool, bits: int,
                       use_pwl: bool) -> Dict[str, int]:
     """Kernel launches that one `execute` of `graph` makes on the card, from
-    its nodes: a quantizable weight matmul is one `quant_matmul` at 8 bits,
-    and each softmax, layernorm and act node one NVU kernel in PWL mode."""
+    its nodes: a quantizable weight matmul is one `quant_matmul` at 8 bits
+    (a quantize=False one, the MoE router's and experts', none), and each
+    softmax, layernorm, rmsnorm and act node one NVU kernel in PWL mode."""
     counts = {"quant_matmul": 0, "nvu_softmax": 0, "nvu_layernorm": 0,
               "pwl_eval": 0, "flash_attention": 0}
+    kernel = {"softmax": "nvu_softmax", "layernorm": "nvu_layernorm",
+              "rmsnorm": "nvu_layernorm", "act": "pwl_eval"}
     for n in graph.nodes:
-        if (n.op == "matmul" and npe_quant and bits == 8
-                and graph.node(n.inputs[1]).op == "param"):
-            counts["quant_matmul"] += 1
-        elif use_pwl and n.op in ("softmax", "layernorm", "act"):
-            counts[{"softmax": "nvu_softmax", "layernorm": "nvu_layernorm",
-                    "act": "pwl_eval"}[n.op]] += 1
+        if n.op == "matmul":
+            if (npe_quant and bits == 8 and n.attrs.get("quantize", True)
+                    and graph.node(n.inputs[1]).op == "param"):
+                counts["quant_matmul"] += 1
+        elif use_pwl and n.op in kernel:
+            counts[kernel[n.op]] += 1
     return counts
 
 
@@ -232,6 +346,7 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
 
     live = 0
     peak = 0
+    mask_memo: Dict[Any, Any] = {}          # per-call dispatch decisions
 
     def put(nid: int, val):
         nonlocal live, peak
@@ -281,12 +396,21 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
             eps = node.attrs.get("eps", 1e-5)
             put(node.id, ops.layernorm(x, gamma, beta, eps=eps, segments=segments)
                 if use_pwl else layernorm_exact(x, gamma, beta, eps))
+        elif op == "rmsnorm":
+            put(node.id, _rmsnorm(node, get(node.inputs[0]), get(node.inputs[1]),
+                                  use_pwl=use_pwl, segments=segments))
         elif op == "act":
             x = get(node.inputs[0])
             put(node.id, ops.pwl_activation(x, node.attrs["fn"], segments) if use_pwl
                 else nvu.activation(node.attrs["fn"], False)(x))
+        elif op == "rope":
+            x = get(node.inputs[0])
+            posv = get(node.inputs[1]) if len(node.inputs) > 1 else None
+            put(node.id, _rope(node, x, posv))
         elif op == "add":
             put(node.id, get(node.inputs[0]) + get(node.inputs[1]))
+        elif op == "mul":
+            put(node.id, get(node.inputs[0]) * get(node.inputs[1]))
         elif op == "concat":
             put(node.id, torch.cat([get(i) for i in node.inputs],
                                    dim=node.attrs["axis"]))
@@ -300,6 +424,21 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
             put(node.id, table[tokens.long()])
         elif op == "cache":
             put(node.id, feed(node.attrs["name"], torch.float32))
+        elif op == "topk":
+            x = get(node.inputs[0])
+            if len(node.inputs) > 1:
+                get(node.inputs[1])     # the indices ride the values pass
+            put(node.id, _topk(node, x))
+        elif op == "scatter_slot":
+            put(node.id, _scatter_slot(node, get(node.inputs[0]), get(node.inputs[1]),
+                                       memo=mask_memo, key=node.inputs[1]))
+        elif op == "gather":
+            if node.attrs["mode"] == "expert":
+                put(node.id, get(node.inputs[0])[..., node.attrs["index"], :, :])
+            else:
+                put(node.id, _gather_combine(node, get(node.inputs[0]),
+                                             get(node.inputs[1]), get(node.inputs[2]),
+                                             memo=mask_memo, key=node.inputs[1]))
         elif op == "cache_append":
             c = get(node.inputs[0])
             new = get(node.inputs[1])
@@ -330,10 +469,8 @@ def execute(program: Union[CompiledProgram, Graph], params: Any,
                 put(node.id, x[..., i])
             else:
                 put(node.id, x[..., i:i + 1, :])
-        else:       # rope, topk, scatter_slot, gather, mul, rmsnorm
-            raise NotImplementedError(
-                f"the port's executor has no rule for {op!r} yet (ROADMAP queue 1, "
-                "item 6: the dense and MoE families)")
+        else:
+            raise NotImplementedError(f"executor has no rule for {op!r}")
 
     return ExecResult([env[o] for o in graph.outputs], peak, n_instrs,
                       {name: env[nid]

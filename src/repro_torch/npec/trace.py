@@ -1,36 +1,59 @@
-"""Tracers: BERT -> npec graph IR (counterpart of `repro/npec/trace.py`, its
-BERT half).
+"""Tracers: registered model family -> npec graph IR (counterpart of
+`repro/npec/trace.py`).
 
 The tracer is the compiler's front end: it walks a `ModelConfig` and emits
 the per-sequence dataflow graph (`repro_torch.npec.ir`) that lowering maps
-onto the overlay.  The BERT emitters mirror the port's `models/bert.py` op
-for op, which is what makes the functional executor (`repro_torch.npec.exec`)
-checkable against that model.  They are copies of the reference's, so both
-packages compile a configuration to the same graph, node for node.
+onto the overlay.  Each family has an explicit emitter that mirrors the
+port's model op for op, which is what makes the functional executor
+(`repro_torch.npec.exec`) checkable against that model.  The emitters are
+copies of the reference's, so both packages compile a configuration to the
+same graph, node for node.
+
+Families:
+  * ``bert``   — post-norm encoder (paper Table 1), incl. GQA smoke shapes
+                 (`models/bert.py`).
+  * ``dense``  — pre-norm decoder blocks (RoPE + GQA + gated/plain MLP,
+                 RMSNorm or LayerNorm), full causal attention, or ring
+                 caches for "sliding" attention in the windowed decode
+                 stream (`models/transformer.py`).
+  * ``moe``    — dense blocks whose FFN is a mixture of experts every
+                 `interleave` layers (granite: every layer; llama4:
+                 interleaved, with a shared expert): the router product,
+                 softmax/sigmoid probabilities, top-k gates and ids
+                 (renormalized for softmax routers with k > 1), the
+                 capacity-bounded dispatch into (E, C, D) slot buffers
+                 with C = max(1, int(S*k/E * cf)), per-expert gated-MLP
+                 products and the gate-weighted combine, as
+                 `models/moe.apply` computes them (prefill only: the
+                 reference compiles no MoE decode stream).
+The reference's feature gates hold here too: per-head qk-norm,
+local:global attention, parallel blocks, logit soft caps and M-RoPE raise
+`CompileError` (gemma3, command-r, qwen2-vl), as does a MoE decode stream.
 
 Three modes, as in the reference:
   * prefill (`trace_model`) — the whole sequence at once, per-head
-    QK^T/softmax/AV over (S, S) scores (the bidirectional encoder);
+    QK^T/softmax/AV over (S, S) scores;
   * decode  (`trace_decode`) — ONE new token against a KV cache of
     capacity T: skinny (1, H) projections, cache-append of the new k/v,
     a (g, T) QK^T over the cache, a pos-masked softmax and the AV
-    reduction; batch=B merges B serving slots into one stream;
+    reduction; batch=B merges B serving slots into one stream, window=True
+    makes every bank a ring;
   * serving prefill (`trace_prefill`) — causal, with the logits head and
     kv exports that seed a decode slot; cache_len=T traces one chunked
     slice over the decode streams' cache banks.
-
-The dense and moe families raise `CompileError`: they wait for their models
-(ROADMAP queue 1, item 6).
 
 CLI (on the card unless --device cpu):
     PYTHONPATH=src python -m repro_torch.npec.trace --model bert_base [--seq N | --decode T] \\
         [--bits 8|16] [--check]
 prints the graph, its instruction counts by unit and the greedy and
 streaming schedules' totals, which are cycles of the FPGA overlay model
-(200 MHz), not time on a GPU.  --check holds the compiled encoder's cycles
-within 1% of the hand-built program (`core.cycles.build_encoder_program`),
-then runs the compiled stream through the executor and holds it against the
-port's `models/bert`; it exits non-zero past either gate.
+(200 MHz), not time on a GPU.  --check on bert_base holds the compiled
+encoder's cycles within 1% of the hand-built program
+(`core.cycles.build_encoder_program`), then runs the compiled stream through
+the executor and holds it against the port's `models/bert`; on a dense or
+moe config it holds the compiled prefill stream (and, for dense, a decode
+rollout) against the port's `models/transformer` at 2 layers; it exits
+non-zero past any gate.
 """
 from __future__ import annotations
 
@@ -39,8 +62,6 @@ from typing import Optional
 
 from repro_torch.config import ModelConfig
 from repro_torch.npec.ir import Graph, GraphBuilder
-
-_LATER = "(see ROADMAP.md queue 1, item 6: the dense and MoE families)"
 
 
 class CompileError(NotImplementedError):
@@ -52,7 +73,8 @@ class CompileError(NotImplementedError):
 # ---------------------------------------------------------------------------
 
 def _attention(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
-               KV: int, hd: int, qkv_bias: bool, causal: bool, tag: str,
+               KV: int, hd: int, qkv_bias: bool, causal: bool,
+               rope_theta: Optional[float], tag: str,
                export_kv: bool = False) -> int:
     """Per-head multi-head attention; returns the output-projection node.
 
@@ -61,9 +83,9 @@ def _attention(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
     the *scheduler's* job, not the tracer's.
 
     export_kv=True (serving prefill, `trace_prefill`) registers each kv
-    head's (S, hd) k and v nodes in `Graph.kv_exports` under the decode
-    streams' canonical cache names, so a slot's cache banks can be seeded
-    from one prefill pass.
+    head's post-rope (S, hd) k and v nodes in `Graph.kv_exports` under the
+    decode streams' canonical cache names, so a slot's cache banks can be
+    seeded from one prefill pass.
     """
     g = A // KV
     kv_nodes = {}
@@ -76,6 +98,8 @@ def _attention(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
               if qkv_bias else None)
         q = b.matmul(x, b.param(("blocks", "wq"), (H, hd), layer=l, cols=cq),
                      bias=bq, tag=f"{tag}.h{i}.q")
+        if rope_theta is not None:
+            q = b.rope(q, theta=rope_theta, tag=f"{tag}.h{i}.q_rope")
         if j not in kv_nodes:
             bk = (b.param(("blocks", "bk"), (hd,), layer=l, cols=ck)
                   if qkv_bias else None)
@@ -83,6 +107,8 @@ def _attention(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
                   if qkv_bias else None)
             k = b.matmul(x, b.param(("blocks", "wk"), (H, hd), layer=l,
                                     cols=ck), bias=bk, tag=f"{tag}.h{i}.k")
+            if rope_theta is not None:
+                k = b.rope(k, theta=rope_theta, tag=f"{tag}.h{i}.k_rope")
             v = b.matmul(x, b.param(("blocks", "wv"), (H, hd), layer=l,
                                     cols=ck), bias=bv, tag=f"{tag}.h{i}.v")
             kv_nodes[j] = (k, v)
@@ -101,7 +127,8 @@ def _attention(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
 
 def _plain_mlp(b: GraphBuilder, x: int, l: int, *, H: int, F: int,
                mlp_bias: bool, act: str, tag: str) -> int:
-    """GELU two-matmul MLP; returns the down projection (pre-residual)."""
+    """GELU-class two-matmul MLP (bert / plain dense); returns the down
+    projection (pre-residual)."""
     b1 = (b.param(("blocks", "mlp", "b1"), (F,), layer=l)
           if mlp_bias else None)
     ff1 = b.matmul(x, b.param(("blocks", "mlp", "w1"), (H, F), layer=l),
@@ -137,8 +164,8 @@ def _bert_layer(b: GraphBuilder, x: int, l: int, *, S: int, H: int, A: int,
                 mlp_bias: bool, tag: str, causal: bool = False,
                 export_kv: bool = False) -> int:
     proj = _attention(b, x, l, S=S, H=H, A=A, KV=KV, hd=hd,
-                      qkv_bias=qkv_bias, causal=causal, tag=tag,
-                      export_kv=export_kv)
+                      qkv_bias=qkv_bias, causal=causal, rope_theta=None,
+                      tag=tag, export_kv=export_kv)
     return _post_norm_rest(b, x, proj, l, H=H, F=F, eps=eps,
                            mlp_bias=mlp_bias, norm_beta=True, tag=tag)
 
@@ -190,16 +217,245 @@ def _trace_bert(cfg: ModelConfig, seq: int, layers: Optional[int],
     return b.g
 
 
-def _require_bert(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "bert":
-        raise CompileError(
-            f"the port's npec has no {what} tracer for family {cfg.family!r} "
-            f"({cfg.name!r}) yet {_LATER}")
+# ---------------------------------------------------------------------------
+# Dense decoder family (pre-norm GQA + gated/plain MLP)
+# ---------------------------------------------------------------------------
+
+def _check_block_supported(cfg: ModelConfig, *, moe_ok: bool = False,
+                           window_ok: bool = False) -> None:
+    """Feature gates shared by the dense and moe families, the reference's
+    own: `moe_ok` lets the moe tracer accept the MoE config it exists to
+    lower, `window_ok` lets the windowed decode tracers accept "sliding"
+    attention (a ring cache of capacity cfg.window IS sliding-window
+    attention — see `trace_decode(window=True)`)."""
+    attn_gap = (cfg.attention != "full"
+                and not (window_ok and cfg.attention == "sliding"))
+    for feat, msg in (
+            (cfg.moe is not None and not moe_ok, "MoE routing"),
+            (attn_gap, f"{cfg.attention!r} attention streams"),
+            (cfg.parallel_block, "parallel attn+mlp blocks"),
+            (cfg.qk_norm, "per-head qk-norm"),
+            (cfg.logit_softcap > 0, "logit softcapping"),
+            (cfg.ssm is not None, "SSM recurrences"),
+            (cfg.rope not in ("standard", "none"),
+             f"{cfg.rope!r} positional encoding"),
+    ):
+        if feat:
+            raise CompileError(
+                f"npec cannot lower {msg} yet for {cfg.name!r} "
+                "(see ROADMAP.md Open items)")
+
+
+def _check_dense_supported(cfg: ModelConfig, *,
+                           window_ok: bool = False) -> None:
+    _check_block_supported(cfg, moe_ok=False, window_ok=window_ok)
+
+
+def _rope_theta(cfg: ModelConfig) -> Optional[float]:
+    return cfg.rope_theta if cfg.rope == "standard" else None
+
+
+def _dense_embed(b: GraphBuilder, cfg: ModelConfig, rows: int,
+                 include_embed: bool) -> int:
+    """The token embedding of a decoder stream, or its hidden-state input."""
+    if include_embed:
+        tokens = b.input("tokens", (rows,), dtype="int32")
+        return b.embed(tokens, b.param(("embed",), (cfg.vocab_size, cfg.d_model)),
+                       tag="embed.tok")
+    return b.input("x", (rows, cfg.d_model))
+
+
+def _dense_head(b: GraphBuilder, cfg: ModelConfig, x: int,
+                include_embed: bool) -> Graph:
+    """The final norm, the logits head when the stream has its embedding,
+    and the output."""
+    x = _dense_norm(b, cfg, x, ("ln_f",), None, "ln_f")
+    if include_embed:
+        x = _logits_head(b, cfg, x)
+    b.output(x)
+    return b.g
+
+
+def _trace_dense(cfg: ModelConfig, seq: int, layers: Optional[int],
+                 include_embed: bool, *, export_kv: bool = False,
+                 window_ok: bool = False) -> Graph:
+    _check_dense_supported(cfg, window_ok=window_ok)
+    b = GraphBuilder()
+    S, H, A, KV = seq, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, F = cfg.head_dim, cfg.d_ff
+    L = layers if layers is not None else cfg.num_layers
+    x = _dense_embed(b, cfg, S, include_embed)
+    for l in range(L):
+        tag = f"blk{l}"
+        h = _dense_norm(b, cfg, x, ("blocks", "ln1"), l, f"{tag}.ln1")
+        attn = _attention(b, h, l, S=S, H=H, A=A, KV=KV, hd=hd,
+                          qkv_bias=cfg.qkv_bias, causal=cfg.causal,
+                          rope_theta=_rope_theta(cfg), tag=tag,
+                          export_kv=export_kv)
+        x = b.add(x, attn, tag=f"{tag}.res_a")
+        h2 = _dense_norm(b, cfg, x, ("blocks", "ln2"), l, f"{tag}.ln2")
+        down = _dense_mlp(b, cfg, h2, l, H=H, F=F, tag=tag)
+        x = b.add(x, down, tag=f"{tag}.res_b")
+    return _dense_head(b, cfg, x, include_embed)
+
+
+def _dense_mlp(b: GraphBuilder, cfg: ModelConfig, h2: int, l: int, *,
+               H: int, F: int, tag: str) -> int:
+    """Gated (SwiGLU/GeGLU) or plain MLP for the dense family; returns the
+    down projection (pre-residual)."""
+    if cfg.mlp_type == "gated":
+        gt = b.act(b.matmul(
+            h2, b.param(("blocks", "mlp", "wg"), (H, F), layer=l),
+            tag=f"{tag}.ffg"), cfg.activation, tag=f"{tag}.act")
+        up = b.matmul(h2, b.param(("blocks", "mlp", "wu"), (H, F),
+                                  layer=l), tag=f"{tag}.ffu")
+        hmid = b.mul(gt, up, tag=f"{tag}.gate")
+        return b.matmul(hmid, b.param(("blocks", "mlp", "wd"), (F, H),
+                                      layer=l), tag=f"{tag}.ffd")
+    return _plain_mlp(b, h2, l, H=H, F=F, mlp_bias=cfg.mlp_bias,
+                      act=cfg.activation, tag=tag)
+
+
+def _dense_norm(b: GraphBuilder, cfg: ModelConfig, x: int, path, layer,
+                tag: str) -> int:
+    """models/common.py::apply_norm at its default eps=1e-6, including the
+    beta parameter when the config carries one."""
+    H = cfg.d_model
+    gamma = b.param(tuple(path) + ("gamma",), (H,), layer=layer)
+    if cfg.norm == "layernorm":
+        beta = (b.param(tuple(path) + ("beta",), (H,), layer=layer)
+                if cfg.norm_bias else None)
+        return b.layernorm(x, gamma, beta, eps=1e-6, tag=tag)
+    return b.rmsnorm(x, gamma, eps=1e-6, tag=tag)
+
+
+# ---------------------------------------------------------------------------
+# MoE family (granite: every layer; llama4: every `interleave`-th layer)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(cfg: ModelConfig, seq: int) -> int:
+    """Expert capacity C = max(1, int(S*k/E * capacity_factor)) — the
+    per-sequence slot budget `models/moe.apply` dispatches into."""
+    m = cfg.moe
+    return max(1, int(seq * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def _moe_ffn(b: GraphBuilder, cfg: ModelConfig, x: int, mi: int, *, S: int,
+             tag: str):
+    """One MoE FFN block mirroring `models/moe.apply` op for op:
+    router matmul (MMU) -> softmax/sigmoid probabilities (NVU) -> top-k
+    gates + indices (renormalized for softmax routers with k > 1) ->
+    capacity-bounded scatter into (E, C, D) slot buffers (MWU) -> E
+    per-expert gated-MLP matmul streams over C-row tiles (skinny when
+    C < 128 PE rows) -> gate-weighted combine gather (MRU) -> optional
+    shared expert.  Router and expert matmuls are pinned to the float
+    path (`quantize=False`): the model computes them as float products
+    even in NPE mode; the shared expert routes through `common.dense` and
+    stays quantizable.
+
+    Returns (out_node, aux) where aux exposes the routing nodes
+    (gates/ids/dispatch/combine) for conformance and property tests.
+    """
+    m = cfg.moe
+    H, F, E, k = cfg.d_model, cfg.d_ff, m.num_experts, m.top_k
+    cap = moe_capacity(cfg, S)
+    router = b.param(("blocks", "moe", "router"), (H, E), layer=mi)
+    logits = b.matmul(x, router, quantize=False, tag=f"{tag}.router")
+    if m.router_act == "sigmoid":
+        probs = b.act(logits, "sigmoid", tag=f"{tag}.router_probs")
+    else:
+        probs = b.softmax(logits, tag=f"{tag}.router_probs")
+    renorm = m.router_act == "softmax" and k > 1
+    gates, ids = b.topk(probs, k, renorm=renorm, tag=f"{tag}.topk")
+    buf = b.scatter_slot(x, ids, num_experts=E, capacity=cap, top_k=k,
+                         tag=f"{tag}.dispatch")
+    outs = []
+    for e in range(E):
+        etag = f"{tag}.x{e}"
+        xe = b.gather(buf, index=e, tag=f"{etag}.gather")
+        wg = b.param(("blocks", "moe", "wg"), (H, F), layer=mi, index=e)
+        wu = b.param(("blocks", "moe", "wu"), (H, F), layer=mi, index=e)
+        wd = b.param(("blocks", "moe", "wd"), (F, H), layer=mi, index=e)
+        gt = b.act(b.matmul(xe, wg, quantize=False, tag=f"{etag}.ffg"),
+                   cfg.activation, tag=f"{etag}.act")
+        up = b.matmul(xe, wu, quantize=False, tag=f"{etag}.ffu")
+        h = b.mul(gt, up, tag=f"{etag}.gate")
+        outs.append(b.matmul(h, wd, quantize=False, tag=f"{etag}.ffd"))
+    stacked = (outs[0] if E == 1
+               else b.concat(outs, axis=-2, tag=f"{tag}.expert_stack"))
+    out = b.gather(stacked, expert_ids=ids, gates=gates, num_experts=E,
+                   capacity=cap, top_k=k, tag=f"{tag}.combine")
+    aux = dict(gates=gates, ids=ids, dispatch=buf, combine=out)
+    if m.shared_expert:
+        sg = b.act(b.matmul(x, b.param(("blocks", "moe", "shared", "wg"),
+                                       (H, F), layer=mi),
+                            tag=f"{tag}.shared.ffg"),
+                   cfg.activation, tag=f"{tag}.shared.act")
+        su = b.matmul(x, b.param(("blocks", "moe", "shared", "wu"), (H, F),
+                                 layer=mi), tag=f"{tag}.shared.ffu")
+        sh = b.mul(sg, su, tag=f"{tag}.shared.gate")
+        sd = b.matmul(sh, b.param(("blocks", "moe", "shared", "wd"), (F, H),
+                                  layer=mi), tag=f"{tag}.shared.ffd")
+        out = b.add(out, sd, tag=f"{tag}.shared.res")
+    return out, aux
+
+
+def _trace_moe(cfg: ModelConfig, seq: int, layers: Optional[int],
+               include_embed: bool) -> Graph:
+    """Pre-norm decoder stack whose FFN is MoE on every `interleave`-th
+    layer (`models/transformer.layer_is_moe`: layer l is MoE iff
+    (l+1) % interleave == 0) and a dense MLP otherwise — mirroring
+    `models/transformer.apply` for family "moe"."""
+    _check_block_supported(cfg, moe_ok=True)
+    b = GraphBuilder()
+    S, H, A, KV = seq, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, F = cfg.head_dim, cfg.d_ff
+    L = layers if layers is not None else cfg.num_layers
+    step = cfg.moe.interleave
+    x = _dense_embed(b, cfg, S, include_embed)
+    mi = di = 0                      # moe / dense-mlp stacked-param indices
+    for l in range(L):
+        tag = f"blk{l}"
+        h = _dense_norm(b, cfg, x, ("blocks", "ln1"), l, f"{tag}.ln1")
+        attn = _attention(b, h, l, S=S, H=H, A=A, KV=KV, hd=hd,
+                          qkv_bias=cfg.qkv_bias, causal=cfg.causal,
+                          rope_theta=_rope_theta(cfg), tag=tag)
+        x = b.add(x, attn, tag=f"{tag}.res_a")
+        h2 = _dense_norm(b, cfg, x, ("blocks", "ln2"), l, f"{tag}.ln2")
+        if (l + 1) % step == 0:
+            down, _ = _moe_ffn(b, cfg, h2, mi, S=S, tag=tag)
+            mi += 1
+        else:
+            down = _dense_mlp(b, cfg, h2, di, H=H, F=F, tag=tag)
+            di += 1
+        x = b.add(x, down, tag=f"{tag}.res_b")
+    return _dense_head(b, cfg, x, include_embed)
+
+
+def trace_moe_block(cfg: ModelConfig, seq: int, *, layer: int = 0,
+                    debug_outputs: bool = False) -> Graph:
+    """Graph of ONE MoE FFN block over an (S, D) hidden-state input — the
+    isolated unit the dispatch tests hold against `models/moe.apply` (feed
+    params under {"blocks": {"moe": ...}}).  debug_outputs=True also marks
+    the routing intermediates (gates, indices, dispatch buffer) as graph
+    outputs."""
+    b = GraphBuilder()
+    x = b.input("x", (seq, cfg.d_model))
+    out, aux = _moe_ffn(b, cfg, x, layer, S=seq, tag=f"moe{layer}")
+    b.output(out)
+    if debug_outputs:
+        b.output(aux["gates"])
+        b.output(aux["ids"])
+        b.output(aux["dispatch"])
+    return b.g
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+_TRACERS = {"bert": _trace_bert, "dense": _trace_dense, "moe": _trace_moe}
+
 
 def trace_model(cfg: ModelConfig, seq: int, *, layers: Optional[int] = None,
                 include_embed: bool = True) -> Graph:
@@ -208,15 +464,19 @@ def trace_model(cfg: ModelConfig, seq: int, *, layers: Optional[int] = None,
     layers=N truncates the stack (cycle models usually compile one layer
     and scale); include_embed=False starts from a hidden-state input.
     """
-    _require_bert(cfg, "prefill")
-    return _trace_bert(cfg, seq, layers, include_embed)
+    tracer = _TRACERS.get(cfg.family)
+    if tracer is None:
+        raise CompileError(
+            f"npec has no tracer for family {cfg.family!r} ({cfg.name!r}) "
+            "yet (see ROADMAP.md Open items)")
+    return tracer(cfg, seq, layers, include_embed)
 
 
 def trace_bert_shape(shape, *, layers: int = 1) -> Graph:
     """Encoder-only graph from dims alone: any object with the attributes
-    `seq`, `hidden`, `heads`, `head_dim` and `d_ff` (the reference's
-    `core.cycles.BertShape`).  No biases: bias adds are folded and cost
-    nothing, so the instruction stream is cycle-identical either way."""
+    `seq`, `hidden`, `heads`, `head_dim` and `d_ff` (`core.cycles.BertShape`).
+    No biases: bias adds are folded and cost nothing, so the instruction
+    stream is cycle-identical either way."""
     b = GraphBuilder()
     x = b.input("x", (shape.seq, shape.hidden))
     for l in range(layers):
@@ -233,7 +493,8 @@ def trace_bert_shape(shape, *, layers: int = 1) -> Graph:
 # ---------------------------------------------------------------------------
 
 def _decode_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
-                      A: int, KV: int, hd: int, qkv_bias: bool, pos: int,
+                      A: int, KV: int, hd: int, qkv_bias: bool,
+                      rope_theta: Optional[float], pos: int,
                       tag: str, B: int = 1,
                       pos_slots: Optional[list] = None,
                       window: bool = False) -> int:
@@ -242,14 +503,16 @@ def _decode_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
     Per kv head: the new k/v appended into the (T, hd) cache at `pos`
     (MWU traffic, folded), the group's skinny (1, H) q projections stacked
     into (g, hd), a (g, T) QK^T over the cache, a pos-masked softmax, and
-    the attention-weighted V reduction.
+    the attention-weighted V reduction.  RoPE rotates the new k and the
+    queries at `pos`.
 
     B > 1 is the *batched* decode stream: B serving slots share one stream,
     so every weight projection is a single merged B-row MMU tile over the
-    stacked slot states, `pos` is a (B,) vector, and each slot keeps its own
-    cache bank (`{tag}.kv{j}.slot{s}.k/v`) with its own pos-masked
-    QK^T/softmax/AV stream.  `pos_slots[s]` is the hoisted scalar
-    slot_select of pos for softmax masking.
+    stacked slot states, `pos` is a (B,) vector (rope rotates row s at
+    pos[s]), and each slot keeps its own cache bank
+    (`{tag}.kv{j}.slot{s}.k/v`) with its own pos-masked QK^T/softmax/AV
+    stream.  `pos_slots[s]` is the hoisted scalar slot_select of pos for
+    softmax masking.
 
     window=True makes every cache bank a ring: the append wraps at T and
     the pos-masked softmax saturates to the full T-slot ring once pos >= T.
@@ -258,7 +521,8 @@ def _decode_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
     if B > 1:
         return _decode_attention_batched(
             b, x, l, T=T, H=H, A=A, KV=KV, hd=hd, qkv_bias=qkv_bias,
-            pos=pos, pos_slots=pos_slots, tag=tag, B=B, window=window)
+            rope_theta=rope_theta, pos=pos, pos_slots=pos_slots, tag=tag,
+            B=B, window=window)
     z_groups = []
     for j in range(KV):
         ck = (j * hd, (j + 1) * hd)
@@ -268,20 +532,17 @@ def _decode_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
               if qkv_bias else None)
         k = b.matmul(x, b.param(("blocks", "wk"), (H, hd), layer=l,
                                 cols=ck), bias=bk, tag=f"{tag}.kv{j}.k")
+        if rope_theta is not None:
+            k = b.rope(k, theta=rope_theta, pos=pos,
+                       tag=f"{tag}.kv{j}.k_rope")
         v = b.matmul(x, b.param(("blocks", "wv"), (H, hd), layer=l,
                                 cols=ck), bias=bv, tag=f"{tag}.kv{j}.v")
         kc = b.cache(f"{tag}.kv{j}.k", (T, hd))
         vc = b.cache(f"{tag}.kv{j}.v", (T, hd))
         kc = b.cache_append(kc, k, pos, window=window)
         vc = b.cache_append(vc, v, pos, window=window)
-        q_heads = []
-        for gi in range(g):
-            i = j * g + gi
-            cq = (i * hd, (i + 1) * hd)
-            bq = (b.param(("blocks", "bq"), (hd,), layer=l, cols=cq)
-                  if qkv_bias else None)
-            q_heads.append(b.matmul(x, b.param(("blocks", "wq"), (H, hd), layer=l,
-                                               cols=cq), bias=bq, tag=f"{tag}.h{i}.q"))
+        q_heads = _q_heads(b, x, l, j, g=g, H=H, hd=hd, qkv_bias=qkv_bias,
+                           rope_theta=rope_theta, pos=pos, tag=tag)
         qg = (q_heads[0] if g == 1
               else b.concat(q_heads, axis=-2, tag=f"{tag}.kv{j}.qstack"))
         qk = b.matmul(qg, kc, transpose_b=True, scale=hd ** -0.5,
@@ -297,10 +558,30 @@ def _decode_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
     return b.matmul(z, wo, tag=f"{tag}.attn.out")
 
 
+def _q_heads(b: GraphBuilder, x: int, l: int, j: int, *, g: int, H: int,
+             hd: int, qkv_bias: bool, rope_theta: Optional[float], pos: int,
+             tag: str) -> list:
+    """The q projections of kv head j's g query heads, rotated at `pos`."""
+    q_heads = []
+    for gi in range(g):
+        i = j * g + gi
+        cq = (i * hd, (i + 1) * hd)
+        bq = (b.param(("blocks", "bq"), (hd,), layer=l, cols=cq)
+              if qkv_bias else None)
+        q = b.matmul(x, b.param(("blocks", "wq"), (H, hd), layer=l,
+                                cols=cq), bias=bq, tag=f"{tag}.h{i}.q")
+        if rope_theta is not None:
+            q = b.rope(q, theta=rope_theta, pos=pos,
+                       tag=f"{tag}.h{i}.q_rope")
+        q_heads.append(q)
+    return q_heads
+
+
 def _decode_attention_batched(b: GraphBuilder, x: int, l: int, *, T: int,
                               H: int, A: int, KV: int, hd: int,
-                              qkv_bias: bool, pos: int, pos_slots: list,
-                              tag: str, B: int, window: bool = False) -> int:
+                              qkv_bias: bool, rope_theta: Optional[float],
+                              pos: int, pos_slots: list, tag: str,
+                              B: int, window: bool = False) -> int:
     """B-slot cached attention over a merged (B, H) hidden state: merged
     B-row k/v/q projections, per-slot cache banks + masked attention
     streams, and a merged B-row output projection.  See _decode_attention.
@@ -315,6 +596,9 @@ def _decode_attention_batched(b: GraphBuilder, x: int, l: int, *, T: int,
               if qkv_bias else None)
         k = b.matmul(x, b.param(("blocks", "wk"), (H, hd), layer=l,
                                 cols=ck), bias=bk, tag=f"{tag}.kv{j}.k")
+        if rope_theta is not None:
+            k = b.rope(k, theta=rope_theta, pos=pos,
+                       tag=f"{tag}.kv{j}.k_rope")
         v = b.matmul(x, b.param(("blocks", "wv"), (H, hd), layer=l,
                                 cols=ck), bias=bv, tag=f"{tag}.kv{j}.v")
         banks = []
@@ -324,14 +608,8 @@ def _decode_attention_batched(b: GraphBuilder, x: int, l: int, *, T: int,
             kc = b.cache_append(kc, k, pos, slot=s, window=window)
             vc = b.cache_append(vc, v, pos, slot=s, window=window)
             banks.append((kc, vc))
-        q_heads = []
-        for gi in range(g):
-            i = j * g + gi
-            cq = (i * hd, (i + 1) * hd)
-            bq = (b.param(("blocks", "bq"), (hd,), layer=l, cols=cq)
-                  if qkv_bias else None)
-            q_heads.append(b.matmul(x, b.param(("blocks", "wq"), (H, hd), layer=l,
-                                               cols=cq), bias=bq, tag=f"{tag}.h{i}.q"))
+        q_heads = _q_heads(b, x, l, j, g=g, H=H, hd=hd, qkv_bias=qkv_bias,
+                           rope_theta=rope_theta, pos=pos, tag=tag)
         for s in range(B):
             stag = f"{tag}.kv{j}.s{s}"
             rows = [b.slot_select(q, s, tag=f"{stag}.q{gi}")
@@ -356,10 +634,14 @@ def _decode_attention_batched(b: GraphBuilder, x: int, l: int, *, T: int,
 
 
 def _logits_head(b: GraphBuilder, cfg: ModelConfig, x: int) -> int:
-    """Final vocab projection: BERT reuses the (V, H) embedding table
-    transposed (still MMU-resident)."""
-    return b.matmul(x, b.param(("embed",), (cfg.vocab_size, cfg.d_model)),
-                    transpose_b=True, tag="logits")
+    """Final vocab projection: tied configs (and BERT) reuse the (V, H)
+    embedding table transposed (still MMU-resident), untied ones use
+    lm_head (H, V)."""
+    V, H = cfg.vocab_size, cfg.d_model
+    if cfg.tie_embeddings or cfg.family == "bert":
+        return b.matmul(x, b.param(("embed",), (V, H)), transpose_b=True,
+                        tag="logits")
+    return b.matmul(x, b.param(("lm_head",), (H, V)), tag="logits")
 
 
 def _decode_inputs(b: GraphBuilder, batch: int):
@@ -390,14 +672,54 @@ def _trace_decode_bert(cfg: ModelConfig, cache_len: int,
     for l in range(L):
         tag = f"enc{l}"
         proj = _decode_attention(b, x, l, T=T, H=H, A=A, KV=KV, hd=hd,
-                                 qkv_bias=cfg.qkv_bias, pos=pos, tag=tag,
-                                 B=batch, pos_slots=pos_slots, window=window)
+                                 qkv_bias=cfg.qkv_bias, rope_theta=None,
+                                 pos=pos, tag=tag, B=batch,
+                                 pos_slots=pos_slots, window=window)
         x = _post_norm_rest(b, x, proj, l, H=H, F=F, eps=1e-12,
                             mlp_bias=cfg.mlp_bias, norm_beta=True, tag=tag)
     if include_embed:
         x = _logits_head(b, cfg, x)
     b.output(x)
     return b.g
+
+
+def _trace_decode_dense(cfg: ModelConfig, cache_len: int,
+                        layers: Optional[int], include_embed: bool,
+                        batch: int = 1, window: bool = False) -> Graph:
+    """Pre-norm dense decode step, mirroring models/transformer.decode_step
+    (full-attention layers, or ring caches for "sliding" attention when
+    window=True — see trace_decode)."""
+    _check_dense_supported(cfg, window_ok=window)
+    b = GraphBuilder()
+    T, H, A, KV = cache_len, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, F = cfg.head_dim, cfg.d_ff
+    L = layers if layers is not None else cfg.num_layers
+    pos, pos_slots = _decode_inputs(b, batch)
+    x = _dense_embed(b, cfg, batch, include_embed)
+    for l in range(L):
+        tag = f"blk{l}"
+        h = _dense_norm(b, cfg, x, ("blocks", "ln1"), l, f"{tag}.ln1")
+        attn = _decode_attention(b, h, l, T=T, H=H, A=A, KV=KV, hd=hd,
+                                 qkv_bias=cfg.qkv_bias,
+                                 rope_theta=_rope_theta(cfg), pos=pos,
+                                 tag=tag, B=batch, pos_slots=pos_slots,
+                                 window=window)
+        x = b.add(x, attn, tag=f"{tag}.res_a")
+        h2 = _dense_norm(b, cfg, x, ("blocks", "ln2"), l, f"{tag}.ln2")
+        down = _dense_mlp(b, cfg, h2, l, H=H, F=F, tag=tag)
+        x = b.add(x, down, tag=f"{tag}.res_b")
+    return _dense_head(b, cfg, x, include_embed)
+
+
+_DECODE_TRACERS = {"bert": _trace_decode_bert, "dense": _trace_decode_dense}
+
+
+def _no_decode(cfg: ModelConfig) -> str:
+    """What the compiler lacks to serve `cfg`'s family."""
+    gap = ("MoE decode streams (per-token capacity-1 dispatch)"
+           if cfg.family == "moe"
+           else f"decode streams for family {cfg.family!r}")
+    return f"npec cannot lower {gap} yet ({cfg.name!r})"
 
 
 def trace_decode(cfg: ModelConfig, cache_len: int, *,
@@ -408,9 +730,9 @@ def trace_decode(cfg: ModelConfig, cache_len: int, *,
     capacity `cache_len`.
 
     The graph takes a scalar int32 `pos` input (the current cache length):
-    the new k/v append at slot `pos` and softmax masks slots > pos, so ONE
-    compiled stream serves every step t < T.  Executed statefully by
-    `repro_torch.npec.exec.DecodeSession`.
+    the new k/v append at slot `pos`, softmax masks slots > pos, and RoPE
+    rotates at `pos`, so ONE compiled stream serves every step t < T.
+    Executed statefully by `repro_torch.npec.exec.DecodeSession`.
 
     batch=B > 1 emits the *batched* decode stream: B slots share one
     stream, weight projections merge into B-row MMU tiles, `pos` becomes a
@@ -418,10 +740,16 @@ def trace_decode(cfg: ModelConfig, cache_len: int, *,
 
     window=True compiles the *ring* variant: cache banks of capacity
     `cache_len` whose appends wrap, so positions grow unbounded while the
-    QK^T tile stays banded at `cache_len` keys (identical to the full model
-    only while total tokens <= cache_len).
+    QK^T tile stays banded at `cache_len` keys.  For "sliding"-attention
+    configs (starcoder2) `cache_len` must equal `cfg.window`: the ring then
+    matches `models/transformer.decode_step`'s window caches at every
+    position.  Full-attention configs may also trace windowed (identical to
+    the full model only while total tokens <= cache_len).  The moe family
+    has no decode stream and raises `CompileError`, as in the reference.
     """
-    _require_bert(cfg, "decode")
+    tracer = _DECODE_TRACERS.get(cfg.family)
+    if tracer is None:
+        raise CompileError(f"{_no_decode(cfg)} (see ROADMAP.md Open items)")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     if window and cfg.attention == "sliding" and cache_len != cfg.window:
@@ -429,8 +757,14 @@ def trace_decode(cfg: ModelConfig, cache_len: int, *,
             f"windowed decode for {cfg.name!r} needs cache_len == "
             f"cfg.window ({cfg.window}), got {cache_len} — any other ring "
             "capacity diverges from the model's sliding-window mask")
-    return _trace_decode_bert(cfg, cache_len, layers, include_embed, batch,
-                              window)
+    return tracer(cfg, cache_len, layers, include_embed, batch, window)
+
+
+def _require_causal(cfg: ModelConfig) -> None:
+    if not cfg.causal:
+        raise CompileError(
+            f"npec serving prefill needs a causal model; {cfg.name!r} "
+            "is bidirectional")
 
 
 def trace_prefill(cfg: ModelConfig, seq: int, *,
@@ -438,36 +772,57 @@ def trace_prefill(cfg: ModelConfig, seq: int, *,
                   include_embed: bool = True,
                   cache_len: Optional[int] = None,
                   window: bool = False) -> Graph:
-    """Emit the *serving prefill* graph for a `seq`-token prompt: the causal
-    BERT pass with the logits head (an incremental `models/bert.decode_step`
-    rollout over the prompt, not the bidirectional encoder), whose
-    per-kv-head (S, hd) k/v tensors are registered in `Graph.kv_exports`
-    under the decode streams' canonical cache names, so one executed
-    prefill seeds a decode slot's cache banks (`DecodeSession.load_slot`).
+    """Emit the *serving prefill* graph for a `seq`-token prompt: a causal
+    prefill pass whose per-kv-head post-rope (S, hd) k/v tensors are
+    registered in `Graph.kv_exports` under the decode streams' canonical
+    cache names, so one executed prefill seeds a decode slot's cache banks
+    (`DecodeSession.load_slot`).
+
+    bert traces its *causal* serving variant with the logits head (an
+    incremental `models/bert.decode_step` rollout over the prompt, not the
+    bidirectional encoder); dense traces its ordinary causal prefill.
+    Families without decode streams (moe) raise `CompileError`: a serving
+    engine needs both halves.
 
     cache_len=T switches to the *chunked* mode: one causal SLICE of `seq`
     prompt rows over the decode streams' (T, head_dim) cache banks — a
-    (seq,) int32 `pos_ids` input carries each row's absolute position, the
-    new k/v rows `cache_append` into the banks there, and a row-masked
-    softmax over the updated cache gives row r the keys <= pos_ids[r].
+    (seq,) int32 `pos_ids` input carries each row's absolute position (and
+    RoPE angle), the new k/v rows `cache_append` into the banks there, and
+    a row-masked softmax over the updated cache gives row r the keys <=
+    pos_ids[r].
 
-    window=True serves a windowed engine: the prompt must fit cfg.window
-    for "sliding"-attention configs.
+    window=True serves a windowed engine (ring decode banks of capacity
+    cfg.window): the prompt must fit the window, which also lifts the
+    "sliding"-attention gate for those configs.
     """
     if window and cfg.attention == "sliding" and seq > cfg.window:
         raise CompileError(
             f"windowed prefill for {cfg.name!r} holds at most cfg.window "
-            f"({cfg.window}) prompt tokens, got {seq}")
-    _require_bert(cfg, "serving prefill")
+            f"({cfg.window}) prompt tokens, got {seq} — longer prompts "
+            "need banded prefill tiles (see ROADMAP.md Open items)")
     if cache_len is not None:
         if seq > cache_len:
             raise ValueError(
                 f"prefill slice of {seq} rows exceeds the cache capacity "
                 f"{cache_len}")
-        return _trace_prefill_chunk_bert(cfg, seq, cache_len, layers,
-                                         include_embed)
-    return _trace_bert(cfg, seq, layers, include_embed, causal=True,
-                       logits_head=True, export_kv=True)
+        if cfg.family == "bert":
+            return _trace_prefill_chunk_bert(cfg, seq, cache_len, layers,
+                                             include_embed)
+        if cfg.family == "dense":
+            _require_causal(cfg)
+            return _trace_prefill_chunk_dense(cfg, seq, cache_len, layers,
+                                              include_embed,
+                                              window_ok=window)
+    elif cfg.family == "bert":
+        return _trace_bert(cfg, seq, layers, include_embed, causal=True,
+                           logits_head=True, export_kv=True)
+    elif cfg.family == "dense":
+        _require_causal(cfg)
+        return _trace_dense(cfg, seq, layers, include_embed, export_kv=True,
+                            window_ok=window)
+    raise CompileError(
+        f"{_no_decode(cfg)}, so it cannot serve this family "
+        "(see ROADMAP.md Open items)")
 
 
 # ---------------------------------------------------------------------------
@@ -475,15 +830,17 @@ def trace_prefill(cfg: ModelConfig, seq: int, *,
 # ---------------------------------------------------------------------------
 
 def _chunk_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
-                     A: int, KV: int, hd: int, qkv_bias: bool, pos_ids: int,
+                     A: int, KV: int, hd: int, qkv_bias: bool,
+                     rope_theta: Optional[float], pos_ids: int,
                      tag: str) -> int:
     """Causal-slice attention for chunked prefill: C new prompt rows over
     the decode streams' (T, hd) cache banks; returns the output projection.
 
-    Per kv head: the slice's (C, hd) k/v projections burst-append into the
-    cache bank at their absolute positions `pos_ids`, then each query head
-    runs a (C, T) QK^T over the *updated* bank with a row-masked softmax
-    (row r attends to slots <= pos_ids[r]) and the AV reduction.
+    Per kv head: the slice's (C, hd) k/v projections (post-rope at their
+    absolute positions `pos_ids`) burst-append into the cache bank, then
+    each query head runs a (C, T) QK^T over the *updated* bank with a
+    row-masked softmax (row r attends to slots <= pos_ids[r]) and the AV
+    reduction.
     """
     g = A // KV
     z_heads = []
@@ -495,6 +852,9 @@ def _chunk_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
               if qkv_bias else None)
         k = b.matmul(x, b.param(("blocks", "wk"), (H, hd), layer=l,
                                 cols=ck), bias=bk, tag=f"{tag}.kv{j}.k")
+        if rope_theta is not None:
+            k = b.rope(k, theta=rope_theta, pos=pos_ids,
+                       tag=f"{tag}.kv{j}.k_rope")
         v = b.matmul(x, b.param(("blocks", "wv"), (H, hd), layer=l,
                                 cols=ck), bias=bv, tag=f"{tag}.kv{j}.v")
         kc = b.cache(f"{tag}.kv{j}.k", (T, hd))
@@ -508,6 +868,9 @@ def _chunk_attention(b: GraphBuilder, x: int, l: int, *, T: int, H: int,
                   if qkv_bias else None)
             q = b.matmul(x, b.param(("blocks", "wq"), (H, hd), layer=l,
                                     cols=cq), bias=bq, tag=f"{tag}.h{i}.q")
+            if rope_theta is not None:
+                q = b.rope(q, theta=rope_theta, pos=pos_ids,
+                           tag=f"{tag}.h{i}.q_rope")
             qk = b.matmul(q, kc, transpose_b=True, scale=hd ** -0.5,
                           tag=f"{tag}.h{i}.qk")
             sm = b.softmax(qk, valid_upto=pos_ids,
@@ -537,14 +900,42 @@ def _trace_prefill_chunk_bert(cfg: ModelConfig, rows: int, cache_len: int,
     for l in range(L):
         tag = f"enc{l}"
         proj = _chunk_attention(b, x, l, T=T, H=H, A=A, KV=KV, hd=hd,
-                                qkv_bias=cfg.qkv_bias, pos_ids=pos_ids,
-                                tag=tag)
+                                qkv_bias=cfg.qkv_bias, rope_theta=None,
+                                pos_ids=pos_ids, tag=tag)
         x = _post_norm_rest(b, x, proj, l, H=H, F=F, eps=1e-12,
                             mlp_bias=cfg.mlp_bias, norm_beta=True, tag=tag)
     if include_embed:
         x = _logits_head(b, cfg, x)
     b.output(x)
     return b.g
+
+
+def _trace_prefill_chunk_dense(cfg: ModelConfig, rows: int, cache_len: int,
+                               layers: Optional[int],
+                               include_embed: bool, *,
+                               window_ok: bool = False) -> Graph:
+    """One causal dense prefill slice of `rows` prompt tokens over cache
+    banks of capacity `cache_len` (RoPE rotated at `pos_ids`)."""
+    _check_dense_supported(cfg, window_ok=window_ok)
+    b = GraphBuilder()
+    C, T = rows, cache_len
+    H, A, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, F = cfg.head_dim, cfg.d_ff
+    L = layers if layers is not None else cfg.num_layers
+    pos_ids = b.input("pos_ids", (C,), dtype="int32")
+    x = _dense_embed(b, cfg, C, include_embed)
+    for l in range(L):
+        tag = f"blk{l}"
+        h = _dense_norm(b, cfg, x, ("blocks", "ln1"), l, f"{tag}.ln1")
+        attn = _chunk_attention(b, h, l, T=T, H=H, A=A, KV=KV, hd=hd,
+                                qkv_bias=cfg.qkv_bias,
+                                rope_theta=_rope_theta(cfg),
+                                pos_ids=pos_ids, tag=tag)
+        x = b.add(x, attn, tag=f"{tag}.res_a")
+        h2 = _dense_norm(b, cfg, x, ("blocks", "ln2"), l, f"{tag}.ln2")
+        down = _dense_mlp(b, cfg, h2, l, H=H, F=F, tag=tag)
+        x = b.add(x, down, tag=f"{tag}.res_b")
+    return _dense_head(b, cfg, x, include_embed)
 
 
 def trace_prefill_slice_shape(shape, cache_len: int, rows: int, *,
@@ -559,7 +950,7 @@ def trace_prefill_slice_shape(shape, cache_len: int, rows: int, *,
         proj = _chunk_attention(b, x, l, T=cache_len, H=shape.hidden,
                                 A=shape.heads, KV=shape.heads,
                                 hd=shape.head_dim, qkv_bias=False,
-                                pos_ids=pos_ids, tag=tag)
+                                rope_theta=None, pos_ids=pos_ids, tag=tag)
         x = _post_norm_rest(b, x, proj, l, H=shape.hidden, F=shape.d_ff,
                             eps=1e-12, mlp_bias=False, norm_beta=False,
                             tag=tag)
@@ -579,8 +970,9 @@ def trace_decode_bert_shape(shape, cache_len: int, *, layers: int = 1,
         proj = _decode_attention(b, x, l, T=cache_len, H=shape.hidden,
                                  A=shape.heads, KV=shape.heads,
                                  hd=shape.head_dim, qkv_bias=False,
-                                 pos=pos, tag=tag, B=batch,
-                                 pos_slots=pos_slots, window=window)
+                                 rope_theta=None, pos=pos, tag=tag,
+                                 B=batch, pos_slots=pos_slots,
+                                 window=window)
         x = _post_norm_rest(b, x, proj, l, H=shape.hidden, F=shape.d_ff,
                             eps=1e-12, mlp_bias=False, norm_beta=False,
                             tag=tag)
@@ -677,6 +1069,97 @@ def _check(args, device) -> bool:
     return ok
 
 
+def _nudged(model):
+    """A copy of `model` with every weight moved up by one float32 ulp."""
+    import copy
+
+    import torch
+
+    other = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in other.parameters():
+            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    return other
+
+
+def _check_decoder(args, device) -> bool:
+    """A dense or moe configuration at full width cut to 2 layers, float32,
+    random weights: the compiled prefill stream through the executor against
+    the port's `models/transformer.apply` on the same weights on the same
+    device (its attention the plain version, which takes float32 k and v on
+    the card) on 2 x seq tokens, in float, NPE-8 and NPE-16.  A MoE model
+    takes the executor's expert ids
+    (`models/moe.ForcedRouting`): the two sum router products in other
+    orders, and a routing choice can turn on the last bit of a probability;
+    where the model's own top-k differs, the count and the largest
+    probability gap are printed.  Float within CHECK_TOL; an NPE mode within
+    CHECK_TOL or, past it, twice the model's own change under a 1-ulp
+    weight nudge (an int8 step can flip with an ulp).  For a dense
+    configuration also a `--decode T` (default 8) step rollout in float
+    against the serving prefill's logits at every position."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.overlay import NPEHardware
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.convert import param_tree_from_model
+    from repro_torch.models.moe import ForcedRouting
+    from repro_torch.npec import (DecodeSession, compile_decode, compile_model,
+                                  compile_prefill, execute)
+
+    hw = NPEHardware(vrwidth=args.vrwidth)
+    cfg = dataclasses.replace(get_config(args.model), num_layers=2, dtype="float32")
+    model = registry.build_model(cfg, device=device,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+    nudged = _nudged(model)
+    params = param_tree_from_model(model)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, args.seq), dtype=np.int64)).to(device)
+    ok = True
+    for mode, bits in (("float", None), ("npe-8", 8), ("npe-16", 16)):
+        c = cfg.with_npe(quant_bits=bits) if bits else cfg
+        compiled = compile_model(c, args.seq, hw, bits=bits or 16)
+        g = compiled.graph
+        g.outputs.extend(n.id for n in g.nodes              # each MoE layer's expert ids
+                         if n.op == "topk" and n.attrs["out"] == "indices")
+        res = execute(compiled, params, {"tokens": tokens}, cfg=c, device=device)
+        got, ids = res.outputs[0], res.outputs[1:]
+        with ForcedRouting(ids) as fr, ops.plain_dense_attention():
+            want = registry.apply(c, model, tokens)
+        err = float((got - want).abs().max())
+        gate = CHECK_TOL
+        if bits and err > gate:
+            with ForcedRouting(ids), ops.plain_dense_attention():
+                noise = float((registry.apply(c, nudged, tokens) - want).abs().max())
+            gate = max(gate, 2 * noise)
+        ok &= err <= gate
+        routing = ""
+        if cfg.family == "moe":
+            ok &= len(fr.calls) == len(ids) > 0
+            routing = (f"; the model's own top-k differs at {fr.differ} of "
+                       f"{ids[0].numel() * len(ids)} choices (largest probability gap "
+                       f"{fr.gap:.2e})")
+        print(f"executor vs models/transformer.apply, {mode}, 2 layers, 2 x {args.seq} "
+              f"tokens on {device}: max|err| = {err:.2e} (gate {gate:.2e}){routing}")
+    if cfg.family == "dense":
+        T = args.decode or 8
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, T, dtype=np.int64)).to(device)
+        want = execute(compile_prefill(cfg, T, hw), params, {"tokens": toks},
+                       cfg=cfg, device=device)[0]
+        sess = DecodeSession(compile_decode(cfg, T, hw), params, cfg=cfg, device=device)
+        err = max(float((sess.step(toks[t:t + 1][None])[0, 0] - want[t]).abs().max())
+                  for t in range(T))
+        ok &= err <= CHECK_TOL
+        print(f"decode stream ({T} steps) vs the serving prefill's logits, float, "
+              f"2 layers: max|err| = {err:.2e} (gate {CHECK_TOL:g})")
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_base")
@@ -688,7 +1171,7 @@ def main(argv=None) -> int:
                          "of capacity T instead of a prefill stream")
     ap.add_argument("--check", action="store_true",
                     help="run the compiled stream through the executor and "
-                         "hold it against the port's models/bert")
+                         "hold it against the port's model")
     ap.add_argument("--device", default="cuda",
                     help="where --check runs (default: the card)")
     args = ap.parse_args(argv)
@@ -719,6 +1202,12 @@ def main(argv=None) -> int:
         print(f"skinny matmuls: {t['skinny_matmuls']} "
               f"(MMU row occupancy {100 * t['efficiency']:.2f}%)")
     if args.check:
+        if cfg.family != "bert":
+            if not _check_decoder(args, args.device):
+                print("npec check FAILED")
+                return 1
+            print("npec check OK")
+            return 0
         if not args.decode and not _check_hand(cfg, args, stats["total_cycles"]):
             print("npec check FAILED: the compiled schedule deviates more than "
                   f"{100 * HAND_TOL:g}% from the hand-built program")

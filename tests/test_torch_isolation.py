@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch`, and not `chip_smoke.py`,
-imports `jax` or anything of the reference package `repro`.
+"""The port stands alone: no module of `repro_torch` (the npec compiler,
+executor and runtime among them), and not `chip_smoke.py`, imports `jax` or
+anything of the reference package `repro`.
 
 A child process installs an import hook that refuses those top-level names
 (exactly those names, so `repro_torch` itself passes), imports every module
@@ -56,3 +57,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs.starcoder2_3b", "configs.gemma3_27b",
                 "configs.granite_moe_1b_a400m", "configs.llama4_maverick_400b_a17b"):
         assert "repro_torch." + new in names
+    npec = {n for n in names if n.startswith("repro_torch.npec")}
+    for mod in ("npec", "npec.ir", "npec.lower", "npec.schedule", "npec.trace", "npec.exec",
+                "npec.runtime", "npec.fleet", "npec.fleet.partition", "npec.obs"):
+        assert "repro_torch." + mod in npec

@@ -113,8 +113,24 @@ def test_issue_order_and_schedule_for_as_the_reference():
 
 
 def test_other_families_raise_compile_error():
-    cfg = dataclasses.replace(port_config("bert_base"), family="dense", name="dense_x")
-    for call in (lambda: tn.compile_model(cfg, 16), lambda: tn.compile_decode(cfg, 16),
-                 lambda: tn.compile_prefill(cfg, 16)):
-        with pytest.raises(tn.CompileError, match="queue 1, item 6"):
-            call()
+    """The reference's feature gates: a config the reference cannot compile
+    raises `CompileError` in the port with the reference's message, for
+    every entry point (gemma3's local:global attention and qk-norm,
+    command-r's parallel block, qwen2-vl's family, a BERT-shaped config
+    with learned positions traced as a decoder, and MoE decode/serving)."""
+    bert_as_dense = lambda get: dataclasses.replace(get("bert_base"), family="dense",  # noqa: E731
+                                                    name="dense_x")
+    cases = [lambda get: get("gemma3_27b", smoke=True),
+             lambda get: get("command_r_plus_104b", smoke=True),
+             lambda get: get("qwen2_vl_7b", smoke=True), bert_as_dense]
+    moe = lambda get: get("granite_moe_1b_a400m", smoke=True)  # noqa: E731
+    calls = [(case, fn) for case in cases
+             for fn in ("compile_model", "compile_decode", "compile_prefill")]
+    calls += [(moe, "compile_decode"), (moe, "compile_prefill")]
+    for case, fn in calls:
+        msgs = []
+        for pkg, get, hw in ((rn, ref_config, RefHW), (tn, port_config, PortHW)):
+            with pytest.raises(pkg.CompileError) as err:
+                getattr(pkg, fn)(case(get), 16, hw())
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1]

@@ -290,13 +290,24 @@ def test_chunked_prefill_slices(setup, mode):
 
 
 def test_other_ops_raise(setup):
+    """An op the executor has no rule for raises; the IR's ops all have one
+    (rope, rmsnorm, mul, topk, scatter_slot and gather since the dense and
+    MoE families)."""
     _, port, _, tree = setup
     from repro_torch.npec.ir import GraphBuilder
     b = GraphBuilder()
     x = b.input("x", (4, 8))
-    b.output(b.rope(x, theta=10000.0, tag="r"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    y = b.act(x, "gelu", tag="f")
+    b.output(y)
+    b.g.node(y).op = "fft"
+    with pytest.raises(NotImplementedError, match="no rule for 'fft'"):
         tn.execute(b.g, tree, {"x": np.zeros((4, 8), np.float32)}, device="cpu")
+    r = GraphBuilder()
+    x = r.input("x", (4, 8))
+    r.output(r.rope(x, theta=10000.0, tag="r"))
+    got = tn.execute(r.g, tree, {"x": np.ones((4, 8), np.float32)}, device="cpu")[0]
+    want = rn.execute(r.g, {}, {"x": np.ones((4, 8), np.float32)})[0]
+    assert _err(want, got) <= FLOAT_TOL
 
 
 def test_launch_counts_from_the_graph(setup):

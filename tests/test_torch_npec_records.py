@@ -1,15 +1,12 @@
-"""The port rebuilds the bert rows of the committed npec cycle records.
+"""The port rebuilds every row of the committed npec cycle records.
 
-Each builder below is the bert part of the function of the same name in
+Each function below is the function of the same name in
 `benchmarks/paper_tables.py`, with the same arguments, run on the port's
-`core.cycles`, `npec`, cost-only `NPEEngine` and `NPEFleet`.  The rows must
+`core.cycles`, `npec`, cost-only `NPEEngine` and `NPEFleet`: the bert rows,
+the dense (glm4_9b) and moe (granite_moe_1b_a400m) rows of the streaming
+record, the expert-parallel granite rows of the fleet record, and the MoE
+super-blocks of granite and llama4 at full config scale.  The rows must
 equal the record's exactly: the cycle model is deterministic.
-
-Rows of the moe and dense families are left out by one filter, `_is_bert`:
-a row is kept unless its `family` is not "bert" or its `arch` is not
-"bert_base".  The port's tracer compiles no other family yet (ROADMAP
-queue 1, item 6), so `results/npec_moe_cycles.json`, which has no bert row,
-is not read at all.
 """
 import json
 from pathlib import Path
@@ -28,10 +25,6 @@ from repro_torch.npec.runtime import (NPEEngine, StreamCache, decode_buckets,
                                       inter_token_gaps)
 
 RESULTS = Path(__file__).resolve().parent.parent / "results"
-
-
-def _is_bert(row: Dict) -> bool:
-    return row.get("family", "bert") == "bert" and row.get("arch", "bert_base") == "bert_base"
 
 
 def npec_vs_hand(seq_lens=(64, 128, 256, 512), bits_list=(8, 16)) -> List[Dict]:
@@ -69,6 +62,28 @@ def npec_decode(prefill_lens=(64, 128), new_tokens=32, bits_list=(8, 16)) -> Lis
                 decode_tok_s=round(r["decode_tok_s"], 1),
                 e2e_tok_s=round(r["e2e_tok_s"], 1),
                 mmu_1row_eff=round(r["mmu_efficiency"], 4)))
+    return out
+
+
+def npec_moe(seq_lens=(64, 128), bits_list=(8, 16)) -> List[Dict]:
+    hw = NPEHardware(vrwidth=1024)
+    out = []
+    for name in ("granite_moe_1b_a400m", "llama4_maverick_400b_a17b"):
+        cfg = get_config(name)
+        for bits in bits_list:
+            for s in seq_lens:
+                r = cy.moe_layer_cycles(hw, cfg, s, bits)
+                counts = r["counts"]
+                out.append(dict(
+                    arch=name, seq=s, mmu_bits=bits, experts=cfg.moe.num_experts,
+                    top_k=cfg.moe.top_k, capacity=int(r["capacity"]),
+                    super_block_cycles=int(r["super_block_cycles"]),
+                    total_cycles=int(r["total_cycles"]),
+                    mmu_instrs=counts.get("MMU", 0), nvu_instrs=counts.get("NVU", 0),
+                    mru_instrs=counts.get("MRU", 0), mwu_instrs=counts.get("MWU", 0),
+                    skinny_matmuls=int(r["skinny_matmuls"]),
+                    mmu_util=round(r["mmu_util"], 3),
+                    mmu_eff=round(r["mmu_efficiency"], 4)))
     return out
 
 
@@ -111,6 +126,24 @@ def npec_serve(batches=(1, 2, 4, 8), bits_list=(8, 16), cache_len=128) -> List[D
 def npec_fleet(bits=16) -> List[Dict]:
     hw = NPEHardware(vrwidth=1024)
     out = []
+
+    def fleet_row(rep: Dict, family: str, rate) -> Dict:
+        return dict(
+            family=family, shard=rep["shard"], overlays=rep["overlays"],
+            rate_rps=rate, mmu_bits=bits, requests=rep["requests"],
+            tokens=rep["tokens"], p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
+            queue_wait_p50_ms=rep["queue_wait_p50_ms"],
+            queue_wait_p99_ms=rep["queue_wait_p99_ms"],
+            service_p50_ms=rep["service_p50_ms"],
+            tok_s=round(rep["tokens_per_sec"], 1),
+            makespan_cycles=rep["makespan_cycles"],
+            transfer_cycles=rep["transfer_cycles"], overlay_util=rep["overlay_util"],
+            stream_cache_entries=rep.get("stream_cache_entries", 0),
+            stream_cache_hits=rep.get("stream_cache_hits", 0),
+            stream_cache_misses=rep.get("stream_cache_misses", 0),
+            bucket_migrations=rep.get("bucket_migrations", 0),
+            migration_cycles=rep.get("migration_cycles", 0))
+
     cfg = get_config("bert_base")
     reqs = SyntheticRequests(cfg.vocab_size, max_prompt=24, rate_rps=8.0, clock_hz=hw.clock_hz)
     n_requests = 24
@@ -124,22 +157,20 @@ def npec_fleet(bits=16) -> List[Dict]:
             for i in range(n_requests):
                 fleet.submit(reqs.request(i), eos_id=reqs.eos_id(i),
                              arrival_cycle=(int(arrive[i]) if rate else 0))
-            rep = fleet.run().report()
-            out.append(dict(
-                family="bert", shard=rep["shard"], overlays=rep["overlays"],
-                rate_rps=rate, mmu_bits=bits, requests=rep["requests"],
-                tokens=rep["tokens"], p50_ms=rep["p50_ms"], p99_ms=rep["p99_ms"],
-                queue_wait_p50_ms=rep["queue_wait_p50_ms"],
-                queue_wait_p99_ms=rep["queue_wait_p99_ms"],
-                service_p50_ms=rep["service_p50_ms"],
-                tok_s=round(rep["tokens_per_sec"], 1),
-                makespan_cycles=rep["makespan_cycles"],
-                transfer_cycles=rep["transfer_cycles"], overlay_util=rep["overlay_util"],
-                stream_cache_entries=rep.get("stream_cache_entries", 0),
-                stream_cache_hits=rep.get("stream_cache_hits", 0),
-                stream_cache_misses=rep.get("stream_cache_misses", 0),
-                bucket_migrations=rep.get("bucket_migrations", 0),
-                migration_cycles=rep.get("migration_cycles", 0)))
+            out.append(fleet_row(fleet.run().report(), "bert", rate))
+    # granite: expert-parallel MoE inference over 8 prompts of 64 tokens
+    gcfg = get_config("granite_moe_1b_a400m")
+    seq = 64
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, gcfg.vocab_size, (seq,), np.int32) for _ in range(8)]
+    inference_prog = None
+    for n in (1, 2, 4):
+        fleet = NPEFleet(gcfg, hw, overlays=n, shard="expert", bits=bits, seq=seq,
+                         inference_prog=inference_prog)
+        inference_prog = fleet.inference_prog
+        for p in prompts:
+            fleet.submit(p)
+        out.append(fleet_row(fleet.run().report(), "moe", None))
     return out
 
 
@@ -262,18 +293,22 @@ def npec_buckets(bits=16) -> List[Dict]:
 def npec_stream(seq=64, bits_list=(8, 16), decode_batches=(1, 4, 8)) -> List[Dict]:
     hw = NPEHardware(vrwidth=1024)
     out = []
-    cfg = get_config("bert_base")
-    for bits in bits_list:
-        compiled = npec.compile_model(cfg, seq, hw, bits=bits, layers=1, include_embed=False)
-        dag = npec.greedy_schedule(compiled)
-        st = npec.stream_schedule(compiled)
-        out.append(dict(
-            kind="prefill", family="bert", arch="bert_base", seq=seq, mmu_bits=bits,
-            layers=1, dag_cycles=int(dag["total_cycles"]),
-            streaming_cycles=int(st["total_cycles"]),
-            streaming_saving_pct=round(100 * (dag["total_cycles"] - st["total_cycles"])
-                                       / dag["total_cycles"], 2),
-            mmu_busy=int(st["mmu_busy"]), stall_cycles=int(sum(st["stalls"].values()))))
+    for fam, arch in (("bert", "bert_base"), ("dense", "glm4_9b"),
+                      ("moe", "granite_moe_1b_a400m")):
+        cfg = get_config(arch)
+        layers = cfg.moe.interleave if cfg.moe is not None else 1
+        for bits in bits_list:
+            compiled = npec.compile_model(cfg, seq, hw, bits=bits, layers=layers,
+                                          include_embed=False)
+            dag = npec.greedy_schedule(compiled)
+            st = npec.stream_schedule(compiled)
+            out.append(dict(
+                kind="prefill", family=fam, arch=arch, seq=seq, mmu_bits=bits,
+                layers=layers, dag_cycles=int(dag["total_cycles"]),
+                streaming_cycles=int(st["total_cycles"]),
+                streaming_saving_pct=round(100 * (dag["total_cycles"] - st["total_cycles"])
+                                           / dag["total_cycles"], 2),
+                mmu_busy=int(st["mmu_busy"]), stall_cycles=int(sum(st["stalls"].values()))))
     sh = cy.BertShape(seq=seq)
     for bits in bits_list:
         for b in decode_batches:
@@ -291,6 +326,7 @@ def npec_stream(seq=64, bits_list=(8, 16), decode_batches=(1, 4, 8)) -> List[Dic
 RECORDS = {
     "npec_cycles.json": ("npec_cycles/v1", npec_vs_hand),
     "npec_decode_cycles.json": ("npec_decode_cycles/v1", npec_decode),
+    "npec_moe_cycles.json": ("npec_moe_cycles/v1", npec_moe),
     "npec_serve_cycles.json": ("npec_serve_cycles/v1", npec_serve),
     "npec_stream_cycles.json": ("npec_stream_cycles/v1", npec_stream),
     "npec_fleet_cycles.json": ("npec_fleet_cycles/v1", npec_fleet),
@@ -305,6 +341,6 @@ def test_port_rebuilds_bert_rows_of_record(name):
     schema, build = RECORDS[name]
     record = json.loads((RESULTS / name).read_text())
     assert record["schema"] == schema
-    want = [r for r in record["rows"] if _is_bert(r)]
-    assert want, f"{name} has no bert rows"
+    want = record["rows"]
+    assert want, f"{name} has no rows"
     assert build() == want

@@ -203,12 +203,19 @@ def test_cycles_paper_tables(vr):
 
 
 def test_cycles_moe_functions_raise_compile_error():
-    """The port's tracer has no MoE family yet (ROADMAP queue 1, item 6)."""
-    granite = ref_config("granite_moe_1b_a400m", smoke=True)
-    with pytest.raises(CompileError):
-        pcy.moe_layer_cycles(PHW, granite, 16, 16)
-    with pytest.raises(CompileError):
-        pcy.expert_shard_cycles(PHW, granite, 16, 16, 2)
+    """The MoE cycle functions give the reference's numbers, key for key,
+    for granite and llama4 (smoke); what raises `CompileError` is only the
+    MoE decode stream, in both packages (the reference compiles none)."""
+    for name in ("granite_moe_1b_a400m", "llama4_maverick_400b_a17b"):
+        ref, port = ref_config(name, smoke=True), port_config(name, smoke=True)
+        for seq, bits in ((16, 16), (24, 8)):
+            assert pcy.moe_layer_cycles(PHW, port, seq, bits) == \
+                rcy.moe_layer_cycles(RHW, ref, seq, bits)
+            for n in (1, 2):
+                assert pcy.expert_shard_cycles(PHW, port, seq, bits, n) == \
+                    rcy.expert_shard_cycles(RHW, ref, seq, bits, n)
+        with pytest.raises(CompileError, match="MoE decode streams"):
+            tn.compile_decode(port, 16, PHW)
 
 
 # ---------------------------------------------------------------------------
@@ -262,11 +269,20 @@ def test_cost_only_engine_allocates_no_tensor(monkeypatch):
 
 
 def test_engine_families_raise_compile_error():
-    _, port_cfg = _cfgs()
-    for family in ("dense", "moe"):
-        with pytest.raises(CompileError, match="item 6"):
-            NPEEngine(dataclasses.replace(port_cfg, family=family), PHW, slots=2,
-                      capacity=24)
+    """An engine serves what the compiler can decode: a moe config, or a
+    BERT-shaped config with learned positions traced as a decoder, raises
+    the reference's `CompileError` at construction."""
+    ref_cfg, port_cfg = _cfgs()
+    cases = [lambda c: dataclasses.replace(c, family="dense"),
+             lambda c: dataclasses.replace(c, family="moe")]
+    for case in cases:
+        msgs = []
+        for Engine, cfg, hw, err in ((RefEngine, ref_cfg, RHW, rn.CompileError),
+                                     (NPEEngine, port_cfg, PHW, CompileError)):
+            with pytest.raises(err) as e:
+                Engine(case(cfg), hw, slots=2, capacity=24)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
 
 
 def test_numeric_engine_needs_a_card_unless_cpu():

@@ -122,6 +122,23 @@ def test_prefill_writes_only_its_slot():
     assert not k[:, 0].any() and not k[:, 2].any()
 
 
+def test_server_cut_in_depth():
+    """A model cut in depth sets the served depth: the config and the cache
+    have its layers, and it serves the tokens of the same weights served
+    from a fresh server of the cut config."""
+    cfg = dataclasses.replace(get_config("glm4_9b", smoke=True), num_layers=1)
+    model = registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    srv = Server("glm4_9b", batch=2, max_seq=24, device="cpu", smoke=True, model=model)
+    assert srv.cfg.num_layers == 1 and len(srv.model.layers) == 1
+    assert srv.cache["full"]["k"].shape[0] == 1
+    prompts = [np.arange(5), np.arange(3, 9)]
+    got = srv.generate(prompts, gen_tokens=3).generated
+    again = Server("glm4_9b", batch=2, max_seq=24, device="cpu", smoke=True,
+                   model=registry.build_model(cfg, device="cpu",
+                                              generator=torch.Generator().manual_seed(0)))
+    np.testing.assert_array_equal(again.generate(prompts, gen_tokens=3).generated, got)
+
+
 def test_plain_route_counts_no_launches_and_refuses_overlong_runs():
     reset_launches()
     srv = Server("bert_base", batch=2, max_seq=20, mode="npe-16bit", device="cpu", smoke=True)
