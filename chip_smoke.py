@@ -27,8 +27,13 @@
    cap at Gemma3-27B's shapes (a step over a 1024-row ring with every row
    valid and with 300, a 2048-token prefill with window 1024, a step
    soft-capped at 50) and StarCoder2-3B's (a 12:1 step over a 4096-row
-   ring), PWL and exact, `scaled_dot_product_attention` with the same mask
-   beside the exact rows without a cap; beside
+   ring), Hymba-1.5B's (a 5:1 step over a 32-row ring) and Whisper-base's
+   (a cross step over 1500 rows with causality off, the causal encoder over
+   1500 frames), PWL and exact,
+   `scaled_dot_product_attention` with the same mask beside the exact rows
+   without a cap; `quant_matmul` at RWKV6-3B's, Hymba's (x_proj's N = 132
+   too) and Whisper's products, the layernorm kernel and the new PWL tables
+   (the decay, Mamba's exp, the group norm's rsqrt) at their shapes; beside
    `pwl_eval`, `nvu_softmax` and `nvu_layernorm` a yardstick of the same
    bytes with exact math, not the same function (`F.gelu`,
    `torch.softmax`, `F.layer_norm`), and beside `nvu_softmax` a copy of its
@@ -99,20 +104,21 @@
    NPE-8 step and counts the device launches of one step in each mode;
    prints teacher-forced top-1 agreement with float (not
    gated); and holds the kernel route (float32, 2 layers, full width,
-   prefill plus 4 steps) against the port's plain route on the CPU;
-9. serves full-width Gemma3-27B cut to 18 of its 62 layers (three whole
-   local:global periods: 15 local layers over 1024-row rings, 3 global;
-   bf16, about 8.8 B parameters) through `launch.serve.Server`:
+   prefill plus 2 steps, float and NPE-8) against the port's plain route
+   on the CPU;
+9. serves full-width Gemma3-27B cut to 12 of its 62 layers (two whole
+   local:global periods: 10 local layers over 1024-row rings, 2 global;
+   bf16, about 6.4 B parameters) through `launch.serve.Server`:
    8 slots, prompts of 7 to 16 tokens prefilled one token a call, 8 greedy
    tokens, in float and NPE-8, NPE-16 for one step and one prefill; checks
-   the launches of a step, a prefill and the served run exactly (NPE-8 127
-   quant_matmul, 73 nvu_layernorm, 18 pwl_eval, 18 flash_attention a
+   the launches of a step, a prefill and the served run exactly (NPE-8 85
+   quant_matmul, 49 nvu_layernorm, 12 pwl_eval, 12 flash_attention a
    step); holds every launch of one NPE-8 step to its plain version;
    profiles one; runs one slot in float to position 1040, past the ring's
    wrap, through the first 6 layers (one local:global period), and holds
    that step's launches to their plain versions and to the count before
    the wrap; and holds the kernel route (2 layers, one
-   local and one global, window 64, float32, float) against the CPU;
+   local and one global, window 16, float32, float) against the CPU;
 10. serves full-width, 24-layer Granite-3.0-1B-A400M (32 experts, top-8)
    through `Server`: [5]'s prompts in one prefill each, 16 tokens, in
    float, NPE-8 and NPE-16; launches checked exactly (NPE-8 97 quant_matmul,
@@ -140,13 +146,36 @@
    capacity `moe_capacity`, dropped token-slots reported), the launches of
    an NPE-8 execute against the graph's and each of its kernel calls held
    to its plain version;
-12. prints the kernel list, one JSON line of per-kernel numbers (launches on
-   the encoder, decode, npec, engine, GLM4, Gemma3, Granite, npec GLM4 and
-   npec Granite paths; the npec instances of quant_matmul and nvu_softmax;
-   the rows at each model's shapes and at the decoder executor's), the
-   card, and last `{"ok": true, "device": {...}}`.
+12-14. serve the last families at full width and depth through `Server`
+   (`family_phase`; bf16, random weights from a torch generator): [12]
+   RWKV6-3B (32 layers, 3.10 B parameters), [13] Hymba-1.5B (32 layers, 30
+   local over rings of min(1024, 32) rows and 2 global, an SSM head in
+   each, 1.66 B parameters), [14] Whisper-base (6 + 6 layers; first, in
+   each mode, the encoder and cross K/V over 8 seeded frame batches of
+   (1500, 512), its launches checked, host and busy ms printed, its NPE-8
+   launches audited): 8 slots, prompts of 7 to 16 tokens one a call, 16
+   greedy tokens, a 32-row cache, in float and NPE-8, NPE-16 for one step
+   and one prefill; the launches of a step, a prefill and the served run
+   checked exactly (`family_launches`: NPE-8 257/66/192/0/0, 321/129/160/
+   0/32, 49/19/6/0/12 for quant_matmul/nvu_layernorm/pwl_eval/nvu_softmax/
+   flash_attention); every launch of one NPE-8 step audited; one step
+   profiled; NPE-8's teacher-forced agreement with float and the NPE-8
+   and NPE-16 logits' correlation with float (RWKV6, Hymba), reported; the
+   route check (float32, 2 layers, float and NPE-8, prompts of 4 and 2
+   tokens; a differing top-1 passes at a top-2 margin within twice the
+   max-abs difference); Whisper's cross cache on the card against the CPU;
+15. prints the kernel list, one JSON line of per-kernel numbers (launches on
+   the encoder, decode, npec, engine, GLM4, Gemma3, Granite, npec GLM4,
+   npec Granite, RWKV6, Hymba, Whisper and Whisper-encoder paths; the npec
+   instances of quant_matmul and nvu_softmax; the rows at each model's
+   shapes and at the decoder executor's), the card, and last
+   `{"ok": true, "device": {...}}`.
 
-Any failure exits non-zero before the last line.  Details go to
+Every route check's CPU half (the port's plain route on the CPU, and its
+change under 1-ulp weights) runs in a second process (`CpuRoutes`, 6
+threads), started after the build, while the card's phases run; the check
+itself waits for its half.  Any failure exits non-zero before the last
+line, and the second process is stopped.  Details go to
 `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
@@ -156,11 +185,14 @@ import copy
 import dataclasses
 import functools
 import json
+import multiprocessing
+import queue
 import re
 import shutil
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -179,9 +211,10 @@ from repro_torch.kernels import nvu_softmax as sm_mod  # noqa: E402
 from repro_torch.kernels import pwl_eval as pe_mod  # noqa: E402
 from repro_torch.kernels import quant_matmul as qm_mod  # noqa: E402
 from repro_torch.core.pwl import _FUNCS, get_table  # noqa: E402
-from repro_torch.launch.serve import Server  # noqa: E402
+from repro_torch.launch.serve import Server, slot_view  # noqa: E402
 from repro_torch.launch.serve_bert import MODES, BertServer, card_info, serve  # noqa: E402
 from repro_torch.models import bert, registry  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import common as cm_mod  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
@@ -237,9 +270,9 @@ GLM4_PREFILL_ROWS = 120     # the longest of [5]'s prompts: M of the tiled insta
 # since 1040 one-token steps of all 62 take about 90 s of host launches
 GEMMA3_MAX_PROMPT, GEMMA3_GEN, GEMMA3_MAX_SEQ = 16, 8, 32
 GEMMA3_WRAP_POS, GEMMA3_WRAP_SEQ, GEMMA3_WRAP_LAYERS = 1040, 1048, 6
-# served depth: 18 of the 62 layers, three whole local:global periods (5
+# served depth: 12 of the 62 layers, two whole local:global periods (5
 # local, 1 global), which keeps the whole script inside its time budget
-GEMMA3_LAYERS = 18
+GEMMA3_LAYERS = 12
 # launches of one Gemma3-27B decode step (a prefill: one such step a prompt
 # token) at L layers: q/k/v/o/gate/up/down a layer and the tied head; two
 # RMSNorms and the q and k norms a layer and the final one; the GELU of each
@@ -678,6 +711,7 @@ def kernel_rows(dev, floor_ms):
     npec_kernel_rows(dev, floor_ms, rows)
     npec_decoder_kernel_rows(dev, floor_ms, rows)
     mask_rows(dev, row)
+    family_kernel_rows(dev, g, row)
     return rows
 
 
@@ -854,13 +888,18 @@ def dense_rows(dev, g, row):
 # d, cell, causal, window, softcap): Gemma3-27B's 1024-row ring with every row
 # valid and with 300 before the wrap (causality off over kv_len keys), its
 # windowed 2048-token prefill, a soft-capped step (the cap no config sets),
-# and StarCoder2-3B's 12:1 ring of 4096 rows
+# and StarCoder2-3B's 12:1 ring of 4096 rows; then Hymba-1.5B's 5:1 step over a
+# 32-row ring, Whisper-base's cross step over the 1500 encoder rows (causality
+# off) and its causal encoder over 1500 frames
 MASK_ROWS = [
     ("ring decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", False, 0, 0.0),
     ("ring decode", 8, 32, 16, 1, 1024, 300, 128, "gemma3", False, 0, 0.0),
     ("windowed prefill", 1, 32, 16, 2048, 2048, 2048, 128, "gemma3", True, 1024, 0.0),
     ("soft-capped decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", True, 0, 50.0),
     ("ring decode", 8, 24, 2, 1, 4096, 4096, 128, "starcoder2", False, 0, 0.0),
+    ("ring decode", 8, 25, 5, 1, 32, 32, 64, "hymba", False, 0, 0.0),
+    ("cross decode", 8, 8, 8, 1, 1500, 1500, 64, "whisper", False, 0, 0.0),
+    ("encoder", 8, 8, 8, 1500, 1500, 1500, 64, "whisper", True, 0, 0.0),
 ]
 
 
@@ -1076,7 +1115,8 @@ def route_check(dev, results):
 
 def profile_call(fn, host_ms):
     """Device busy ms, idle share against `host_ms`, the number of kernels
-    and the 12 largest of one more call of fn under torch.profiler."""
+    by name, the 12 largest and the device launches (kernels and copies) of
+    one more call of fn under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1087,7 +1127,8 @@ def profile_call(fn, host_ms):
     busy = sum(ms for _, ms in by_kernel)
     return dict(host_ms=host_ms, device_busy_ms=busy,
                 idle_share=(1 - busy / host_ms) if busy > 0 else None,
-                kernels=len(by_kernel), top=by_kernel[:12])
+                kernels=len(by_kernel), top=by_kernel[:12],
+                device_launches=sum(n for _, _, n in _kernel_times(prof, with_counts=True)))
 
 
 def profile_forward(server, work, reps: int = 5):
@@ -1187,14 +1228,18 @@ def counted(fn):
     return launches(), out
 
 
-def teacher_forced(server, prompts, feed):
+def teacher_forced(server, prompts, feed, cache=None):
     """Greedy tokens of `server` fed `feed` (B, n): prefill every slot, then
     step i takes the feed's token i-1 (the first re-feeds the last prompt
-    token, as `generate` does)."""
-    server.cache = registry.init_cache(server.cfg, server.batch, server.max_seq,
-                                       server.device)
-    for slot, p in enumerate(prompts):
-        server.prefill_prompt(slot, p)
+    token, as `generate` does).  A given `cache`, the one the same server's
+    prefills left, takes the place of the prefills."""
+    if cache is not None:
+        server.cache = cache
+    else:
+        server.cache = registry.init_cache(server.cfg, server.batch, server.max_seq,
+                                           server.device)
+        for slot, p in enumerate(prompts):
+            server.prefill_prompt(slot, p)
     start = max(len(p) for p in prompts)
     cur = torch.tensor([[int(p[-1])] for p in prompts], device=server.device)
     out = []
@@ -1290,65 +1335,120 @@ def decode_phase(dev, card, results):
         "dense mode: " + ", ".join(f"{m} {a:.4f}" for m, a in before.items()))
 
 
-def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
-                       long_run=True, modes=("float", "npe-16bit", "npe-8bit"),
-                       over=None, prompt_lens=None, max_seq=MAX_SEQ, routed=False):
-    """The decode path's kernel route on the card against the port's plain
-    route on the CPU: `arch` at full width cut to 2 layers (and `over`),
-    float32 weights, bf16 cache, the slots prefilled alone (one token a call
-    where the cache has window rings), then 4 steps fed the same tokens, in
-    `modes`.  Two runs: prompts of up to 128 tokens (or of `prompt_lens`)
-    over a `max_seq`-row cache, and (with `long_run`) prompts of 1100 and
-    300 tokens over an 1152-row cache (past one 256-key block, and past the
-    1024 keys one pass of the dense mode holds).  `routed`: an MoE
-    decoder, whose top-k routing is discrete, so that an ulp can send a
-    token to another expert; its top-1 agreement is held, in every mode, to
-    twice the plain route's own disagreement under 1-ulp weights plus
-    TOP1_MARGIN (a float32 GLM4 or BERT is held to 0.99)."""
+def route_setup(arch, over=None, long_run=True, prompt_lens=None, max_seq=MAX_SEQ, steps=4,
+                **_):
+    """The config, the runs {name: (prompts, rows)} and the fed tokens of a
+    decode route check (`ROUTE_CHECKS`): `arch` at full width cut to 2
+    layers (and `over`), float32 weights; prompts of up to 128 tokens (or of
+    `prompt_lens`) over a `max_seq`-row cache and, with `long_run`, prompts
+    of 1100 and 300 tokens over an 1152-row cache (past one 256-key block,
+    and past the 1024 keys one pass of the dense mode holds); `steps` fed
+    tokens."""
     cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32", **(over or {}))
-    cpu_model = registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
-    card_model = registry.build_model(cfg, device=dev)
-    card_model.load_state_dict(cpu_model.state_dict())
-    noisy = nudge(cpu_model)
     rng = np.random.default_rng(3)
     long_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1100, 300)]
-    feed = rng.integers(0, cfg.vocab_size, (2, 4))
+    feed = rng.integers(0, cfg.vocab_size, (2, steps))
     short = (decode_prompts(cfg.vocab_size, seed=2, n=2) if prompt_lens is None
              else [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens])
     runs = {"short": (short, max_seq)}
     if long_run:
         runs["long"] = (long_prompts, 1152)
+    return cfg, runs, feed
 
-    def run(c, model, device, prompts, max_seq):
-        start = max(len(p) for p in prompts)
-        cache = registry.init_cache(c, 2, max_seq, device)
-        logits = []
-        for slot, p in enumerate(prompts):
-            sub = {g: {k: t[:, slot:slot + 1] for k, t in kv.items()} for g, kv in cache.items()}
-            toks = torch.as_tensor(p, device=device).long()[None]
-            if "win" in cache:                  # a ring takes one token a call
-                for t in range(toks.shape[1]):
-                    logits.append(registry.decode_step(c, model, sub, toks[:, t:t + 1], t)[0][0])
-            else:
-                logits.append(registry.decode_step(c, model, sub, toks, 0)[0][0])
-        cur = torch.tensor([[int(p[-1])] for p in prompts], device=device)
-        for i in range(feed.shape[1]):
-            lg, cache = registry.decode_step(c, model, cache, cur, start + i)
-            logits.append(lg[:, -1])
-            cur = torch.as_tensor(feed[:, i:i + 1], device=device)
-        return torch.cat(logits).float().cpu()
 
+def route_model(cfg):
+    """The route checks' float32 weights, on the CPU, from seed 1."""
+    return registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+
+
+def route_run(c, model, device, prompts, max_seq, feed, cross):
+    """The logits of a route check's run: the slots prefilled alone through
+    the server's views (`slot_view`; one call where the cache is a `full`
+    group alone, else one token a call), then the fed steps."""
+    start = max(len(p) for p in prompts)
+    cache = registry.init_cache(c, 2, max_seq, device)
+    if cross is not None:
+        cache["cross"] = {k: t.to(device) for k, t in cross.items()}
+    logits = []
+    for slot, p in enumerate(prompts):
+        sub = slot_view(cache, slot)
+        toks = torch.as_tensor(p, device=device).long()[None]
+        if set(cache) != {"full"}:          # rings, states: one token a call
+            for t in range(toks.shape[1]):
+                logits.append(registry.decode_step(c, model, sub, toks[:, t:t + 1], t)[0][0])
+        else:
+            logits.append(registry.decode_step(c, model, sub, toks, 0)[0][0])
+    cur = torch.tensor([[int(p[-1])] for p in prompts], device=device)
+    for i in range(feed.shape[1]):
+        lg, cache = registry.decode_step(c, model, cache, cur, start + i)
+        logits.append(lg[:, -1])
+        cur = torch.as_tensor(feed[:, i:i + 1], device=device)
+    return torch.cat(logits).float().cpu()
+
+
+def decode_route_cpu(arch, modes=("float", "npe-16bit", "npe-8bit"), **spec):
+    """The CPU half of a decode route check (run by `CpuRoutes`): the plain
+    route's logits in each run and mode, and their change under 1-ulp
+    weights (max-abs, top-1 agreement).  An encoder-decoder's cross cache is
+    the float plain route over 2 seeded frame batches, cast to bf16 and
+    handed to the card's run too (the card's kernels take bf16 k and v only,
+    so a float32 encoder runs here; `cross_cache_check` holds the card's
+    encoder)."""
+    cfg, runs, feed = route_setup(arch, **spec)
+    model = route_model(cfg)
+    noisy = nudge(model)
+    cross = None
+    if cfg.family == "encdec":
+        cross = encdec_mod.init_cross_cache(cfg, model, seeded_frames(cfg, 2, "cpu"))
+    out = {"cross": None if cross is None else {k: t.float().numpy() for k, t in cross.items()}}
+    for name, (prompts, max_seq) in runs.items():
+        for mode in modes:
+            c = MODES[mode](cfg)
+            want = route_run(c, model, "cpu", prompts, max_seq, feed, cross)
+            ref2 = route_run(c, noisy, "cpu", prompts, max_seq, feed, cross)
+            out[name, mode] = dict(
+                want=want.numpy(), noise=float((ref2 - want).abs().max()),
+                noise_top1=float((ref2.argmax(-1) == want.argmax(-1)).float().mean()))
+    return out
+
+
+def decode_route_check(dev, results, key):
+    """The decode path's kernel route on the card against the port's plain
+    route on the CPU (`decode_route_cpu`, computed beside the card's phases
+    by `CpuRoutes`), as `ROUTE_CHECKS[key]` sets it up (`route_setup`): bf16
+    cache, the slots prefilled alone, then the fed steps, in `modes`.
+    `routed`: an MoE decoder, whose top-k routing is discrete, so that an
+    ulp can send a token to another expert; its top-1 agreement is held, in
+    every mode, to twice the plain route's own disagreement under 1-ulp
+    weights plus TOP1_MARGIN (a float32 GLM4 or BERT is held to 0.99).
+    `ties`: a row whose top-1 differs also passes where the plain route's
+    top two logits are within twice the max-abs difference (a difference
+    within the gate can swap them there): the last families' runs have 16
+    rows of one-token calls, and a bf16 cache or probability that rounds
+    the other way moves their float32 logits by up to 1e-2."""
+    spec = ROUTE_CHECKS[key]
+    arch, modes = spec["arch"], spec.get("modes", ("float", "npe-16bit", "npe-8bit"))
+    routed, ties, steps = spec.get("routed", False), spec.get("ties", False), spec.get("steps", 4)
+    cfg, runs, feed = route_setup(**spec)
+    cpu, seconds = CPU_ROUTES.result(key)
+    card_model = registry.build_model(cfg, device=dev)
+    card_model.load_state_dict(route_model(cfg).state_dict())
+    cross = cpu["cross"] and {k: torch.from_numpy(a).to(torch.bfloat16)
+                              for k, a in cpu["cross"].items()}
     out = {}
     for name, (prompts, max_seq) in runs.items():
         for mode in modes:
             c = MODES[mode](cfg)
-            args = (prompts, max_seq)
-            want, got = run(c, cpu_model, "cpu", *args), run(c, card_model, dev, *args)
-            ref2 = run(c, noisy, "cpu", *args)
+            plain = cpu[name, mode]
+            want, noise, noise_top1 = (torch.from_numpy(plain["want"]), plain["noise"],
+                                       plain["noise_top1"])
+            got = route_run(c, card_model, dev, prompts, max_seq, feed, cross)
             err = float((got - want).abs().max())
-            top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-            noise = float((ref2 - want).abs().max())
-            noise_top1 = float((ref2.argmax(-1) == want.argmax(-1)).float().mean())
+            same = got.argmax(-1) == want.argmax(-1)
+            if ties:
+                top2 = want.topk(2, dim=-1).values
+                same |= (top2[:, 0] - top2[:, 1]) <= 2 * err
+            top1 = float(same.float().mean())
             gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
             gate_top1 = min(noise_top1 - TOP1_MARGIN, 0.99) if mode == "npe-8bit" else 0.99
             if routed:
@@ -1358,15 +1458,19 @@ def decode_route_check(dev, results, arch="bert_base", key="decode_route_check",
                                          noise_max_abs=noise, noise_top1=noise_top1, ok=ok,
                                          prompts=[len(p) for p in prompts], max_seq=max_seq)
             say(f"  {mode:10s} {arch} decode, card kernels vs CPU plain route (float32, 2 layers, "
-                f"prompts {[len(p) for p in prompts]}, {max_seq} rows, prefill + 4 steps): "
-                f"max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} (gate {gate_top1:.4f}); "
+                f"prompts {[len(p) for p in prompts]}, {max_seq} rows, prefill + {steps} steps): "
+                f"max-abs {err:.3e} (gate {gate:.3e}), top-1 {top1:.4f} (gate {gate_top1:.4f}"
+                + (f"; {int((got.argmax(-1) != want.argmax(-1)).sum())} top-1 differ, near "
+                   "ties (the top two within twice the max-abs) counting as agreeing"
+                   if ties else "") + "); "
                 f"CPU plain route under 1-ulp weights: max-abs {noise:.3e}, top-1 "
                 f"{noise_top1:.4f}" + ("" if ok else "  FAIL"))
             if not ok:
                 raise SystemExit(f"{arch} {name} {mode}: the decode kernel route disagrees "
                                  "with the plain route")
-    del cpu_model, card_model, noisy
-    results[key] = out
+    del card_model
+    results[key] = dict(out, cpu_seconds=seconds)
+    say(f"  (the CPU half took {seconds:.1f} s beside the card's phases)")
 
 
 # --- phase 6: the npec compiler and executor --------------------------------
@@ -2197,16 +2301,16 @@ def glm4_phase(dev, card, results):
     del servers, srv, npe8, model
     torch.cuda.empty_cache()
     say(f"  {since()} the route check:")
-    decode_route_check(dev, results, "glm4_9b", key="glm4_route_check", long_run=False)
+    decode_route_check(dev, results, "glm4_route_check")
     say(f"  {since()} done")
 
 
 # --- phase 9: Gemma3-27B: local:global attention over ring caches -----------
 
 def gemma3_phase(dev, card, results):
-    """Full-width Gemma3-27B cut to GEMMA3_LAYERS = 18 of its 62 layers (three
-    whole local:global periods: 15 local over 1024-row rings, 3 global;
-    bf16, about 8.8 B parameters drawn from a torch generator) through
+    """Full-width Gemma3-27B cut to GEMMA3_LAYERS = 12 of its 62 layers (two
+    whole local:global periods: 10 local over 1024-row rings, 2 global;
+    bf16, about 6.4 B parameters drawn from a torch generator) through
     `launch.serve.Server`: (a) 8 slots, prompts of up to 16 tokens prefilled
     one token a call, 8 greedy steps, in float and NPE-8; (b) the launches
     of one step and of one prefill (a step a prompt token), and of the
@@ -2218,7 +2322,7 @@ def gemma3_phase(dev, card, results):
     its launches those of a step before the wrap, its logits finite; (f)
     the route check at 2 layers (one local, one global; window 64, so both
     routes wrap the ring), float only: a CPU NPE call quantizes every
-    weight of the cut model, some 2.2 B values, for each of the run's 80
+    weight of the cut model, some 2.2 B values, for each of the run's 28
     one-token calls."""
     cfg = dataclasses.replace(get_config("gemma3_27b"), num_layers=GEMMA3_LAYERS)
     reqs = SyntheticRequests(cfg.vocab_size, max_prompt=GEMMA3_MAX_PROMPT, seed=1)
@@ -2342,11 +2446,9 @@ def gemma3_phase(dev, card, results):
     del cache, snapshot, model, full_model
     torch.cuda.empty_cache()
     say(f"  {since()} the route check (2 layers, global_every 2: layer 0 local, layer 1 "
-        "global; window 64; prompts of 66 and 6 tokens one a call and 4 steps, so both "
+        "global; window 16; prompts of 18 and 6 tokens one a call and 4 steps, so both "
         "routes wrap the ring; float only):")
-    decode_route_check(dev, results, "gemma3_27b", key="gemma3_route_check", long_run=False,
-                       modes=("float",), over=dict(global_every=2, window=64),
-                       prompt_lens=(66, 6), max_seq=96)
+    decode_route_check(dev, results, "gemma3_route_check")
     say(f"  {since()} done")
 
 
@@ -2465,8 +2567,7 @@ def granite_phase(dev, card, results):
     del servers, srv, npe8, model
     torch.cuda.empty_cache()
     say(f"  {since()} the route check:")
-    decode_route_check(dev, results, "granite_moe_1b_a400m", key="granite_route_check",
-                       long_run=False, routed=True)
+    decode_route_check(dev, results, "granite_route_check")
     say(f"  {since()} done")
 
 
@@ -2474,7 +2575,7 @@ def granite_phase(dev, card, results):
 
 # [11](a): GLM4-9B's depth through the executor.  On an H100 80GB HBM3 at
 # 700 W, 32 layers took [11] to 159.7 s, past its 150 s, and the script to
-# 1,144 s; 24 layers took [11] 122.6 s
+# 1,144 s; 24 layers took [11] 122.6-148.0 s
 NPEC_GLM4_LAYERS = 24
 NPEC_CHUNK, NPEC_GLM4_T, NPEC_GLM4_STEPS = 16, 256, 8
 NPEC_CHECK_SLOTS, NPEC_CHECK_STEPS, NPEC_CHECK_T = 2, 4, 128     # [11](b), 2 layers
@@ -2871,7 +2972,432 @@ def npec_decoders_phase(dev, results):
     say(f"  phase [11]: {results['npec_decoders_seconds']:.1f} s")
 
 
+# --- phases 12-14: RWKV6, the Hymba hybrid, Whisper ---------------------------
+
+# 8 slots, prompts of 7 to 16 tokens prefilled one token a call (the state
+# caches take one token a call in the reference's server), 16 steps, 32 rows
+FAMILY_MAX_PROMPT, FAMILY_GEN, FAMILY_MAX_SEQ = GEMMA3_MAX_PROMPT, 16, 32
+FAMILY_PHASES = {"rwkv6_3b": "[12]", "hymba_1_5b": "[13]", "whisper_base": "[14]"}
+
+
+def family_launches(cfg, mode: str, what: str = "step"):
+    """Launches of one decode step of `cfg` in `mode` (a prefill: one such
+    step a prompt token), or, what="encoder", of Whisper's
+    `init_cross_cache`.  RWKV6, L layers: r/k/v/g/o and the channel mix's
+    k/v/r a layer and the head; ln_in, two LayerNorms a layer and ln_f;
+    tanh twice, silu, the decay, the group norm's rsqrt and the sigmoid a
+    layer.  Hymba: q/k/v/o, in/x/out_proj and gate/up/down a layer and the
+    head; four RMSNorms a layer and ln_f; silu three times, softplus and
+    exp a layer; one dense attention a layer.  Whisper's decoder: self
+    q/k/v/o, cross q/o and the MLP's two a layer and the tied head; three
+    LayerNorms a layer and ln_f; GELU; self and cross attention.  Its
+    encoder: q/k/v/o and the MLP's two a layer, then each decoder layer's
+    cross k/v; two LayerNorms a layer and ln_enc; GELU; one causal
+    attention a layer.  Float mode launches attention only; NPE-16 no
+    MMU kernel."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        n = dict(quant_matmul=8 * L + 1, nvu_layernorm=2 * L + 2, pwl_eval=6 * L,
+                 flash_attention=0)
+    elif cfg.family == "hybrid":
+        n = dict(quant_matmul=10 * L + 1, nvu_layernorm=4 * L + 1, pwl_eval=5 * L,
+                 flash_attention=L)
+    elif what == "encoder":
+        le, ld = cfg.encoder_layers, cfg.decoder_layers
+        n = dict(quant_matmul=6 * le + 2 * ld, nvu_layernorm=2 * le + 1, pwl_eval=le,
+                 flash_attention=le)
+    else:
+        ld = cfg.decoder_layers
+        n = dict(quant_matmul=8 * ld + 1, nvu_layernorm=3 * ld + 1, pwl_eval=ld,
+                 flash_attention=2 * ld)
+    n["nvu_softmax"] = 0
+    if mode != "npe-8bit":
+        n["quant_matmul"] = 0
+    if mode == "float":
+        n.update(nvu_layernorm=0, pwl_eval=0)
+    return n
+
+
+def clone_tree(tree):
+    """A copy of a cache tree's tensors."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def seeded_frames(cfg, batch: int, device, dtype=torch.float32):
+    """Seeded frame embeddings (B, encoder_seq, D) x 0.02 for Whisper's stubbed
+    front end, drawn on the CPU so that both routes get the same values."""
+    g = torch.Generator().manual_seed(7)
+    x = 0.02 * torch.randn(batch, cfg.encoder_seq, cfg.d_model, generator=g)
+    return x.to(device=device, dtype=dtype)
+
+
+# (cell, M, K, N) of the last families' NPE-8 products: RWKV6's channel-mix k
+# and v and its head; Hymba's in_proj, x_proj (N = dt_rank 100 + 2 x 16) and
+# out_proj; Whisper's decoder MLP up, its encoder's (8 x 1500 rows) MLP
+FAMILY_PRODUCTS = [
+    ("rwkv6", 8, 2560, 8960), ("rwkv6", 8, 8960, 2560), ("rwkv6", 8, 2560, 65536),
+    ("hymba", 8, 1600, 6400), ("hymba", 8, 3200, 132), ("hymba", 8, 3200, 1600),
+    ("whisper", 8, 512, 2048), ("whisper", 12000, 512, 2048), ("whisper", 12000, 2048, 512),
+]
+
+
+def family_kernel_rows(dev, g, row):
+    """The MMU at RWKV6's, Hymba's and Whisper's products (FAMILY_PRODUCTS),
+    bf16 out; the layernorm kernel at RWKV6's (8, 2560) and Whisper's
+    encoder (12000, 512) rows with beta (eps 1e-5 and 1e-6) and Hymba's
+    (8, 1600) RMSNorm; `pwl_eval` at the new tables' shapes: RWKV6's decay
+    exp(-exp(x)) (8, 2560) bf16, Mamba's exp (8 x 3200, 16) f32 and the group
+    norm's rsqrt on (8 x 40, 1) f32 mantissas, bit for bit against the
+    walk.  Their dense-mode rows are in MASK_ROWS."""
+    import torch.nn.functional as F
+    for cell, m, k, n in FAMILY_PRODUCTS:
+        xq = quantize(torch.randn(m, k, generator=g, device=dev), 8)
+        wq = quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, 8, axis=1)
+        a, b = xq.q.contiguous(), wq.q.contiguous()
+        lib_a = torch.cat([a, a.new_zeros(32 - m, k)]) if m < 32 else a  # _int_mm: M > 16
+        lib_b = b if n % 8 == 0 else torch.cat([b, b.new_zeros(k, 8 - n % 8)], 1)
+        row("quant_matmul", f"({m}, {k}) @ ({k}, {n})", torch.bfloat16,
+            lambda: qm_mod.quant_matmul(a, b, xq.scale, wq.scale, out_dtype=torch.bfloat16),
+            lambda: qm_mod.quant_matmul_plain(a, b, xq.scale, wq.scale, None, torch.bfloat16),
+            m * k + k * n + 4 + 4 * n + m * n * 2, [(2 * m * n * k, INT8_OPS_PER_S)],
+            library_fn=lambda: torch._int_mm(lib_a, lib_b),
+            library_name="torch._int_mm" + (", rows zero-padded to 32" if m < 32 else "")
+            + (", columns to a multiple of 8" if n % 8 else ""), cell=cell)
+        del xq, wq, a, b, lib_a, lib_b
+    for cell, m, n, eps, rms in (("rwkv6", 8, 2560, 1e-5, False),
+                                 ("whisper", 12000, 512, 1e-6, False),
+                                 ("hymba", 8, 1600, 1e-6, True)):
+        x = (torch.randn(m, n, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
+        gam = 1 + 0.1 * torch.randn(n, generator=g, device=dev)
+        bet = None if rms else 0.1 * torch.randn(n, generator=g, device=dev)
+        row("nvu_layernorm", f"({m}, {n})" + (" rms_only" if rms else " beta"), torch.bfloat16,
+            lambda: ln_mod.nvu_layernorm(x, gam, bet, eps=eps, rms_only=rms),
+            lambda: ln_mod.nvu_layernorm_plain(x, gam, bet, eps=eps, rms_only=rms),
+            x.numel() * 2 * x.element_size() + (1 if rms else 2) * n * 4,
+            [(x.numel() * (4 if rms else 8) + m * (pwl_ops("rsqrt") + 8), F32_OPS_PER_S)],
+            yardstick_fn=None if rms else (lambda: F.layer_norm(
+                x, (n,), gam.to(x.dtype), bet.to(x.dtype), eps=eps)),
+            yardstick_name=None if rms else "F.layer_norm", cell=cell)
+    for cell, name, shape, dt in (("rwkv6", "exp_neg_exp", (8, 2560), torch.bfloat16),
+                                  ("hymba", "exp", (25600, 16), torch.float32),
+                                  ("rwkv6", "rsqrt", (320, 1), torch.float32)):
+        if name == "rsqrt":                                # mantissas in [0.25, 1)
+            x = (0.25 + 0.75 * torch.rand(*shape, generator=g, device=dev)).to(dt)
+        elif name == "exp":                                # dt * A <= 0
+            x = (-4 * torch.rand(*shape, generator=g, device=dev)).to(dt)
+        else:
+            x = torch.randn(*shape, generator=g, device=dev).to(dt)
+        tab = pe_mod.device_table(name, 16, dev)
+        row("pwl_eval", f"{shape} {name}", dt,
+            lambda: pe_mod.pwl_eval(x, name),
+            lambda: pe_mod.pwl_eval_plain(x, get_table(name, 16)),
+            x.numel() * 2 * x.element_size(),
+            [(x.numel() * pwl_prefix_ops(name), F32_OPS_PER_S)],
+            walk_fn=lambda: pe_mod.pwl_eval_walk(x, tab).to(x.dtype), cell=cell)
+
+
+def logits_corr(cfg, model, prompts, mode, dev) -> float:
+    """Correlation of `mode`'s logits with float's over the forward (`apply`)
+    of the prompts cut to their shortest length, the reference's measure
+    (tests/test_npe_accuracy.py: above 0.98 at smoke size)."""
+    n = min(map(len, prompts))
+    tok = torch.as_tensor(np.stack([p[:n] for p in prompts]), device=dev).long()
+    base = registry.apply(cfg, model, tok).float().flatten()
+    other = registry.apply(MODES[mode](cfg), model, tok).float().flatten()
+    return float(torch.corrcoef(torch.stack([base, other]))[0, 1])
+
+
+CROSS_CHECK_LAYERS = dict(encoder_layers=2, decoder_layers=2)
+CROSS_CHECK_MODES = ("float", "npe-8bit")
+
+
+def cross_cache_cpu():
+    """The CPU half of `cross_cache_check` (run by `CpuRoutes`): the plain
+    route's cross cache in each mode, and its change under 1-ulp weights."""
+    cfg = dataclasses.replace(get_config("whisper_base"), **CROSS_CHECK_LAYERS)
+    model = route_model(cfg)
+    noisy = nudge(model)
+    fr = seeded_frames(cfg, 2, "cpu")
+    out = {}
+    for mode in CROSS_CHECK_MODES:
+        c = MODES[mode](cfg)
+        want = encdec_mod.init_cross_cache(c, model, fr)
+        ref2 = encdec_mod.init_cross_cache(c, noisy, fr)
+        out[mode] = dict(want={k: want[k].float().numpy() for k in "kv"},
+                         noise=max(float((ref2[k].float() - want[k].float()).abs().max())
+                                   for k in "kv"))
+    return out
+
+
+def cross_cache_check(dev, results):
+    """Whisper's encoder and cross K/V (`init_cross_cache`) on the card against
+    the CPU's plain route (`cross_cache_cpu`) on the same bf16 weights (the
+    model's own dtype: the card's attention takes bf16 k and v), full width
+    cut to 2 encoder and 2 decoder layers, over 2 seeded frame batches (2 x
+    1500 rows), float and NPE-8; the gate is the decode route check's,
+    against the CPU route's own change under 1-ulp weights."""
+    cfg = dataclasses.replace(get_config("whisper_base"), **CROSS_CHECK_LAYERS)
+    cpu, seconds = CPU_ROUTES.result("whisper_cross_check")
+    card_model = registry.build_model(cfg, device=dev)
+    card_model.load_state_dict(route_model(cfg).state_dict())
+    fr = seeded_frames(cfg, 2, dev)
+    out = {}
+    for mode in CROSS_CHECK_MODES:
+        got = encdec_mod.init_cross_cache(MODES[mode](cfg), card_model, fr)
+        want, noise = ({k: torch.from_numpy(a) for k, a in cpu[mode]["want"].items()},
+                       cpu[mode]["noise"])
+        err = max(float((got[k].cpu().float() - want[k]).abs().max()) for k in "kv")
+        ulp = float(np.mean([((got[k].cpu().float() - want[k]).abs()
+                              <= want[k].abs() * BF16_RTOL).float().mean() for k in "kv"]))
+        gate = max(NOISE_FACTOR * noise, FLOAT_TOL if mode == "float" else NPE16_TOL)
+        ok = err <= gate and all(bool(torch.isfinite(got[k].float()).all()) for k in "kv")
+        out[mode] = dict(max_abs=err, gate=gate, noise_max_abs=noise, within_one_ulp=ulp, ok=ok)
+        say(f"  {mode:10s} whisper cross cache (encoder + cross k/v, bf16, 2+2 layers, 2 x 1500 "
+            f"frames), card kernels vs CPU plain route: max-abs {err:.3e} (gate {gate:.3e}; "
+            f"CPU under 1-ulp weights {noise:.3e}), {ulp:.4f} of the values within one bf16 ulp"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"whisper {mode}: the card's cross cache disagrees with the CPU's")
+    del card_model
+    results["whisper_cross_check"] = dict(out, cpu_seconds=seconds)
+
+
+def family_phase(dev, card, results, arch):
+    """One of the last families at full width and depth (bf16, random
+    weights from a torch generator) through `launch.serve.Server`: (a) 8
+    slots, prompts of 7 to 16 tokens prefilled one token a call, 16 greedy
+    steps, a 32-row cache, in float and NPE-8, NPE-16 for one step and one
+    prefill; Whisper's cross cache first, by `init_cross_cache` over 8
+    seeded frame batches in the server's mode, its launches checked and its
+    host and device-busy ms printed; (b) the launches of a step, a prefill
+    and the served run checked exactly (`family_launches`); (c) every launch
+    of one NPE-8 step (and Whisper's NPE-8 encoder) held to its plain
+    version; (d) one NPE-8 step profiled, with its device launches; (e)
+    NPE-8's teacher-forced top-1 agreement with float (from the cache its
+    served prefills left), and the NPE-8 and NPE-16 logits' correlation
+    with float (RWKV6, Hymba), reported; (f) the route check (float32, 2
+    layers, prompts of 4 and 2 tokens, prefill plus 4 steps, float and
+    NPE-8; Hymba's ring cut to 4 rows, so that both routes wrap it) and
+    Whisper's cross cache on the card against the CPU."""
+    key, label = arch.split("_")[0], FAMILY_PHASES[arch]
+    cfg = get_config(arch)
+    reqs = SyntheticRequests(cfg.vocab_size, max_prompt=FAMILY_MAX_PROMPT, seed=1)
+    prompts = [reqs.request(i) for i in range(SLOTS)]
+    start = max(len(p) for p in prompts)
+    t0 = time.perf_counter()
+    since = lambda: f"({time.perf_counter() - t0:.1f} s into {label})"   # noqa: E731
+    model = registry.build_model(cfg, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  {arch} L={cfg.num_layers} D={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}, {n_params:,} parameters "
+        f"({torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the card); {SLOTS} slots, "
+        f"prompts of {[len(p) for p in prompts]} tokens one a call, {FAMILY_GEN} steps from "
+        f"position {start}, cache of {FAMILY_MAX_SEQ} rows")
+    out, servers, enc, prefilled = {}, {}, {}, {}
+    fill = None
+    if cfg.family == "encdec":
+        frames = seeded_frames(cfg, SLOTS, dev, torch.bfloat16)
+
+        def fill(srv):
+            srv.cache["cross"] = encdec_mod.init_cross_cache(srv.cfg, model, frames)
+    for mode in ("float", "npe-8bit", "npe-16bit"):
+        srv = servers[mode] = Server(arch, batch=SLOTS, max_seq=FAMILY_MAX_SEQ, mode=mode,
+                                     device=dev, model=model)
+        if fill is not None:                # the encoder, in this mode
+            fill(srv)                       # warm-up
+            want = family_launches(srv.cfg, mode, "encoder")
+            host = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                n, _ = counted(lambda: fill(srv))
+                host.append(1e3 * (time.perf_counter() - t1))
+                if n != want:
+                    raise SystemExit(f"whisper {mode}: encoder launches {n} differ from {want}")
+            prof = profile_call(lambda: fill(srv), sorted(host)[1])
+            enc[mode] = dict(prof, launches=n, host_ms_runs=host)
+            idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}"
+            say(f"  {mode:10s} encoder + cross k/v of {SLOTS} x {cfg.encoder_seq} frames: "
+                f"{prof['host_ms']:.3f} ms host (median of 3), {prof['device_busy_ms']:.3f} ms "
+                f"device busy, idle share {idle}; launches {n}")
+        if mode == "npe-16bit":
+            srv.prefill_prompt(0, prompts[0][:2])          # warm-up
+            out[mode] = {}
+            continue
+        srv.generate([prompts[0][:2]], gen_tokens=1)       # warm-up
+        srv.cache = registry.init_cache(srv.cfg, SLOTS, FAMILY_MAX_SEQ, dev)
+        if fill is not None:
+            fill(srv)
+        step_fn = srv.decode
+        if mode == "npe-8bit":              # keep the cache the prefills leave
+            def srv_decode(m, cache, cur, pos, step_fn=step_fn):
+                prefilled.setdefault("cache", clone_tree(cache))
+                return step_fn(m, cache, cur, pos)
+            srv.decode = srv_decode
+        counts, stats = counted(lambda: srv.generate(prompts, gen_tokens=FAMILY_GEN))
+        srv.decode = step_fn
+        rep = stats.report()
+        toks = stats.generated
+        if toks.shape != (SLOTS, FAMILY_GEN) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"{arch} {mode}: generated tokens of shape {toks.shape} "
+                             "or out of range")
+        out[mode] = dict(rep, generated=toks.tolist(), run_launches=counts, step_ms=stats.step_ms)
+        say(f"  {mode:10s} prefill {rep['prefill_ms_per_slot']:9.3f} ms per slot "
+            f"({sum(map(len, prompts)) / SLOTS:.1f} one-token calls), decode "
+            f"{rep['decode_ms_per_step']:8.3f} ms per step (median of {FAMILY_GEN}), "
+            f"{rep['tokens_per_sec']:8.1f} tokens/s, on {card} {since()}")
+    cur = torch.as_tensor(np.asarray(out["npe-8bit"]["generated"])[:, -1:], device=dev)
+    pos = start + FAMILY_GEN - 1            # the last step's position, once more
+    for mode, srv in servers.items():
+        t1 = time.perf_counter()
+        prefill, _ = counted(lambda: srv.prefill_prompt(0, prompts[0]))
+        prefill_ms = 1e3 * (time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        step, (logits, _) = counted(
+            lambda: registry.decode_step(srv.cfg, model, srv.cache, cur, pos))
+        step_ms = 1e3 * (time.perf_counter() - t1)
+        check_logits(logits, (SLOTS, 1, cfg.vocab_size), f"{arch} {mode} step")
+        out[mode].update(step_launches=step, prefill_launches=prefill,
+                         one_prefill_ms=prefill_ms, one_step_ms=step_ms)
+        say(f"  {mode:10s} launches of one step {step}, of one one-slot prefill of "
+            f"{len(prompts[0])} tokens {prefill} ({prefill_ms:.1f} ms; the step {step_ms:.1f} ms)")
+        want = family_launches(srv.cfg, mode)
+        if step != want or prefill != {k: n * len(prompts[0]) for k, n in want.items()}:
+            raise SystemExit(f"{arch} {mode}: launches of a step or a prefill differ from {want}")
+        if mode != "npe-16bit":
+            runs = sum(map(len, prompts)) + FAMILY_GEN
+            if out[mode]["run_launches"] != {k: n * runs for k, n in want.items()}:
+                raise SystemExit(f"{arch} {mode}: launches of the served run differ from "
+                                 f"{runs} x {want}")
+    results[key] = out
+    results[f"{key}_launches"] = out["npe-8bit"]["run_launches"]
+    if enc:
+        results["whisper_encoder"] = enc
+        results["whisper_encoder_launches"] = enc["npe-8bit"]["launches"]
+
+    npe8 = servers["npe-8bit"]
+    results[f"{key}_audit"] = audit_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        f"{since()} one NPE-8 {arch} decode step", family_launches(npe8.cfg, "npe-8bit"))
+    if fill is not None:
+        results["whisper_encoder_audit"] = audit_call(
+            lambda: fill(npe8), f"{since()} the NPE-8 whisper encoder and cross k/v",
+            family_launches(npe8.cfg, "npe-8bit", "encoder"))
+    prof = results[f"{key}_profile"] = profile_call(
+        lambda: registry.decode_step(npe8.cfg, model, npe8.cache, cur, pos),
+        out["npe-8bit"]["decode_ms_per_step"])
+    say_profile_step(f"NPE-8 {arch} decode step", prof)
+    say(f"  device launches of that step (kernels and copies): {prof['device_launches']}")
+    feed = np.asarray(out["float"]["generated"])
+    agree = {"npe-8bit": float((teacher_forced(npe8, prompts, feed, cache=prefilled["cache"])
+                                == feed).mean())}
+    results[f"{key}_agreement"] = agree
+    say(f"  {since()} {arch} NPE-8 top-1 agreement with the float route's tokens, fed them "
+        f"(reported, not gated; float's own is 1 by construction): {agree['npe-8bit']:.4f}")
+    if cfg.family in ("ssm", "hybrid"):
+        corr = results[f"{key}_logits_corr"] = {
+            mode: logits_corr(servers["float"].cfg, model, prompts, mode, dev)
+            for mode in ("npe-8bit", "npe-16bit")}
+        say(f"  {arch} logits' correlation with float over the forward of the {SLOTS} prompts "
+            f"cut to {min(map(len, prompts))} tokens (reported; the reference finds RWKV6 "
+            "NPE-8 and Hymba NPE-16 above 0.98 at smoke size): "
+            + ", ".join(f"{m} {c:.5f}" for m, c in corr.items()))
+    del servers, srv, npe8, model
+    torch.cuda.empty_cache()
+    say(f"  {since()} the route check:")
+    decode_route_check(dev, results, f"{key}_route_check")
+    if cfg.family == "encdec":
+        cross_cache_check(dev, results)
+    results[f"{key}_seconds"] = time.perf_counter() - t0
+    say(f"  {since()} done")
+
+
+# --- the CPU halves of the route checks, beside the card's phases -----------
+
+# each decode route check's set-up (`route_setup`), in the order the phases
+# need them: BERT's with the long run; GLM4's over prefill plus 2 steps
+# (its CPU NPE calls quantize the 151552-column head each call); Gemma3's
+# local layer over a 16-row ring that both runs wrap (global_every 2: layer
+# 0 local, layer 1 global); the last families' over prompts of 4 and 2
+# tokens (Hymba's local layer over a 4-row ring, which they wrap)
+FAMILY_ROUTE = dict(long_run=False, modes=("float", "npe-8bit"), prompt_lens=(4, 2),
+                    max_seq=FAMILY_MAX_SEQ, ties=True)
+ROUTE_CHECKS = {
+    "decode_route_check": dict(arch="bert_base"),
+    "glm4_route_check": dict(arch="glm4_9b", long_run=False, modes=("float", "npe-8bit"),
+                             steps=2),
+    "gemma3_route_check": dict(arch="gemma3_27b", long_run=False, modes=("float",),
+                               over=dict(global_every=2, window=16), prompt_lens=(18, 6),
+                               max_seq=32),
+    "granite_route_check": dict(arch="granite_moe_1b_a400m", long_run=False, routed=True),
+    "rwkv6_route_check": dict(arch="rwkv6_3b", **FAMILY_ROUTE),
+    "hymba_route_check": dict(arch="hymba_1_5b", over=dict(global_every=2, window=4),
+                              **FAMILY_ROUTE),
+    "whisper_route_check": dict(arch="whisper_base", over=CROSS_CHECK_LAYERS, **FAMILY_ROUTE),
+}
+# the CPU threads of the process that computes them; the rest of the 8
+# cores are the card's phases' host
+ROUTE_THREADS = 6
+
+
+def cpu_route_worker(jobs, queue):
+    """Run each (key, function name, kwargs) job on the CPU and put (key,
+    result, seconds) on the queue; (None, traceback, 0) if one fails."""
+    torch.set_num_threads(ROUTE_THREADS)
+    torch.set_float32_matmul_precision("highest")
+    for key, fn, kw in jobs:
+        t0 = time.perf_counter()
+        try:
+            value = globals()[fn](**kw)
+        except BaseException:
+            queue.put((None, traceback.format_exc(), 0.0))
+            return
+        queue.put((key, value, time.perf_counter() - t0))
+
+
+class CpuRoutes:
+    """The CPU halves of the route checks (the port's plain route on the
+    CPU, `decode_route_cpu` and `cross_cache_cpu`), computed in a process of
+    its own while the card's phases run, so that the script's time is not
+    their sum; `result(key)` waits for one."""
+
+    def __init__(self):
+        jobs = [(key, "decode_route_cpu", spec) for key, spec in ROUTE_CHECKS.items()]
+        jobs.append(("whisper_cross_check", "cross_cache_cpu", {}))
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.proc = ctx.Process(target=cpu_route_worker, args=(jobs, self.queue), daemon=True)
+        self.proc.start()
+        self.done = {}
+
+    def result(self, key):
+        while key not in self.done:
+            try:
+                k, value, seconds = self.queue.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise SystemExit(f"the CPU route process ended (code "
+                                     f"{self.proc.exitcode}) before {key}")
+                continue
+            if k is None:
+                raise SystemExit(f"the CPU route process failed:\n{value}")
+            self.done[k] = (value, seconds)
+        return self.done.pop(key)
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+
+
+CPU_ROUTES = None
+
+
 def main() -> int:
+    global CPU_ROUTES
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2918,6 +3444,15 @@ def main() -> int:
             n = sum(c[col] for f, c in sass.items() if key in f)
             say(f"    SASS of {name}: {n} {'HMMA' if col == 0 else 'IMMA'} instructions")
 
+    CPU_ROUTES = CpuRoutes()
+    try:
+        return serve_phases(dev, card, results, phase)
+    finally:
+        CPU_ROUTES.close()
+
+
+def serve_phases(dev, card, results, phase) -> int:
+    """Phases [3] to [15], with the CPU route process running beside them."""
     phase("[3] kernels vs plain versions on the card (ms per call: device time "
         "from torch.profiler, CUDA events in brackets)")
     floor_ms, floor_ev = launch_floor()
@@ -2933,7 +3468,7 @@ def main() -> int:
 
     phase("[5] full-width BERT-base KV-cache decode serving through the kernels")
     decode_phase(dev, card, results)
-    decode_route_check(dev, results)
+    decode_route_check(dev, results, "decode_route_check")
 
     phase("[6] npec: the compiled BERT-base streams through the functional executor on the card")
     base, tree = npec_phase(dev, results)
@@ -2957,6 +3492,17 @@ def main() -> int:
     phase("[11] npec for the dense and MoE families: GLM4-9B and Granite-3.0-1B-A400M compiled "
           "and executed on the card")
     npec_decoders_phase(dev, results)
+
+    phase("[12] full-width RWKV6-3B (32 layers) decode serving through the kernels")
+    family_phase(dev, card, results, "rwkv6_3b")
+
+    phase("[13] full-width Hymba-1.5B (32 layers: attention over 1024-row windows and an SSM "
+          "head in each) decode serving through the kernels")
+    family_phase(dev, card, results, "hymba_1_5b")
+
+    phase("[14] full-width Whisper-base (6 encoder and 6 decoder layers) encoding and decode "
+          "serving through the kernels")
+    family_phase(dev, card, results, "whisper_base")
 
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
@@ -2989,7 +3535,11 @@ def main() -> int:
             launches_gemma3=results["gemma3_launches"][name],
             launches_granite=results["granite_launches"][name],
             launches_npec_glm4=results["npec_glm4_launches"][name],
-            launches_npec_granite=results["npec_granite_launches"][name]))
+            launches_npec_granite=results["npec_granite_launches"][name],
+            launches_rwkv6=results["rwkv6_launches"][name],
+            launches_hymba=results["hymba_launches"][name],
+            launches_whisper=results["whisper_launches"][name],
+            launches_whisper_encoder=results["whisper_encoder_launches"][name]))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
@@ -3006,7 +3556,8 @@ def main() -> int:
                 kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
         if r["yardstick"]:
             kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
-        for cell in ("glm4", "gemma3", "starcoder2", "npec_decoders"):
+        for cell in ("glm4", "gemma3", "starcoder2", "npec_decoders", "rwkv6", "hymba",
+                     "whisper"):
             cell_rows = [
                 dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                      bound_ms=x["bound_ms"], bound_by=x["bound_by"],
@@ -3022,7 +3573,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    phase("[12] summary")
+    phase("[15] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

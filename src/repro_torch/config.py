@@ -21,6 +21,16 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective SSM (hymba) / RWKV6 head parameters."""
+    state_dim: int = 16
+    conv_dim: int = 4
+    expand: int = 2
+    dt_rank: int = 0           # 0 => max(1, d_model // 16)
+    head_size: int = 64        # rwkv6 head size
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # dense | moe | ssm | hybrid | encdec | vlm | bert
@@ -56,7 +66,7 @@ class ModelConfig:
 
     # --- family extensions ---
     moe: Optional[MoEConfig] = None
-    ssm: Optional[object] = None  # SSMConfig: the SSM families are not ported
+    ssm: Optional[SSMConfig] = None
     encoder_layers: int = 0      # encdec only
     decoder_layers: int = 0
     encoder_seq: int = 1500      # whisper audio frames after the conv stub
@@ -89,6 +99,6 @@ class ModelConfig:
             npe_pwl=True, npe_pwl_segments=segments)
 
     def param_count(self) -> int:
-        """Parameters of the port's model of this config (a ported family)."""
+        """Parameters of the port's model of this config."""
         from repro_torch.models import registry
         return registry.param_count(self)

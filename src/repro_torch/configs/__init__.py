@@ -3,8 +3,10 @@
 The port carries the configurations it runs: the paper's BERT, the dense
 and vlm decoders (glm4_9b, command_r_plus_104b, qwen2_vl_7b; starcoder2_3b's
 sliding window and gemma3_27b's local:global layers) and the MoE decoders
-(granite_moe_1b_a400m, llama4_maverick_400b_a17b).  Each records its public
-source and pads the vocabulary as the reference does.
+(granite_moe_1b_a400m, llama4_maverick_400b_a17b), RWKV6 (rwkv6_3b), the
+attention + Mamba hybrid (hymba_1_5b) and the encoder-decoder
+(whisper_base): all 11 of the reference.  Each records its public source
+and pads the vocabulary as the reference does.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ ARCH_IDS: List[str] = [
     "qwen2_vl_7b",
     "granite_moe_1b_a400m",
     "llama4_maverick_400b_a17b",
+    "rwkv6_3b",
+    "hymba_1_5b",
+    "whisper_base",
     "bert_base",
 ]
 

@@ -50,6 +50,19 @@ def pwl_activation(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tens
     return pwl_eval(x.reshape(-1, x.shape[-1]), name, segments).reshape(x.shape)
 
 
+def pwl_exp(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
+    """exp for x <= 0 through the NVU, floored at 0 as `core/nvu.nvu_exp` is
+    (the table's least-squares values dip below 0 where exp is near 0)."""
+    return pwl_activation(x, "exp", segments).clamp_min(0)
+
+
+def pwl_rsqrt(x: torch.Tensor, segments: int = 16) -> torch.Tensor:
+    """1/sqrt(x) for x > 0 through the NVU, as `core/nvu.nvu_rsqrt`: the
+    table on the power-of-4 mantissa, scaled by the exact power of two."""
+    m, p = nvu._normalize_pow4(x)
+    return torch.ldexp(pwl_activation(m, "rsqrt", segments), -p).to(x.dtype)
+
+
 def quant_dense(x: torch.Tensor, w: torch.Tensor,
                 act_axis: Optional[int] = None) -> torch.Tensor:
     """The 8-bit MMU: int8-quantize x per tensor (act_axis=0: each row of

@@ -1,23 +1,27 @@
 """Batched KV-cache decode serving (counterpart of the jnp backend of
 `repro/launch/serve.py`: `ServeStats`, `Server` and its CLI).
 
-A fixed pool of B decode slots for any ported decoder (`--arch`: BERT's
-causal step, or a dense, vlm or MoE transformer such as glm4_9b, gemma3_27b
-or granite_moe_1b_a400m).  Each prompt is prefilled alone on its slot's
-slice of the cache: by one multi-token `decode_step` at position 0, or,
-where the cache has window rings (starcoder2, gemma3), one token a step at
-positions 0..S-1, as the reference does; then every slot decodes one greedy
-token a step on one common position clock that starts at the longest
-prompt's length.  As in the reference, a
+A fixed pool of B decode slots for any model of the port with a decode
+step (`--arch`: BERT's causal step, a dense, vlm or MoE transformer such as
+glm4_9b, gemma3_27b or granite_moe_1b_a400m, RWKV6, the Hymba hybrid or
+Whisper's decoder).  Each prompt is prefilled alone on its slot's slice of
+the cache: by one multi-token `decode_step` at position 0 where the cache
+is a `full` KV group alone, else (window rings, recurrent states, a cross
+cache) one token a step at positions 0..S-1, as the reference does; then
+every slot decodes one greedy token a step on one common position clock
+that starts at the longest prompt's length.  As in the reference, a
 slot with a shorter prompt attends over the zero cache rows between its
 length and that start, and each slot's last prompt token is fed again at
-the start.  Every attention goes through the flash-attention kernel.
+the start; Whisper's cross cache starts at zero, as the reference server's
+does, until a caller fills it (`encdec.init_cross_cache`).  Every attention
+goes through the flash-attention kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --max-seq 256 \
         --gen 64 --mode npe-8bit
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --mode npe-8bit
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_27b --max-prompt 16 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_1b_a400m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b --max-prompt 16 --gen 16
 
 prints the prefill ms per slot, the ms per decode step and tokens/s on the
 card, with the card's name and power limit.
@@ -72,15 +76,29 @@ class ServeStats:
         }
 
 
+# the fields of a given model's config that the server takes: its depth and
+# the dtype of its weights and activations
+MODEL_FIELDS = ("num_layers", "encoder_layers", "decoder_layers", "dtype")
+
+
+def slot_view(cache, slot: int):
+    """The cache tree's views of one slot: every tensor's batch axis (the
+    second) narrowed to [slot, slot + 1)."""
+    if isinstance(cache, dict):
+        return {k: slot_view(v, slot) for k, v in cache.items()}
+    return cache[:, slot:slot + 1]
+
+
 class Server:
-    """Decode-slot server for a ported decoder (`arch`: BERT's causal decode
-    step, or a dense, vlm or MoE transformer) in one mode (float, NPE-8 or
-    NPE-16).
+    """Decode-slot server for a model with a decode step (`arch`: BERT's
+    causal decode step, a dense, vlm or MoE transformer, RWKV6, the hybrid
+    or Whisper's decoder) in one mode (float, NPE-8 or NPE-16).
 
     `model` shares weights between servers; without it the server draws
     random weights from `seed` on its device (`registry.build_model`).  Full
-    width and depth unless `smoke`; a given model sets the served depth (a
-    model cut in depth serves at its own number of layers)."""
+    width and depth unless `smoke`; a given model sets the served depth and
+    dtype (a model cut in depth serves at its own number of layers, a
+    float32 model in float32: `MODEL_FIELDS`)."""
 
     def __init__(self, arch: str = "bert_base", batch: int = 4, max_seq: int = 128,
                  mode: str = "float", device="cuda", model: Optional[torch.nn.Module] = None,
@@ -93,7 +111,7 @@ class Server:
             raise KeyError(f"unknown mode {mode!r}; have {sorted(MODES)}")
         cfg = get_config(arch, smoke=smoke)
         if model is not None:
-            cfg = dataclasses.replace(cfg, num_layers=model.cfg.num_layers)
+            cfg = dataclasses.replace(cfg, **{k: getattr(model.cfg, k) for k in MODEL_FIELDS})
         if max_seq > cfg.max_position:
             raise ValueError(f"max_seq {max_seq} > max_position {cfg.max_position}")
         self.cfg = MODES[mode](cfg)
@@ -110,16 +128,16 @@ class Server:
             torch.cuda.synchronize(self.device)
 
     def prefill_prompt(self, slot: int, prompt: np.ndarray) -> None:
-        """Prefill one slot on its slice of the cache (views, written in
-        place): the whole prompt through one `decode_step` at positions
-        0..S-1, or, where the cache has window rings, one token a call at
-        position t, as the reference's `prefill_prompt` does (a ring is
-        written and made valid one position at a time)."""
-        sub = {group: {k: c[:, slot:slot + 1] for k, c in kv.items()}
-               for group, kv in self.cache.items()}
+        """Prefill one slot on its slice of the cache (views of every tensor,
+        whose batch axis is the second, written in place): where the cache
+        is exactly a `full` KV group, the whole prompt through one
+        `decode_step` at positions 0..S-1; else (window rings, recurrent
+        states, a cross cache) one token a call at position t, as the
+        reference's `prefill_prompt` does."""
+        sub = slot_view(self.cache, slot)
         toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                device=self.device)[None]
-        if "win" not in sub:
+        if set(sub) == {"full"}:
             registry.decode_step(self.cfg, self.model, sub, toks, 0)
             return
         for t in range(toks.shape[1]):
@@ -286,9 +304,11 @@ def run_npec(args) -> Dict[str, float]:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="bert_base",
-                    help="a ported decoder: bert_base, glm4_9b, command_r_plus_104b, "
-                         "qwen2_vl_7b, starcoder2_3b, gemma3_27b, granite_moe_1b_a400m, "
-                         "llama4_maverick_400b_a17b (--backend npec: bert_base only)")
+                    help="a config of the port (all have a decode step): bert_base, "
+                         "glm4_9b, command_r_plus_104b, qwen2_vl_7b, starcoder2_3b, "
+                         "gemma3_27b, granite_moe_1b_a400m, llama4_maverick_400b_a17b, "
+                         "rwkv6_3b, hymba_1_5b, whisper_base (--backend npec: bert_base "
+                         "only)")
     ap.add_argument("--backend", choices=("torch", "npec"), default="torch",
                     help="torch: Server.generate, the model's own decode step; "
                          "npec: compiled overlay streams (NPEEngine / NPEFleet)")

@@ -97,18 +97,8 @@ class Bert(nn.Module):
         (`common._init_leaf`): normal x 0.02 for the embeddings, normal x
         fan_in^-0.5 for the matrices, zeros for biases and betas, ones for
         gammas.  Draws on the generator's device, in float32."""
-        dev = generator.device
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
-                p.fill_(1.0)
-            elif leaf == "beta" or p.ndim == 1:
-                p.zero_()
-            else:
-                scale = 0.02 if "embed" in leaf else p.shape[-2] ** -0.5
-                w = torch.randn(p.shape, generator=generator, device=dev) * scale
-                p.copy_(w)
-        return self
+        return cm.init_weights(self, generator, ("gamma",), (),
+                               dict.fromkeys(("embed", "pos_embed", "type_embed"), 0.02))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return apply(self.cfg, self, tokens)

@@ -39,6 +39,28 @@ class Norm(nn.Module):
             self.beta = nn.Parameter(torch.zeros(dim, **kw), requires_grad=False)
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator, ones=(), zeros=(),
+                 scales=None) -> nn.Module:
+    """Random weights with the reference's scales (`common._init_leaf`), by
+    each parameter's last name: one for `ones`, zero for `zeros` and for the
+    other vectors, normal x `scales[name]` where given, else normal x
+    fan_in^-0.5 (fan_in the second-to-last axis).  Drawn in float32 on the
+    generator's device one tensor at a time."""
+    scales = scales or {}
+    dev = generator.device
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ones:
+            p.fill_(1.0)
+        elif leaf in zeros or p.ndim == 1:
+            p.zero_()
+        else:
+            scale = scales.get(leaf, p.shape[-2] ** -0.5)
+            p.copy_(torch.randn(p.shape, generator=generator, device=dev).mul_(scale))
+    return model
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
@@ -96,6 +118,16 @@ def activation_fn(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.npe_pwl:
         return ops.pwl_activation(x, cfg.activation, cfg.npe_pwl_segments)
     return nvu.activation(cfg.activation, False)(x)
+
+
+def nonlinearity(cfg: ModelConfig, name: str, x: torch.Tensor, exact) -> torch.Tensor:
+    """The NVU's `name` when cfg.npe_pwl (`ops.pwl_activation`; for exp and
+    rsqrt `ops.pwl_exp` and `ops.pwl_rsqrt`), else `exact(x)`."""
+    if not cfg.npe_pwl:
+        return exact(x)
+    if name in ("exp", "rsqrt"):
+        return getattr(ops, f"pwl_{name}")(x, cfg.npe_pwl_segments)
+    return ops.pwl_activation(x, name, cfg.npe_pwl_segments)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -192,6 +224,20 @@ def attention_over_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tenso
                               causal=ring is None, window=window,
                               softcap=cfg.logit_softcap, use_pwl=cfg.npe_pwl,
                               segments=cfg.npe_pwl_segments, out_dtype=cache_v.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def cross_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention of q (B, S, Hq, D) over every row of k, v (B, T, Hkv, D)
+    with causality off (S <= T): the reference's `attention_scores(causal=
+    False)`, Whisper's cross-attention over the encoder's rows, through the
+    flash kernel's dense mode.  The result is in v's dtype, as the
+    reference's P.V gives it."""
+    out = ops.dense_attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                              v.permute(0, 2, 1, 3), kv_len=k.shape[1], causal=False,
+                              softcap=cfg.logit_softcap, use_pwl=cfg.npe_pwl,
+                              segments=cfg.npe_pwl_segments, out_dtype=v.dtype)
     return out.permute(0, 2, 1, 3)
 
 

@@ -1,14 +1,13 @@
 """Weights from the reference's parameter tree (counterpart of the tree that
-`repro.models.registry.init_params` builds for BERT and for the dense, vlm
-and moe decoders).
+`repro.models.registry.init_params` builds for every family).
 
 The tree arrives as nested dicts of numpy arrays, with each block weight
 stacked over a leading layer axis: `blocks.wq` (L, D, QD), `blocks.bq`
 (L, QD), `blocks.mlp.w1` (L, D, F), `blocks.ln1.gamma` (L, D), ...
-KV caches convert both ways, so that tests can compare them.  The npec
-executor takes the stacked tree itself (`param_tree_from_jax`), or the same
-tree built from a port `Bert` or `Transformer` (`param_tree_from_model`),
-as on the card, which has no JAX.
+Caches (KV groups and recurrent states) convert both ways, so that tests
+can compare them.  The npec executor takes the stacked tree itself
+(`param_tree_from_jax`), or the same tree built from a port `Bert` or
+`Transformer` (`param_tree_from_model`), as on the card, which has no JAX.
 """
 from __future__ import annotations
 
@@ -38,17 +37,28 @@ def _flat(prefix: str, node, state: Dict[str, torch.Tensor], index=None) -> None
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A state dict for the port's model of `cfg` (`Bert` or `Transformer`):
-    float32 tensors, the layer axis unstacked.  `load_state_dict` casts them
-    to the model's dtype.  A decoder's tree maps path for path: `embed`,
-    `lm_head` (absent with a tied embedding), `ln_f.gamma`, and
-    `blocks.<path>[i]` to `layers.<i>.<path>` (`wq`, `bq`, `q_norm`,
-    `ln1.gamma`, ...).  The MLP and MoE stacks hold only their own layers:
-    `blocks.mlp.<path>[j]` goes to the j-th dense layer's `mlp.<path>`, and
-    `blocks.moe.<path>[j]` (`router`, `wg`, `wu`, `wd`, `shared.wg`, ...)
-    to the j-th MoE layer's `moe.<path>` (`transformer.layer_is_moe`)."""
-    if cfg.family != "bert":
+    """A state dict for the port's model of `cfg`: float32 tensors, the
+    layer axis unstacked.  `load_state_dict` casts them to the model's
+    dtype.  Paths map one for one: the top-level leaves (`embed`, `lm_head`,
+    `ln_f.gamma`, rwkv6's `ln_in.*`, hybrid's `meta`, encdec's `pos_dec` and
+    `ln_enc.*`) keep their names, and a stacked `blocks.<path>[i]` goes to
+    `layers.<i>.<path>` (`wq`, `ln1.gamma`, rwkv6's `att.mix.mu` and
+    `ffn.wk`, hybrid's `ssm.in_proj`, ...), encdec's `enc_blocks.<path>[i]`
+    and `dec_blocks.<path>[i]` (with `cross.*`) to `enc_blocks.<i>.<path>`
+    and `dec_blocks.<i>.<path>`.  A decoder's MLP and MoE stacks hold only
+    their own layers: `blocks.mlp.<path>[j]` goes to the j-th dense layer's
+    `mlp.<path>`, and `blocks.moe.<path>[j]` (`router`, `wg`, `wu`, `wd`,
+    `shared.wg`, ...) to the j-th MoE layer's `moe.<path>`
+    (`transformer.layer_is_moe`)."""
+    if cfg.family == "encdec":
         state: Dict[str, torch.Tensor] = {}
+        _flat("", {k: v for k, v in tree.items() if not k.endswith("blocks")}, state)
+        for stack, n in (("enc_blocks", cfg.encoder_layers), ("dec_blocks", cfg.decoder_layers)):
+            for i in range(n):
+                _flat(f"{stack}.{i}.", tree[stack], state, i)
+        return state
+    if cfg.family != "bert":
+        state = {}
         _flat("", {k: v for k, v in tree.items() if k != "blocks"}, state)
         blocks = tree["blocks"]
         shared = {k: v for k, v in blocks.items() if k not in ("mlp", "moe")}
@@ -56,8 +66,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
         for i, is_moe in enumerate(layer_is_moe(cfg)):
             _flat(f"layers.{i}.", shared, state, i)
             stack = "moe" if is_moe else "mlp"
-            _flat(f"layers.{i}.{stack}.", blocks[stack], state, counts[stack])
-            counts[stack] += 1
+            if stack in blocks:
+                _flat(f"layers.{i}.{stack}.", blocks[stack], state, counts[stack])
+                counts[stack] += 1
         return state
     t = _tensor
     state = {
@@ -152,19 +163,20 @@ def _bert_tree(model) -> Dict[str, Any]:
     }
 
 
-def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
-    """A KV cache tree of numpy arrays (the reference's bf16 `{"full": {"k",
-    "v"}}` and, with windowed layers, `"win"`, each (layers, B, rows, Hkv,
-    D)) as bf16 tensors on `device`; the values pass through float32, which
-    holds every bf16 value exactly."""
-    return {group: {name: torch.from_numpy(np.array(a, np.float32, copy=True))
-                    .to(device=device, dtype=torch.bfloat16)
-                    for name, a in kv.items()}
-            for group, kv in tree.items()}
+def cache_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """A cache tree of numpy arrays (the reference's: bf16 KV groups such as
+    `{"full": {"k", "v"}}`, float32 recurrent states such as rwkv6's
+    `state`, cfg.dtype token-shift and conv states) as the same tree of
+    tensors on `device`, each leaf in its own dtype (bf16 or float32); the
+    values pass through float32, which holds every bf16 value exactly."""
+    if isinstance(tree, dict):
+        return {k: cache_from_jax(v, device) for k, v in tree.items()}
+    dtype = torch.float32 if np.dtype(tree.dtype) == np.float32 else torch.bfloat16
+    return torch.from_numpy(np.array(tree, np.float32, copy=True)).to(device=device, dtype=dtype)
 
 
-def cache_to_numpy(cache: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
-    """The cache as float32 numpy arrays, for comparison with the reference's."""
-    return {group: {name: t.detach().to("cpu", torch.float32).numpy()
-                    for name, t in kv.items()}
-            for group, kv in cache.items()}
+def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The cache tree as float32 numpy arrays, for comparison with the reference's."""
+    if isinstance(cache, dict):
+        return {k: cache_to_numpy(v) for k, v in cache.items()}
+    return cache.detach().to("cpu", torch.float32).numpy()

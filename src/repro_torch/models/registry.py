@@ -1,9 +1,8 @@
-"""Model family registry (counterpart of `repro/models/registry.py`).
-
-The port carries BERT and the decoders of the dense, vlm and moe families
-(models/transformer.py); every other family of the reference raises until it
-is ported.
-"""
+"""Model family registry (counterpart of `repro/models/registry.py`): every
+family of the reference, BERT (models/bert.py), the dense, vlm and moe
+decoders (models/transformer.py), RWKV6 (`ssm`, models/rwkv6.py), the
+attention + Mamba hybrid (models/hybrid.py) and the encoder-decoder
+(models/encdec.py)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,17 +11,27 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import bert as bert_mod
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import hybrid as hybrid_mod
+from repro_torch.models import rwkv6 as rwkv6_mod
 from repro_torch.models import transformer as tf
 
-_FAMILIES = {"bert": bert_mod, "dense": tf, "vlm": tf, "moe": tf}
+_FAMILIES = {
+    "dense": tf,
+    "moe": tf,
+    "vlm": tf,
+    "ssm": rwkv6_mod,
+    "hybrid": hybrid_mod,
+    "encdec": encdec_mod,
+    "bert": bert_mod,
+}
 
 
 def module_for(cfg: ModelConfig):
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
-        raise ValueError(f"family {cfg.family!r} is not ported; have "
-                         f"{sorted(_FAMILIES)}") from None
+        raise ValueError(f"unknown family {cfg.family!r}; have {sorted(_FAMILIES)}") from None
 
 
 def build_model(cfg: ModelConfig, device="cuda",
@@ -52,3 +61,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
 
 def decode_step(cfg: ModelConfig, model, cache, tokens, pos: int):
     return module_for(cfg).decode_step(cfg, model, cache, tokens, pos)
+
+
+def has_decode(cfg: ModelConfig) -> bool:
+    return hasattr(module_for(cfg), "decode_step")

@@ -30,7 +30,7 @@ NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +43,7 @@ from repro_torch.models.common import Norm, param
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 ONES = ("gamma", "q_norm", "k_norm")    # initialised to one; other vectors to zero
-SMALL = ("router",)                     # normal x 0.02, as the embeddings
+SCALES = dict.fromkeys(("embed", "pos_embed", "router"), 0.02)  # normal x 0.02
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -135,26 +135,14 @@ class Transformer(nn.Module):
         """The (D, V) logits table."""
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Transformer":
         """Random weights with the reference's scales (`common._init_leaf`):
         normal x 0.02 for the embeddings and the MoE router, normal x
         fan_in^-0.5 for the matrices (fan_in the second-to-last axis, so an
         expert stack's D or F), ones for gammas and qk-norms, zeros for the
-        other vectors.
-        Drawn in float32 on the generator's device one tensor at a time, so
-        the largest temporary is one tensor, not a second copy of the model."""
-        dev = generator.device
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ONES:
-                p.fill_(1.0)
-            elif p.ndim == 1:
-                p.zero_()
-            else:
-                scale = 0.02 if "embed" in leaf or leaf in SMALL else p.shape[-2] ** -0.5
-                p.copy_(torch.randn(p.shape, generator=generator, device=dev).mul_(scale))
-        return self
+        other vectors (`common.init_weights`: one tensor at a time, so the
+        largest temporary is one tensor, not a second copy of the model)."""
+        return cm.init_weights(self, generator, ONES, (), SCALES)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return apply(self.cfg, self, tokens)
@@ -270,6 +258,18 @@ def _cache_groups(cfg: ModelConfig, max_seq: int) -> Dict[str, Tuple[int, int]]:
     return out
 
 
+def cache_layers(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """Each layer's (cache group, index in the group's stack): `win` for a
+    windowed layer, `full` for the others, in layer order."""
+    index = {"full": 0, "win": 0}
+    out = []
+    for window in layer_windows(cfg):
+        group = "win" if window > 0 else "full"
+        out.append((group, index[group]))
+        index[group] += 1
+    return out
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Dict]:
     """Shapes and dtypes of the KV cache, keyed as the reference's tree: a
     stacked group for the full layers and one for the windowed layers'
@@ -306,11 +306,7 @@ def decode_step(cfg: ModelConfig, model: Transformer, cache, tokens: torch.Tenso
     positions = _positions(cfg, b, s, pos, x.device)
     if cfg.rope == "learned":
         x = x + model.pos_embed[pos:pos + s][None].to(x.dtype)
-    index = {"full": 0, "win": 0}          # each group's next stacked layer
-    for layer, window in zip(model.layers, layer_windows(cfg)):
-        group = "win" if window > 0 else "full"
-        i = index[group]
-        index[group] += 1
+    for layer, (group, i) in zip(model.layers, cache_layers(cfg)):
         kv = (cache[group]["k"][i], cache[group]["v"][i])
         x = block(cfg, layer, x, positions, cache=kv, pos=pos, ring=group == "win")
     x = cm.apply_norm(cfg, model.ln_f, x)

@@ -252,11 +252,16 @@ def test_decode_step_refuses_rows_past_the_cache():
 
 
 def test_registry_names_only_bert():
-    """BERT's config maps to models/bert; a family the port does not carry
-    raises (the dense, vlm and moe decoders map to models/transformer since
-    their port, tests/test_torch_transformer.py and tests/test_torch_moe.py)."""
+    """BERT's config maps to models/bert, and every other family of the
+    reference to its module (the decoders since their port,
+    tests/test_torch_transformer.py and tests/test_torch_moe.py; RWKV6, the
+    hybrid and the encoder-decoder since theirs, tests/test_torch_rwkv6.py,
+    test_torch_hybrid.py, test_torch_encdec.py); an unknown family raises."""
+    from repro_torch.models import encdec, hybrid, rwkv6, transformer
     _, cfg = _cfgs("float")
-    for family in ("ssm", "hybrid", "encdec"):
-        with pytest.raises(ValueError):
-            registry.module_for(dataclasses.replace(cfg, family=family))
     assert registry.module_for(cfg) is bert
+    for family, mod in (("dense", transformer), ("vlm", transformer), ("moe", transformer),
+                        ("ssm", rwkv6), ("hybrid", hybrid), ("encdec", encdec)):
+        assert registry.module_for(dataclasses.replace(cfg, family=family)) is mod
+    with pytest.raises(ValueError):
+        registry.module_for(dataclasses.replace(cfg, family="diffusion"))
