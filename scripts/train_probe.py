@@ -1,0 +1,102 @@
+"""BERT-base training on the card: a step's time and launches, and how the
+loss moves under a set of AdamW settings.
+
+    PYTHONPATH=src python3 scripts/train_probe.py timing [--steps 6]
+    PYTHONPATH=src python3 scripts/train_probe.py loss --steps 150 \\
+        --opt '{"lr": 3e-4, "warmup_steps": 10}' [--opt '{...}' ...] \\
+        [--dtype float32] [--remat none]
+
+Both run `launch.train.Trainer` on full-width, 12-layer BERT-base (float32
+masters, bf16 compute, remat "block") on `SyntheticLM(30720, 128, 8)`.
+`timing` trains float, NPE-16 and NPE-8 for `--steps` steps each (the
+reference's AdamW defaults but lr 1e-3, warmup 2) and prints each step's
+loss and host seconds (ending in a synchronize), the kernel launches a
+step, the peak memory, and one checkpoint save and restore in seconds.
+`loss` trains float once for each `--opt` (OptimizerConfig fields as JSON,
+schedule "constant" unless given), with the compute dtype and remat of
+`--dtype` and `--remat` (bfloat16 and "block" unless given), and prints the
+mean loss of each 10 steps and of the first and last 5.  Needs a CUDA card.
+"""
+import argparse
+import dataclasses
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+
+from repro_torch.config import OptimizerConfig  # noqa: E402
+from repro_torch.kernels import launches, reset_launches  # noqa: E402
+from repro_torch.launch.train import Trainer, make_run  # noqa: E402
+
+
+def run_config(steps, npe=False, bits=8, dtype="bfloat16", remat="block", **opt):
+    run = make_run("bert_base", False, steps, 8, 128, npe=npe, bits=bits,
+                   ckpt_dir=tempfile.mkdtemp(prefix="train_probe_"),
+                   opt=OptimizerConfig(decay_steps=steps, **opt))
+    return dataclasses.replace(run, model=dataclasses.replace(run.model, dtype=dtype),
+                               remat=remat, log_every=10 ** 9,
+                               checkpoint=dataclasses.replace(run.checkpoint, interval=0))
+
+
+def timing(steps):
+    for npe, bits in ((False, 8), (True, 16), (True, 8)):
+        tr = Trainer(run_config(steps, npe, bits, lr=1e-3, warmup_steps=2), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for s in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.model, tr.opt_state, m = tr.step_fn(tr.model, tr.opt_state, tr.batch_at(s))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            print(f"npe={npe} bits={bits} step {s} loss {loss:.4f} {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+        per_step = {k: v // steps for k, v in launches().items()}
+        print(f"  launches a step {per_step}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        t0 = time.perf_counter()
+        tr._save(0)
+        tr.ckpt.wait()
+        t1 = time.perf_counter()
+        tr._restore()
+        print(f"  save {t1 - t0:.2f} s, restore {time.perf_counter() - t1:.2f} s", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+
+def loss(steps, opts, dtype, remat):
+    for opt in opts:
+        kw = dict(schedule="constant", **json.loads(opt))
+        t0 = time.perf_counter()
+        out = Trainer(run_config(steps, dtype=dtype, remat=remat, **kw), log=lambda *a: None,
+                      device="cuda").train()
+        ls = np.array([h["loss"] for h in out["history"]])
+        print(dtype, remat, f"{time.perf_counter() - t0:.1f} s", kw, [round(float(ls[i:i + 10].mean()), 3) for i in range(0, steps, 10)],
+              "first 5", float(ls[:5].mean()), "last 5", float(ls[-5:].mean()), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("what", choices=("timing", "loss"))
+    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--opt", action="append", default=[])
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--remat", default="block", choices=("block", "none"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("train_probe: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.what == "timing":
+        timing(args.steps)
+    else:
+        loss(args.steps, args.opt, args.dtype, args.remat)
+
+
+if __name__ == "__main__":
+    main()

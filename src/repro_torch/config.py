@@ -1,10 +1,11 @@
-"""Model configuration (counterpart of `repro/config.py`'s `ModelConfig`,
-with the reference's fields and defaults)."""
+"""Model and run configuration (counterpart of `repro/config.py`): the
+model's fields and defaults, the input-shape cells, the mesh, and the
+training run's optimizer, checkpoint and fault settings, field for field."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -102,3 +103,120 @@ class ModelConfig:
         """Parameters of the port's model of this config."""
         from repro_torch.models import registry
         return registry.param_count(self)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                   # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# smoke-scale variants used by tests (same code paths, tiny extents)
+SMOKE_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 64, 2),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 64, 2),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 64, 2),
+    "long_500k": ShapeConfig("long_500k", "decode", 128, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh (data only: one card runs the (1, 1) mesh)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Topology and sharding profile, as the reference records them: the
+    axis names and sizes and the rule set ("tp", "fsdp" or "sp").  The port
+    runs on one card, so the trainer takes the (1, 1) mesh only."""
+    axis_names: Tuple[str, ...] = ("data", "model")
+    axis_sizes: Tuple[int, ...] = (16, 16)
+    profile: str = "tp"
+    dcn_axes: Tuple[str, ...] = ("pod",)
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    def describe(self) -> str:
+        return "x".join(f"{n}={s}" for n, s in zip(self.axis_names, self.axis_sizes))
+
+
+SINGLE_POD = MeshConfig(("data", "model"), (16, 16))
+MULTI_POD = MeshConfig(("pod", "data", "model"), (2, 16, 16))
+SMOKE_MESH = MeshConfig(("data", "model"), (1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Run configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10000
+    schedule: str = "cosine"      # cosine | linear | constant
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    zero1: bool = True            # shard optimizer state over data axis
+    moment_dtype: str = "float32"  # float32 | bfloat16
+    grad_compression: str = "none"  # none | int8_ef (error-feedback int8)
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/tmp/repro_ckpt"
+    interval: int = 50
+    keep: int = 3
+    async_save: bool = True
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    max_restarts: int = 3
+    nan_is_failure: bool = True
+    # simulated fault injection for tests/examples
+    inject_nan_at_step: int = -1
+    inject_crash_at_step: int = -1
+    step_deadline_sec: float = 0.0   # >0 enables straggler watchdog
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    checkpoint: CheckpointConfig = CheckpointConfig()
+    fault: FaultConfig = FaultConfig()
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    microbatch: int = 0           # >0 enables gradient accumulation
+    remat: str = "block"          # none | block | full
+    param_dtype: str = "float32"  # master params

@@ -54,6 +54,30 @@ def quantize(x: torch.Tensor, bits: int = 8,
     return QTensor(q, scale)
 
 
+def quantize_scale_grad(x: torch.Tensor, g_scale: torch.Tensor, bits: int = 8,
+                        axis: Optional[int] = None) -> torch.Tensor:
+    """d/dx through `quantize(x, bits, axis)` given d/d(scale): the rounded
+    values carry no gradient (round and the int cast have none), so this is
+    the scale's path alone, as jax.grad of the reference's `quantize` gives
+    it.  scale = max(amax, 1e-12) / qmax: g_scale / qmax (1/2 of it where
+    amax ties 1e-12), to the entries of |x| that reach amax (of the tensor,
+    or of each channel along `axis`) with x's sign (+ at 0, as jax's abs),
+    split evenly among tied maxima.  The result has x's dtype."""
+    xf = x.to(torch.float32)
+    if axis is None:
+        amax = xf.abs().amax()
+        count = lambda hit: hit.sum()
+    else:
+        red = tuple(i for i in range(x.ndim) if i != (axis % x.ndim))
+        amax = xf.abs().amax(dim=red, keepdim=True)
+        count = lambda hit: hit.sum(dim=red, keepdim=True)
+    floor = (amax > 1e-12).to(torch.float32) + 0.5 * (amax == 1e-12).to(torch.float32)
+    g_amax = g_scale.reshape(amax.shape) / _qmax_tensor(bits, xf.device) * floor
+    hit = xf.abs() == amax
+    share = torch.where(hit, g_amax / count(hit), 0.0)
+    return torch.where(xf >= 0, share, -share).to(x.dtype)
+
+
 # Float32 bytes of a weight's columns quantized at once: the quantizer holds
 # a few float32 copies of what it quantizes, and those of a whole tied head
 # (262144 x 5376: 5.6 GB each) do not fit beside a 27 B model on one card.

@@ -309,6 +309,87 @@ int launch_warp_rows(const T* x, T* y, const float* gamma, const float* beta, in
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// --- the backward: jax.grad of the reference's nvu_layernorm ---------------
+// For y = (x - mu) * inv * gamma + beta, inv = rsqrt_via_pwl(var + eps):
+// d/d(inv) = sum dy gamma (x - mu); through the PWL 1/sqrt, 2^-p times
+// the rsqrt table's slope at the power-of-4 mantissa, 1/2 where it ties
+// the clip at 0.25 (a power-of-4 variance), 1/2 more for an odd exponent
+// (the fold), and 2^-e from frexp; then the variance's 2 (x - mu) / n and
+// the mean's -sum / n.  rms_only drops the mean.  dx is rounded to x's
+// dtype; dgamma_rows[r, c] = dy * (x - mu) * inv, the row's part of
+// dgamma, which the caller sums over the rows (dbeta is the sum of dy).
+// Design: written to be right.  A warp a row, eight rows a block, five
+// passes over the row (the mean, the variance, d/d(inv), the sum of
+// d/d(x - mu), the results), each a coalesced read that L1 serves after
+// the first; the tables in shared memory.
+constexpr int GRAD_WARPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(GRAD_WARPS * 32)
+nvu_layernorm_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const float* __restrict__ gamma, T* __restrict__ dx,
+                          float* __restrict__ dgamma_rows, int rows, int n, float eps,
+                          int rms_only, const float* __restrict__ table,
+                          const float* __restrict__ slopes, int segs, float lo, float hi) {
+  __shared__ float tab[3 * NPE_MAX_TABLE_COLS], stab[2 * NPE_MAX_TABLE_COLS];
+  npe_load_table(tab, table, segs + 1);
+  npe_load_slope_table(stab, slopes, segs + 1);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * GRAD_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const size_t base = (size_t)row * n;
+  const float fn = (float)n;
+  float mu = 0.f;
+  if (!rms_only) {
+    float s = 0.f;
+    for (int c = lane; c < n; c += 32) s = __fadd_rn(s, npe_to_f32(x[base + c]));
+    mu = __fdiv_rn(npe_warp_sum(s), fn);
+  }
+  float sq = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float d = __fsub_rn(npe_to_f32(x[base + c]), mu);
+    sq = __fadd_rn(sq, __fmul_rn(d, d));
+  }
+  const float v = __fadd_rn(__fdiv_rn(npe_warp_sum(sq), fn), eps);
+  // v = mant * 2^e, mant in [0.5, 1); an odd e folds into m = mant / 2
+  const int bits = __float_as_int(v);
+  const int e = ((bits >> 23) & 0xff) - 126;
+  const int odd = e & 1;
+  const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
+  const float m = odd ? __fmul_rn(mant, 0.5f) : mant;
+  const int p = (e + odd) >> 1;
+  const float mc = fminf(fmaxf(m, lo), hi);
+  const float inv = ldexpf(npe_pwl(mc, tab, segs), -p);
+  float g_inv = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float d = __fsub_rn(npe_to_f32(x[base + c]), mu);
+    g_inv = __fadd_rn(g_inv, __fmul_rn(__fmul_rn(npe_to_f32(dy[base + c]), gamma[c]), d));
+  }
+  g_inv = npe_warp_sum(g_inv);
+  float g_v = __fmul_rn(ldexpf(g_inv, -p), npe_pwl_slope(mc, stab, segs));
+  g_v = __fmul_rn(g_v, npe_clip_factor(m, lo, hi));
+  if (odd) g_v = __fmul_rn(g_v, 0.5f);
+  const float g_sq = __fdiv_rn(ldexpf(g_v, -e), fn);   // d/d(d^2) of each element
+  float g_mu = 0.f;
+  if (!rms_only) {
+    for (int c = lane; c < n; c += 32) {
+      const float d = __fsub_rn(npe_to_f32(x[base + c]), mu);
+      const float g_y = __fmul_rn(npe_to_f32(dy[base + c]), gamma[c]);
+      g_mu = __fadd_rn(g_mu, __fadd_rn(__fmul_rn(g_y, inv), __fmul_rn(g_sq, __fmul_rn(2.f, d))));
+    }
+    g_mu = __fdiv_rn(-npe_warp_sum(g_mu), fn);
+  }
+  for (int c = lane; c < n; c += 32) {
+    const float d = __fsub_rn(npe_to_f32(x[base + c]), mu);
+    const float dyc = npe_to_f32(dy[base + c]);
+    const float g_d = __fadd_rn(__fmul_rn(__fmul_rn(dyc, gamma[c]), inv),
+                                __fmul_rn(g_sq, __fmul_rn(2.f, d)));
+    dx[base + c] = npe_from_f32<T>(rms_only ? g_d : __fadd_rn(g_d, g_mu));
+    dgamma_rows[base + c] = __fmul_rn(dyc, __fmul_rn(d, inv));
+  }
+}
+
 }  // namespace
 
 extern "C" int npe_nvu_layernorm(const void* x, void* y, const float* gamma,
@@ -340,5 +421,29 @@ extern "C" int npe_nvu_layernorm(const void* x, void* y, const float* gamma,
     nvu_layernorm_kernel<float><<<rows, THREADS, smem, s>>>(
         static_cast<const float*>(x), static_cast<float*>(y), gamma, beta, n, eps,
         rms_only, table, segments);
+  return (int)cudaGetLastError();
+}
+
+// The backward of npe_nvu_layernorm on the same x, gamma and options: dx in
+// x's dtype from dy in the same dtype, and dgamma_rows (rows, n) f32.
+extern "C" int npe_nvu_layernorm_grad(const void* x, const void* dy, const float* gamma,
+                                      void* dx, float* dgamma_rows, int rows, int n, int bf16,
+                                      float eps, int rms_only, const float* table,
+                                      const float* slopes, int segments, float lo, float hi,
+                                      void* stream) {
+  if (segments < 1 || segments + 1 > NPE_MAX_TABLE_COLS) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + GRAD_WARPS - 1) / GRAD_WARPS;
+  using bf = __nv_bfloat16;
+  if (bf16)
+    nvu_layernorm_grad_kernel<bf><<<blocks, GRAD_WARPS * 32, 0, s>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(dy), gamma, static_cast<bf*>(dx),
+        dgamma_rows, rows, n, eps, rms_only, table, slopes, segments, lo, hi);
+  else
+    nvu_layernorm_grad_kernel<float><<<blocks, GRAD_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), gamma,
+        static_cast<float*>(dx), dgamma_rows, rows, n, eps, rms_only, table, slopes, segments,
+        lo, hi);
   return (int)cudaGetLastError();
 }

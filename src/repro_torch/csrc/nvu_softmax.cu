@@ -181,6 +181,140 @@ int launch_n(const float* x, void* y, int rows, int n, int causal_rows, const in
 #undef NPE_SOFTMAX_ARGS
 }
 
+// --- the backward: d(loss)/d(x) of the reference's nvu_softmax -------------
+// jax.grad of core/nvu.py's nvu_softmax of x * scale, chain rule for chain
+// rule: the reciprocal's slope at the mantissa of max(sum, 1e-30), times
+// 2^-e twice (ldexp and frexp), 1/2 where the sum ties 1e-30; the exp's
+// segment slope, 1/2 where the PWL ties 0 (jnp.maximum) and at an end of
+// its clip; the term through the row max, split evenly among tied maxima
+// and not cancelled (the PWL exp's slopes are not the exp).  Masked columns
+// (causal or limit) get 0, and a row with no visible column is all 0.
+// Design: written to be right.  A warp a row, lane l holding columns
+// l + 32j (NPL a lane), the forward recomputed from x (the value of each
+// exp by the delta walk, the same bits as the forward's search), the four
+// tables (exp and recip, values and slopes) in shared memory, and five
+// warp reductions (max, tie count, sum, sum of dy * e, the max's share).
+constexpr int GRAD_WARPS = 4;
+
+template <typename TD, int NPL>
+__global__ void __launch_bounds__(GRAD_WARPS * 32)
+nvu_softmax_grad_kernel(const float* __restrict__ x, const TD* __restrict__ dy,
+                        float* __restrict__ dx, int rows, int n, int causal_rows,
+                        const int* __restrict__ limit, int limit_rows, float scale,
+                        const float* __restrict__ exp_table, const float* __restrict__ exp_slopes,
+                        int exp_segs, float exp_lo, float exp_hi,
+                        const float* __restrict__ recip_table,
+                        const float* __restrict__ recip_slopes, int recip_segs, float recip_lo,
+                        float recip_hi) {
+  __shared__ float etab[3 * NPE_MAX_TABLE_COLS], eslope[2 * NPE_MAX_TABLE_COLS];
+  __shared__ float rtab[3 * NPE_MAX_TABLE_COLS], rslope[2 * NPE_MAX_TABLE_COLS];
+  npe_load_table(etab, exp_table, exp_segs + 1);
+  npe_load_slope_table(eslope, exp_slopes, exp_segs + 1);
+  npe_load_table(rtab, recip_table, recip_segs + 1);
+  npe_load_slope_table(rslope, recip_slopes, recip_segs + 1);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * GRAD_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const long long base = (long long)row * n;
+  int visible = n;                        // columns c < visible take part
+  if (causal_rows) visible = min(n, row % causal_rows + (n - causal_rows) + 1);
+  if (limit != nullptr) visible = min(n, max(limit[row / limit_rows], 0));
+  const float neg_inf = __int_as_float(0xff800000);
+  float z[NPL], er[NPL];
+  float m = neg_inf;
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int c = lane + 32 * j;
+    z[j] = c < visible ? __fmul_rn(x[base + c], scale) : neg_inf;
+    m = fmaxf(m, z[j]);
+  }
+  m = npe_warp_max(m);
+  if (m == neg_inf) {                   // nothing visible: a row of zeros
+    for (int c = lane; c < n; c += 32) dx[base + c] = 0.f;
+    return;
+  }
+  float ties = 0.f, sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    er[j] = 0.f;
+    if (lane + 32 * j < visible) {
+      ties += z[j] == m ? 1.f : 0.f;
+      z[j] = __fsub_rn(z[j], m);
+      er[j] = npe_pwl(fminf(fmaxf(z[j], exp_lo), exp_hi), etab, exp_segs);
+      sum = __fadd_rn(sum, fmaxf(er[j], 0.f));
+    }
+  }
+  ties = npe_warp_sum(ties);
+  sum = npe_warp_sum(sum);
+  const float s = fmaxf(sum, 1e-30f);
+  const float inv = npe_recip_via_pwl(s, rtab, recip_segs);
+  float g_inv = 0.f;
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int c = lane + 32 * j;
+    if (c < visible)
+      g_inv = __fadd_rn(g_inv, __fmul_rn(npe_to_f32(dy[base + c]), fmaxf(er[j], 0.f)));
+  }
+  g_inv = npe_warp_sum(g_inv);
+  // s = mant * 2^e with mant in [0.5, 1): 1/s = pwl(mant) * 2^-e
+  const int bits = __float_as_int(s);
+  const int e = ((bits >> 23) & 0xff) - 126;
+  const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
+  float g_s = ldexpf(g_inv, -e);
+  g_s = __fmul_rn(g_s, npe_pwl_slope(fminf(fmaxf(mant, recip_lo), recip_hi), rslope, recip_segs));
+  g_s = __fmul_rn(g_s, npe_clip_factor(mant, recip_lo, recip_hi));
+  g_s = __fmul_rn(ldexpf(g_s, -e), npe_max_factor(sum, 1e-30f));
+  float g_m = 0.f;
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int c = lane + 32 * j;
+    if (c < visible) {
+      const float g_e = __fadd_rn(__fmul_rn(npe_to_f32(dy[base + c]), inv), g_s);
+      float g = __fmul_rn(g_e, npe_max_factor(er[j], 0.f));
+      g = __fmul_rn(g, npe_pwl_slope(fminf(fmaxf(z[j], exp_lo), exp_hi), eslope, exp_segs));
+      g = __fmul_rn(g, npe_clip_factor(z[j], exp_lo, exp_hi));
+      er[j] = g;                          // from here on d/dz
+      g_m = __fadd_rn(g_m, g);
+    }
+  }
+  const float share = __fdiv_rn(-npe_warp_sum(g_m), ties);
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int c = lane + 32 * j;
+    if (c < n)
+      dx[base + c] =
+          c < visible ? __fmul_rn(z[j] == 0.f ? __fadd_rn(er[j], share) : er[j], scale) : 0.f;
+  }
+}
+
+template <typename TD, int NPL>
+int launch_grad(const float* x, const void* dy, float* dx, int rows, int n, int causal_rows,
+                const int* limit, int limit_rows, float scale, const float* et,
+                const float* es, int esegs, float elo, float ehi, const float* rt,
+                const float* rs, int rsegs, float rlo, float rhi, cudaStream_t stream) {
+  const int blocks = (rows + GRAD_WARPS - 1) / GRAD_WARPS;
+  nvu_softmax_grad_kernel<TD, NPL><<<blocks, GRAD_WARPS * 32, 0, stream>>>(
+      x, static_cast<const TD*>(dy), dx, rows, n, causal_rows, limit, limit_rows, scale, et, es,
+      esegs, elo, ehi, rt, rs, rsegs, rlo, rhi);
+  return (int)cudaGetLastError();
+}
+
+#define NPE_SOFTMAX_GRAD_ARGS \
+  x, dy, dx, rows, n, causal_rows, limit, limit_rows, scale, et, es, esegs, elo, ehi, rt, rs, \
+      rsegs, rlo, rhi, s
+template <typename TD>
+int launch_grad_n(const float* x, const void* dy, float* dx, int rows, int n, int causal_rows,
+                  const int* limit, int limit_rows, float scale, const float* et,
+                  const float* es, int esegs, float elo, float ehi, const float* rt,
+                  const float* rs, int rsegs, float rlo, float rhi, cudaStream_t s) {
+  if (n <= 128) return launch_grad<TD, 4>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 256) return launch_grad<TD, 8>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 512) return launch_grad<TD, 16>(NPE_SOFTMAX_GRAD_ARGS);
+  return launch_grad<TD, 32>(NPE_SOFTMAX_GRAD_ARGS);
+}
+#undef NPE_SOFTMAX_GRAD_ARGS
+
 }  // namespace
 
 // limit: null, or int32 visible-column counts, one for each limit_rows rows.
@@ -199,4 +333,29 @@ extern "C" int npe_nvu_softmax(const float* x, void* y, int rows, int n, int cau
                                    exp_table, exp_segments, recip_table, recip_segments, s);
   return launch_n<float>(x, y, rows, n, causal_rows, limit, limit_rows, scale, exp_table,
                          exp_segments, recip_table, recip_segments, s);
+}
+
+// The backward of npe_nvu_softmax on the same x and options: dx (f32) from
+// dy (f32 or bf16, the output's dtype); the slope tables are `slope_table`'s.
+extern "C" int npe_nvu_softmax_grad(const float* x, const void* dy, float* dx, int rows, int n,
+                                    int causal_rows, const int* limit, int limit_rows,
+                                    float scale, int dy_bf16, const float* exp_table,
+                                    const float* exp_slopes, int exp_segments, float exp_lo,
+                                    float exp_hi, const float* recip_table,
+                                    const float* recip_slopes, int recip_segments,
+                                    float recip_lo, float recip_hi, void* stream) {
+  if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
+      recip_segments < 1 || recip_segments + 1 > NPE_MAX_TABLE_COLS ||
+      n > 1024 || causal_rows < 0 || (limit != nullptr && limit_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dy_bf16)
+    return launch_grad_n<__nv_bfloat16>(x, dy, dx, rows, n, causal_rows, limit, limit_rows,
+                                        scale, exp_table, exp_slopes, exp_segments, exp_lo,
+                                        exp_hi, recip_table, recip_slopes, recip_segments,
+                                        recip_lo, recip_hi, s);
+  return launch_grad_n<float>(x, dy, dx, rows, n, causal_rows, limit, limit_rows, scale,
+                              exp_table, exp_slopes, exp_segments, exp_lo, exp_hi, recip_table,
+                              recip_slopes, recip_segments, recip_lo, recip_hi, s);
 }

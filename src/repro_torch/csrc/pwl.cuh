@@ -254,6 +254,36 @@ __device__ __forceinline__ float npe_softmax_inv(float l, const NpePrefixTable& 
   return npe_recip_via_prefix(fmaxf(l, 1e-30f), t, top);
 }
 
+// --- derivatives ------------------------------------------------------------
+// The backward kernels differentiate the reference's jnp code as jax.grad
+// does.  A PWL's derivative at x is the slope of x's segment, the segment
+// found by the walk's rule (the count of interior knots <= x, as the
+// reference's `sum(x >= knots[1:-1])`).  A slope table is (2, S+1) float32,
+// as `slope_table` builds it: row 0 the packed table's knot row, row 1 the
+// reference table's S slopes themselves (not their deltas), then a 0.
+
+// Copy a slope table into shared memory; the caller syncs after it.
+__device__ __forceinline__ void npe_load_slope_table(float* dst, const float* src, int cols) {
+  for (int i = threadIdx.x; i < 2 * cols; i += blockDim.x) dst[i] = src[i];
+}
+
+// The slope of x's segment.
+__device__ __forceinline__ float npe_pwl_slope(float x, const float* stab, int s) {
+  int seg = 0;
+  for (int i = 1; i < s; ++i) seg += x >= stab[i];
+  return stab[(s + 1) + seg];
+}
+
+// What a gradient is multiplied by through jnp.clip(x, lo, hi) and through
+// jnp.maximum(v, floor): 1 on the passing side, 1/2 at a tie (jax splits
+// the gradient of a tied max or min evenly), 0 on the other side.
+__device__ __forceinline__ float npe_clip_factor(float x, float lo, float hi) {
+  return (x < lo || x > hi) ? 0.f : ((x == lo || x == hi) ? 0.5f : 1.f);
+}
+__device__ __forceinline__ float npe_max_factor(float v, float floor) {
+  return v > floor ? 1.f : (v == floor ? 0.5f : 0.f);
+}
+
 __device__ __forceinline__ float npe_to_f32(float v) { return v; }
 __device__ __forceinline__ float npe_to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

@@ -139,7 +139,56 @@ int launch_aligned_or_not(const void* x, void* y, long long n, const float* tabl
              : launch<TI, TO, false>(x, y, n, table, segs, s);
 }
 
+// The derivative mode: dx = dy * slope(seg(x)) (a table used clamped: the
+// slope at clip(x, lo, hi), times 1/2 at an end and 0 past it), in f32, as
+// jax.grad of `slope[seg] * x + icept[seg]` gives it, rounded to T.  A
+// thread an element over a grid-stride loop; the slope table in shared
+// memory.  Written to be right: it moves 3 elements a value, as the
+// forward's stream does 2, but with scalar accesses.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+pwl_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                long long n, const float* __restrict__ stable, int segs, int clamped, float lo,
+                float hi) {
+  __shared__ float tab[2 * NPE_MAX_TABLE_COLS];
+  npe_load_slope_table(tab, stable, segs + 1);
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
+    float v = npe_to_f32(x[i]);
+    float f = 1.f;
+    if (clamped) {
+      f = npe_clip_factor(v, lo, hi);
+      v = fminf(fmaxf(v, lo), hi);
+    }
+    dx[i] = npe_from_f32<T>(__fmul_rn(__fmul_rn(npe_to_f32(dy[i]), npe_pwl_slope(v, tab, segs)), f));
+  }
+}
+
+template <typename T>
+int launch_grad(const void* x, const void* dy, void* dx, long long n, const float* stable,
+                int segs, int clamped, float lo, float hi, cudaStream_t stream) {
+  long long blocks = (n + THREADS - 1) / THREADS;
+  const long long cap = (long long)npe_sm_count() * 8;
+  if (blocks > cap) blocks = cap;
+  pwl_grad_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), n, stable,
+      segs, clamped, lo, hi);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int npe_pwl_eval_grad(const void* x, const void* dy, void* dx, long long n,
+                                 int bf16, const float* slope_table, int segments, int clamped,
+                                 float lo, float hi, void* stream) {
+  if (segments < 1 || segments + 1 > NPE_MAX_TABLE_COLS) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_grad<__nv_bfloat16>(x, dy, dx, n, slope_table, segments, clamped, lo, hi, s);
+  return launch_grad<float>(x, dy, dx, n, slope_table, segments, clamped, lo, hi, s);
+}
 
 extern "C" int npe_pwl_eval(const void* x, void* y, long long n, int x_bf16,
                             int y_bf16, const float* table, int segments,

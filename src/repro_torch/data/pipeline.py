@@ -1,12 +1,57 @@
-"""Synthetic serving requests (counterpart of `SyntheticRequests` in
-`repro/data/pipeline.py`): the same seeds give the same token ids, EOS ids
-and arrival cycles."""
+"""Synthetic data (counterpart of `repro/data/pipeline.py`): the training
+stream `SyntheticLM` and the serving requests `SyntheticRequests`.  The
+same seeds give the same token ids, labels, EOS ids and arrival cycles."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+
+@dataclass
+class SyntheticLM:
+    """A learnable token stream: within each sequence the next token is a
+    fixed affine function of the previous one (a per-sequence
+    linear-congruential walk), with epsilon-uniform corruption.
+
+    Host sharding: each host makes only its slice of the global batch,
+    `host_batch = global_batch // num_hosts`, selected by (seed, step,
+    host_id), so restarts see the same data."""
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    noise: float = 0.1
+    num_hosts: int = 1
+    host_id: int = 0
+
+    def __post_init__(self):
+        assert self.global_batch % self.num_hosts == 0
+        self.host_batch = self.global_batch // self.num_hosts
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Batch for `step` (this host's shard): tokens + next-token labels."""
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 4096 + self.host_id)
+        B, S, V = self.host_batch, self.seq_len, self.vocab_size
+        a = rng.integers(1, 64, (B, 1), np.int64) * 2 + 1   # odd multipliers
+        c = rng.integers(0, V, (B, 1), np.int64)
+        x0 = rng.integers(0, V, (B,), np.int64)
+        toks = np.empty((B, S + 1), np.int64)
+        toks[:, 0] = x0
+        for t in range(S):
+            toks[:, t + 1] = (toks[:, t] * a[:, 0] + c[:, 0]) % V
+        corrupt = rng.random((B, S + 1)) < self.noise
+        toks = np.where(corrupt, rng.integers(0, V, (B, S + 1)), toks)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclass

@@ -43,6 +43,15 @@ SIGNATURES = {
     "npe_quant_matmul": (P, P, P, I, P, P, I, I, I, I, P, I, P, P),
     # m, n, k -> int32 values of the zeroed workspace npe_quant_matmul needs
     "npe_quant_matmul_workspace": (I, I, I),
+    # x, dy, dx, n, bf16, slope_table, segments, clamped, lo, hi, stream
+    "npe_pwl_eval_grad": (P, P, P, LL, I, P, I, I, F, F, P),
+    # x, dy, dx, rows, n, causal_rows, limit, limit_rows, scale, dy_bf16,
+    # exp_table, exp_slopes, exp_segments, exp_lo, exp_hi, recip_table,
+    # recip_slopes, recip_segments, recip_lo, recip_hi, stream
+    "npe_nvu_softmax_grad": (P, P, P, I, I, I, P, I, F, I, P, P, I, F, F, P, P, I, F, F, P),
+    # x, dy, gamma, dx, dgamma_rows, rows, n, bf16, eps, rms_only, table,
+    # slopes, segments, lo, hi, stream
+    "npe_nvu_layernorm_grad": (P, P, P, P, P, I, I, I, F, I, P, P, I, F, F, P),
     # x, y, rows, n, causal_rows, limit, limit_rows, scale, y_bf16, exp_table,
     # exp_segments, recip_table, recip_segments, stream
     "npe_nvu_softmax": (P, P, I, I, I, P, I, F, I, P, I, P, I, P),

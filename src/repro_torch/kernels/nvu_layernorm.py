@@ -2,6 +2,13 @@
 
 `nvu_layernorm(x2d, ...)` launches `csrc/nvu_layernorm.cu` for a tensor on
 the card and runs `nvu_layernorm_plain` for one on the CPU.
+
+`nvu_layernorm_grad(x, dy, gamma, ...)` is the backward of the training
+path, (dx, dgamma, dbeta) as jax.grad of the reference's
+`core/nvu.nvu_layernorm` (or `nvu_rmsnorm`) gives them: the same source's
+backward kernel on the card (dx and each row's part of dgamma, summed over
+the rows by torch), `nvu_layernorm_grad_plain`, explicit torch formulas, on
+the CPU.
 """
 from __future__ import annotations
 
@@ -12,7 +19,9 @@ import torch
 from repro_torch.core import nvu
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, library, require_cuda, stream_handle
-from repro_torch.kernels.pwl_eval import KERNEL_DTYPES, device_table
+from repro_torch.core.pwl import get_table
+from repro_torch.kernels.pwl_eval import (KERNEL_DTYPES, clip_factor, device_table,
+                                          pwl_slope_plain, slope_table, table_ends)
 
 MAX_COLS = 8192      # rows past 2048 columns are staged in shared memory
 
@@ -67,3 +76,67 @@ def nvu_layernorm(x: torch.Tensor, gamma: torch.Tensor,
     check(err, "nvu_layernorm")
     LAUNCHES["nvu_layernorm"] += 1
     return y
+
+
+def nvu_layernorm_grad_plain(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                             eps: float = 1e-5, segments: int = 16, rms_only: bool = False):
+    """(dx in x's dtype, dgamma f32, dbeta f32 (None with rms_only)) of
+    nvu_layernorm against dy: through the PWL 1/sqrt of v = var + eps, the
+    rsqrt table's slope at the power-of-4 mantissa m times 2^-p, 1/2 where
+    m ties the clip at 0.25, 1/2 more for an odd exponent, 2^-e from
+    frexp; then the variance's 2 (x - mu) / n and the mean's -sum / n."""
+    xf = x.to(torch.float32)
+    n = x.shape[-1]
+    d = xf if rms_only else xf - xf.mean(dim=-1, keepdim=True)
+    v = torch.square(d).mean(dim=-1, keepdim=True) + eps
+    mant, e = torch.frexp(v)
+    odd = (e % 2) != 0
+    m = torch.where(odd, mant * 0.5, mant)
+    p = torch.where(odd, e + 1, e) // 2
+    table = get_table("rsqrt", segments)
+    lo, hi = table_ends("rsqrt", segments)
+    mc = torch.clamp(m, lo, hi)
+    inv = torch.ldexp(nvu.pwl_eval(mc, table), -p)
+    dyf = dy.to(torch.float32)
+    g_y = dyf * gamma.to(torch.float32)
+    g_inv = (g_y * d).sum(dim=-1, keepdim=True)
+    g_v = torch.ldexp(g_inv, -p) * pwl_slope_plain(mc, table) * clip_factor(m, lo, hi)
+    g_v = torch.where(odd, g_v * 0.5, g_v)
+    g_sq = torch.ldexp(g_v, -e) / n
+    g_d = g_y * inv + g_sq * (2.0 * d)
+    if not rms_only:
+        g_d = g_d + (-g_d.sum(dim=-1, keepdim=True)) / n
+    dgamma = (dyf * (d * inv)).sum(dim=0)
+    return g_d.to(x.dtype), dgamma, None if rms_only else dyf.sum(dim=0)
+
+
+def nvu_layernorm_grad(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                       eps: float = 1e-5, segments: int = 16, rms_only: bool = False):
+    """The backward of `nvu_layernorm(x, gamma, beta, eps, segments,
+    rms_only)` for a 2-D x and dy of x's dtype: (dx, dgamma, dbeta), the
+    last two float32 (dbeta None with rms_only)."""
+    if x.ndim != 2 or dy.shape != x.shape:
+        raise ValueError(f"nvu_layernorm_grad: x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    rows, n = x.shape
+    if gamma.numel() != n:
+        raise ValueError(f"nvu_layernorm_grad: gamma does not match {n} columns")
+    if x.device.type == "cpu":
+        return nvu_layernorm_grad_plain(x, dy, gamma, eps, segments, rms_only)
+    require_cuda(x, "nvu_layernorm_grad")
+    if x.dtype not in KERNEL_DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"nvu_layernorm_grad: x {x.dtype}, dy {dy.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    g = gamma.to(torch.float32).contiguous()
+    if g.device != x.device:
+        raise ValueError(f"nvu_layernorm_grad: operands on {x.device} and {g.device}")
+    dx = torch.empty_like(x)
+    parts = torch.empty(rows, n, dtype=torch.float32, device=x.device)
+    tab, stab = device_table("rsqrt", segments, x.device), slope_table("rsqrt", segments, x.device)
+    err = library().npe_nvu_layernorm_grad(
+        x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), parts.data_ptr(), rows, n,
+        int(x.dtype == torch.bfloat16), eps, int(rms_only), tab.data_ptr(), stab.data_ptr(),
+        tab.shape[1] - 1, *table_ends("rsqrt", segments), stream_handle(x))
+    check(err, "nvu_layernorm_grad")
+    LAUNCHES["nvu_layernorm_grad"] += 1
+    dbeta = None if rms_only else dy.to(torch.float32).sum(dim=0)
+    return dx, parts.sum(dim=0), dbeta

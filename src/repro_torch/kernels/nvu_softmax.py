@@ -19,7 +19,10 @@ import torch
 from repro_torch.core import nvu
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, library, require_cuda, stream_handle
-from repro_torch.kernels.pwl_eval import device_table, pwl_eval_walk
+from repro_torch.core.pwl import get_table
+from repro_torch.kernels.pwl_eval import (clip_factor, device_table, max_factor,
+                                          pwl_eval_walk, pwl_slope_plain, slope_table,
+                                          table_ends)
 
 MAX_COLS = 1024      # a row lives in one warp's registers
 NEG_BIG = -1e30
@@ -160,3 +163,88 @@ def nvu_softmax(x: torch.Tensor, segments: int = 16, causal_rows: int = 0,
     check(err, "nvu_softmax")
     LAUNCHES["nvu_softmax"] += 1
     return y
+
+
+def visible_mask(rows: int, n: int, causal_rows: int = 0,
+                 limit: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
+    """(rows, n) bool: the columns each row's softmax takes part in."""
+    if limit is not None:
+        return limit_mask(limit.to(device), rows, n)
+    if causal_rows:
+        return causal_mask(rows, n, causal_rows, device)
+    return torch.ones(rows, n, dtype=torch.bool, device=device)
+
+
+def nvu_softmax_grad_plain(x: torch.Tensor, dy: torch.Tensor, segments: int = 16,
+                           causal_rows: int = 0, scale: float = 1.0,
+                           limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """d/dx (float32) of nvu_softmax(x, ...) against dy, chain rule for chain
+    rule through the reference's jnp code: the PWL reciprocal's slope at the
+    mantissa of max(s, 1e-30) times 2^-e twice (ldexp, frexp), 1/2 where s
+    ties 1e-30; each exp's segment slope, 1/2 where the PWL ties 0
+    (jnp.maximum) or an end of its clip; the row max's term, split evenly
+    among tied maxima.  A masked column, and every column of a row with
+    none visible, gets 0."""
+    rows, n = x.shape
+    vis = visible_mask(rows, n, causal_rows, limit, x.device)
+    xs = torch.where(vis, x.to(torch.float32) * scale, -torch.inf)
+    m = xs.amax(dim=-1, keepdim=True)
+    none = m == -torch.inf
+    z = xs - torch.where(none, 0.0, m)
+    et, rt = get_table("exp", segments), get_table("recip", segments)
+    lo, hi = table_ends("exp", segments)
+    zc = torch.clamp(z, lo, hi)
+    er = nvu.pwl_eval(zc, et)
+    e = torch.where(vis, torch.clamp(er, min=0.0), 0.0)
+    s = e.sum(dim=-1, keepdim=True)
+    sc = torch.clamp(s, min=1e-30)
+    inv = nvu.nvu_reciprocal(sc, segments)
+    dyf = dy.to(torch.float32)
+    g_inv = (dyf * e).sum(dim=-1, keepdim=True)
+    mant, ex = torch.frexp(sc)
+    rlo, rhi = table_ends("recip", segments)
+    g_s = (torch.ldexp(g_inv, -ex) * pwl_slope_plain(torch.clamp(mant, rlo, rhi), rt)
+           * clip_factor(mant, rlo, rhi))
+    g_s = torch.ldexp(g_s, -ex) * max_factor(s, 1e-30)
+    g_z = (dyf * inv + g_s) * max_factor(er, 0.0) * pwl_slope_plain(zc, et) * clip_factor(z, lo, hi)
+    g_z = torch.where(vis, g_z, 0.0)
+    ties = vis & (z == 0)
+    share = -g_z.sum(dim=-1, keepdim=True) / ties.sum(dim=-1, keepdim=True)
+    g = torch.where(ties, g_z + share, g_z) * scale
+    return torch.where(vis & ~none, g, 0.0)
+
+
+def nvu_softmax_grad(x: torch.Tensor, dy: torch.Tensor, segments: int = 16,
+                     causal_rows: int = 0, scale: float = 1.0,
+                     limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward of `nvu_softmax(x, segments, causal_rows, scale, ...,
+    limit)` against dy (the output's dtype, f32 or bf16): dx in float32."""
+    if x.ndim != 2 or dy.shape != x.shape:
+        raise ValueError(f"nvu_softmax_grad: x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    if limit is not None:
+        limit_rows = _limit_rows(limit, x.shape[0])
+    if x.device.type == "cpu":
+        return nvu_softmax_grad_plain(x, dy, segments, causal_rows, scale, limit)
+    require_cuda(x, "nvu_softmax_grad")
+    rows, n = x.shape
+    if x.dtype != torch.float32 or dy.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"nvu_softmax_grad: x {x.dtype}, dy {dy.dtype}")
+    if n > MAX_COLS:
+        raise ValueError(f"nvu_softmax_grad: rows of {n} > {MAX_COLS} columns")
+    x, dy = x.contiguous(), dy.contiguous()
+    lim_ptr = None
+    if limit is not None:
+        limit = limit.to(device=x.device, dtype=torch.int32).contiguous()
+        lim_ptr = limit.data_ptr()
+    dx = torch.empty(rows, n, dtype=torch.float32, device=x.device)
+    et, es = device_table("exp", segments, x.device), slope_table("exp", segments, x.device)
+    rt, rs = device_table("recip", segments, x.device), slope_table("recip", segments, x.device)
+    err = library().npe_nvu_softmax_grad(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), rows, n, causal_rows, lim_ptr,
+        limit_rows if limit is not None else 1, float(scale), int(dy.dtype == torch.bfloat16),
+        et.data_ptr(), es.data_ptr(), et.shape[1] - 1, *table_ends("exp", segments),
+        rt.data_ptr(), rs.data_ptr(), rt.shape[1] - 1, *table_ends("recip", segments),
+        stream_handle(x))
+    check(err, "nvu_softmax_grad")
+    LAUNCHES["nvu_softmax_grad"] += 1
+    return dx

@@ -3,6 +3,13 @@
 `pwl_eval(x, name)` launches `csrc/pwl_eval.cu` for a tensor on the card and
 runs `pwl_eval_plain` for one on the CPU.  `pwl_eval_walk` is the kernel's
 own arithmetic in torch ops, which its float32 results equal bit for bit.
+
+`pwl_eval_grad(x, dy, name)` is the derivative mode, the backward of the
+training path: dy times the slope of x's segment, as jax.grad of the
+reference's `slope[seg] * x + icept[seg]` gives it (with `clamped`, of
+its `pwl_eval_clamped`: the slope at clip(x), 1/2 at an end, 0 past it).
+It launches the same source's `pwl_grad_kernel` on the card and runs
+`pwl_eval_grad_plain`, explicit torch formulas, on the CPU.
 """
 from __future__ import annotations
 
@@ -42,6 +49,58 @@ def device_table(name: str, segments: int, device: torch.device) -> torch.Tensor
         raise ValueError(f"{name} table has {packed.shape[1]} columns; "
                          f"the kernels take at most {MAX_TABLE_COLS}")
     return torch.as_tensor(np.ascontiguousarray(packed), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def slope_table(name: str, segments: int, device: torch.device) -> torch.Tensor:
+    """The (2, S+1) slope table the backward kernels read (csrc/pwl.cuh):
+    the packed table's knot row, then the table's S slopes and a 0."""
+    table = get_table(name, segments)
+    packed = pack_table(table)
+    slopes = np.concatenate([np.asarray(table.slopes, np.float32), np.zeros(1, np.float32)])
+    return torch.as_tensor(np.ascontiguousarray(np.stack([packed[0], slopes])), device=device)
+
+
+def table_ends(name: str, segments: int = 16):
+    """(first knot, last knot) of `name`'s table as Python floats: the clip
+    interval of its clamped use."""
+    knots = get_table(name, segments).knots
+    return float(knots[0]), float(knots[-1])
+
+
+def pwl_slope_plain(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
+    """The slope of each float32 x's segment (the count of interior knots
+    <= x, as `core/nvu.pwl_eval` finds it)."""
+    knots = torch.as_tensor(np.asarray(table.knots), device=x.device)
+    slopes = torch.as_tensor(np.asarray(table.slopes), device=x.device)
+    seg = (x[..., None] >= knots[1:-1]).sum(-1)
+    return slopes[seg]
+
+
+def pwl_eval_grad_plain(x: torch.Tensor, dy: torch.Tensor, table: PWLTable,
+                        clamped: bool = False) -> torch.Tensor:
+    """dx = dy * slope(seg(x)) in float32, rounded to x's dtype; with
+    `clamped`, at clip(x) and times 1/2 at an end of the table, 0 past it."""
+    xf = x.to(torch.float32)
+    f = 1.0
+    if clamped:
+        lo, hi = float(table.knots[0]), float(table.knots[-1])
+        f = clip_factor(xf, lo, hi)
+        xf = torch.clamp(xf, lo, hi)
+    return (dy.to(torch.float32) * pwl_slope_plain(xf, table) * f).to(x.dtype)
+
+
+def clip_factor(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """What jax.grad multiplies by through jnp.clip(x, lo, hi): 1 inside,
+    1/2 at an end (a tied max or min splits evenly), 0 outside."""
+    inside = ((x > lo) & (x < hi)).to(torch.float32)
+    return inside + 0.5 * ((x == lo) | (x == hi)).to(torch.float32)
+
+
+def max_factor(v: torch.Tensor, floor: float) -> torch.Tensor:
+    """What jax.grad multiplies by through jnp.maximum(v, floor): 1 above,
+    1/2 at the tie, 0 below."""
+    return (v > floor).to(torch.float32) + 0.5 * (v == floor).to(torch.float32)
 
 
 def pwl_eval_plain(x: torch.Tensor, table: PWLTable) -> torch.Tensor:
@@ -86,3 +145,26 @@ def pwl_eval(x: torch.Tensor, name: str, segments: int = 16) -> torch.Tensor:
     check(err, "pwl_eval")
     LAUNCHES["pwl_eval"] += 1
     return y
+
+
+def pwl_eval_grad(x: torch.Tensor, dy: torch.Tensor, name: str, segments: int = 16,
+                  clamped: bool = False) -> torch.Tensor:
+    """The backward of `pwl_eval(x, name)` (clamped: of its clamped use)
+    for a 2-D x and a dy of x's shape and dtype; the result has x's dtype."""
+    if x.ndim != 2 or dy.shape != x.shape:
+        raise ValueError(f"pwl_eval_grad: x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    if x.device.type == "cpu":
+        return pwl_eval_grad_plain(x, dy, get_table(name, segments), clamped)
+    require_cuda(x, "pwl_eval_grad")
+    if x.dtype not in KERNEL_DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"pwl_eval_grad: x {x.dtype}, dy {dy.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    dx = torch.empty_like(x)
+    tab = slope_table(name, segments, x.device)
+    lo, hi = table_ends(name, segments)
+    err = library().npe_pwl_eval_grad(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel(),
+                                      int(x.dtype == torch.bfloat16), tab.data_ptr(),
+                                      tab.shape[1] - 1, int(clamped), lo, hi, stream_handle(x))
+    check(err, "pwl_eval_grad")
+    LAUNCHES["pwl_eval_grad"] += 1
+    return dx

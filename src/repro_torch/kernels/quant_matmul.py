@@ -6,6 +6,12 @@ and runs `quant_matmul_plain` for tensors on the CPU.  At M <= 16 the kernel
 may split K across blocks; their int32 partial sums meet in a zeroed
 workspace that the wrapper keeps for each stream and the kernel leaves
 zeroed again (one launch all the same).
+
+`quant_matmul_scale_grad` is the MMU's backward on the training path: the
+int8 product carries no gradient, so only the two scales do, and for them
+it needs the int32 product itself, which it takes from one more launch of
+the same kernel with unit scales and float32 out (the rounding of the
+reference's `acc.astype(float32)`); the reductions are torch ops.
 """
 from __future__ import annotations
 
@@ -102,3 +108,38 @@ def quant_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     check(err, "quant_matmul")
     LAUNCHES["quant_matmul"] += 1
     return out
+
+
+def scale_grads(acc: torch.Tensor, dy: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor):
+    """(d/d x_scale, d/d w_scale) of out = acc * (x_scale * w_scale[col])
+    against dy, each in its scale's shape: the product's gradient
+    sum_m dy * acc, times the other scale, summed over what it broadcasts."""
+    m = acc.shape[0]
+    t = dy.to(torch.float32) * acc
+    ws = w_scale.reshape(1, -1)
+    if x_scale.numel() == 1:
+        g_p = t.sum(dim=0, keepdim=True)
+        return (g_p * ws).sum().reshape(x_scale.shape), (g_p * x_scale.reshape(())).reshape(
+            w_scale.shape)
+    xs = _row_scales(x_scale, m)
+    return ((t * ws).sum(dim=1, keepdim=True).reshape(x_scale.shape),
+            (t * xs).sum(dim=0, keepdim=True).reshape(w_scale.shape))
+
+
+def quant_matmul_scale_grad_plain(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                                  w_scale: torch.Tensor, dy: torch.Tensor):
+    """`quant_matmul_scale_grad` with the int32 product by `int_matmul`."""
+    return scale_grads(int_matmul(xq, wq).to(torch.float32), dy, x_scale, w_scale)
+
+
+def quant_matmul_scale_grad(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                            w_scale: torch.Tensor, dy: torch.Tensor):
+    """The backward of `quant_matmul(xq, wq, x_scale, w_scale)` (no
+    activation): (d/d x_scale, d/d w_scale) against dy.  The int32 product
+    comes from `quant_matmul` with unit scales and float32 out: the kernel
+    on the card (counted as a launch of it), its plain version on the CPU."""
+    ones_x = torch.ones(x_scale.numel(), dtype=torch.float32, device=xq.device)
+    ones_w = torch.ones(w_scale.numel(), dtype=torch.float32, device=xq.device)
+    acc = quant_matmul(xq, wq, ones_x, ones_w, out_dtype=torch.float32)
+    return scale_grads(acc, dy, x_scale, w_scale)

@@ -4,8 +4,11 @@
 Post-norm blocks, as in the paper's Table 1:
     X1 = MultiHeadAttention(X);      X2 = LayerNorm(X + X1)
     X3 = GELU(X2 W1 + b1);  X4 = X3 W2 + b2;  X5 = LayerNorm(X2 + X4)
-Weights are held in cfg.dtype (the reference casts its float32 masters to
-cfg.dtype once per call); the unused pooler is not carried.
+Served weights are held in cfg.dtype.  For training (`forward_train`) they
+are float32 masters, cast to cfg.dtype on each call as the reference casts
+them (the embedding rows here, each projection's weight in `dense`), and
+each layer may run under activation checkpointing (the reference's
+`jax.checkpoint`).  The unused pooler is not carried.
 
 `decode_step` is not equivalent to `apply`: BERT attends both ways, the
 decode step only to cached positions <= its own.  It is the stream an
@@ -18,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
@@ -110,7 +114,7 @@ Model = Bert
 def _embed(cfg: ModelConfig, model: Bert, tokens: torch.Tensor,
            pos: int = 0) -> torch.Tensor:
     s = tokens.shape[1]
-    x = cm.embed(tokens, model.embed)
+    x = cm.embed(tokens, model.embed).to(getattr(torch, cfg.dtype))
     x = x + model.pos_embed[pos:pos + s][None].to(x.dtype)
     x = x + model.type_embed[0][None, None].to(x.dtype)
     return cm.apply_norm(cfg, model.ln_embed, x, eps=LN_EPS)
@@ -129,6 +133,17 @@ def encode(cfg: ModelConfig, model: Bert, tokens: torch.Tensor) -> torch.Tensor:
 def apply(cfg: ModelConfig, model: Bert, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> MLM logits (B, S, V) through the tied embedding."""
     return cm.logits_out(cfg, encode(cfg, model, tokens), model.embed.T)
+
+
+def forward_train(cfg: ModelConfig, model: Bert, tokens: torch.Tensor,
+                  remat: bool = True) -> torch.Tensor:
+    """`apply` with gradients: tokens (B, S) -> MLM logits (B, S, V).  With
+    `remat`, each layer runs under `torch.utils.checkpoint` (its activations
+    are recomputed in the backward pass, so its forward runs twice)."""
+    x = _embed(cfg, model, tokens)
+    for layer in model.layers:
+        x = checkpoint(layer, cfg, x, use_reentrant=False) if remat else layer(cfg, x)
+    return cm.logits_out(cfg, x, model.embed.T)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Dict]:

@@ -246,6 +246,21 @@ def logits_out(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor) -> torch.
     return dense(cfg, x, table)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_true: Optional[int] = None) -> torch.Tensor:
+    """Mean cross entropy in float32; labels < 0 (ignore ids) or >=
+    vocab_true (padding ids) are masked out."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    safe = torch.clamp(labels, 0, logits.shape[-1] - 1).to(torch.int64)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = logz - ll
+    valid = labels >= 0
+    if vocab_true is not None:
+        valid = valid & (labels < vocab_true)
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+
+
 # ---------------------------------------------------------------------------
 # KV cache helpers
 # ---------------------------------------------------------------------------

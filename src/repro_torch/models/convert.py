@@ -11,12 +11,13 @@ can compare them.  The npec executor takes the stacked tree itself
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import registry
 from repro_torch.models.transformer import layer_is_moe
 
 _ATTN = ("wq", "bq", "wk", "bk", "wv", "bv", "wo")
@@ -88,6 +89,47 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
             for k, v in blocks[ln].items():
                 state[f"layers.{i}.{ln}.{k}"] = t(v[i])
     return state
+
+
+def reference_leaves(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], Optional[int]]]:
+    """For BERT: each port parameter's name -> (its leaf's path in the
+    reference's `init_params` tree, its row of that stacked leaf, or None
+    for a leaf that is not stacked), the mapping `params_from_jax` applies,
+    so that a reference gradient tree can be compared with the port's
+    gradients leaf by leaf.  The reference's unused pooler has no port
+    parameter."""
+    if cfg.family != "bert":
+        raise NotImplementedError(f"reference_leaves: {cfg.family}; only bert trains")
+    out: Dict[str, Tuple[Tuple[str, ...], Optional[int]]] = {
+        "embed": (("embed",), None), "pos_embed": (("pos_embed",), None),
+        "type_embed": (("type_embed",), None)}
+    for k in ("gamma",) + (("beta",) if cfg.norm_bias else ()):
+        out[f"ln_embed.{k}"] = (("ln_embed", k), None)
+    for i in range(cfg.num_layers):
+        for name in _ATTN:
+            out[f"layers.{i}.{name}"] = (("blocks", name), i)
+        for name in _MLP:
+            out[f"layers.{i}.{name}"] = (("blocks", "mlp", name), i)
+        for ln in ("ln1", "ln2"):
+            for k in ("gamma",) + (("beta",) if cfg.norm_bias else ()):
+                out[f"layers.{i}.{ln}.{k}"] = (("blocks", ln, k), i)
+    return out
+
+
+def reference_leaf(tree: Dict[str, Any], where: Tuple[Tuple[str, ...], Optional[int]]):
+    """The leaf (or its row) of `tree` at a `reference_leaves` entry."""
+    path, index = where
+    for k in path:
+        tree = tree[k]
+    return tree if index is None else tree[index]
+
+
+def masters_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cpu"):
+    """The port's model of `cfg` with float32 master weights from the
+    reference's float32 `init_params` tree: what the trainer starts from."""
+    model = registry.build_model(cfg, device=device, dtype=torch.float32)
+    model.load_state_dict(params_from_jax(tree, cfg))
+    return model
 
 
 def param_tree_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:

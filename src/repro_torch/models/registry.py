@@ -42,6 +42,43 @@ def build_model(cfg: ModelConfig, device="cuda",
     return model if generator is None else model.init(generator)
 
 
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+                dtype=torch.float32):
+    """A model of `cfg` with float32 master weights (the reference's
+    `RunConfig.param_dtype`) drawn from `generator`, for training."""
+    return build_model(cfg, device=device, generator=generator, dtype=dtype)
+
+
+# What each family lacks before it can train: the port's backward passes
+# cover the kernels on BERT's path (quant_matmul, nvu_softmax, nvu_layernorm,
+# pwl_eval) and the torch ops around them.
+TRAIN_MISSING = {
+    "dense": "the backward of flash attention's dense mode (its causal self-attention)",
+    "vlm": "the backward of flash attention's dense mode (its causal self-attention)",
+    "moe": "the backward of flash attention's dense mode and MoE routing's router and "
+           "capacity gradients",
+    "ssm": "the backward of the RWKV6 recurrence",
+    "hybrid": "the backward of the Mamba recurrence and of flash attention's dense mode",
+    "encdec": "the backward of flash attention's dense mode (the decoder's causal and "
+              "cross attention)",
+}
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Only BERT trains; every other family raises NotImplementedError
+    naming what it lacks."""
+    if cfg.family != "bert":
+        missing = TRAIN_MISSING.get(cfg.family, "a training forward")
+        raise NotImplementedError(f"training {cfg.name} ({cfg.family}) needs {missing}, "
+                                  "which the port does not have yet")
+
+
+def train_apply(cfg: ModelConfig, model, tokens, remat: bool = True):
+    """Logits with gradients for training (`require_trainable`)."""
+    require_trainable(cfg)
+    return bert_mod.forward_train(cfg, model, tokens, remat=remat)
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the port's model, counted on the meta device (no memory)."""
     return sum(p.numel() for p in build_model(cfg, device="meta").parameters())
