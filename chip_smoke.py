@@ -47,7 +47,15 @@
    F.gelu, torch.softmax and F.layer_norm (the same bytes, not the same
    function), and the MMU's scale path (one more `quant_matmul` launch
    with unit scales for the int32 product, then torch reductions) at every
-   product of a layer and the head, beside `torch._int_mm`;
+   product of a layer and the head, beside `torch._int_mm`; and the
+   backward of flash attention's dense mode (`dense_attention_grad`, bf16)
+   at the decoders' training shapes (StarCoder2 (4, 24 over 2, 1024, 128)
+   causal, PWL and exact; Granite (4, 16 over 8, 1024, 64); GLM4 (1, 32
+   over 2, 1024, 128); Gemma3 (1, 32 over 16, 2048, 128) with window 1024,
+   with and without a soft cap of 50; Whisper's cross (8, 8, 448 over 1500,
+   64)), each held to its plain backward by `attn_grad_check` (the gate of
+   `flash_attention.dense_attention_grad_gates`) beside PyTorch's SDPA
+   backward (exact softmax, `enable_gqa`, the same mask; none with a cap);
 4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
    through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
    and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
@@ -82,7 +90,7 @@
    the launches of one NPE-8 execute against the graph's, and prints host
    ms and the stream's overlay instructions and model cycles; (c) prefills
    [5]'s 8 prompts through `compile_prefill`, loads them into the 8-slot
-   `compile_decode(256, batch=8)` stream and runs 8 steps in each mode
+   `compile_decode(256, batch=8)` stream and runs 4 steps in each mode
    (float greedy, the others fed its tokens), held against 8 per-sequence
    streams on the same tokens (NPE-8 bit for bit, else the reason and
    5e-3; float and NPE-16 within twice the stream's change under 1-ulp
@@ -137,7 +145,7 @@
    profiled; teacher-forced agreement with float (not gated); the route
    check at 2 layers in every mode;
 11. runs the npec compiler and executor for the dense and MoE families on
-   the card: (a) GLM4-9B at full width, 24 of its 40 layers (float32 weights from
+   the card: (a) GLM4-9B at full width, 12 of its 40 layers (float32 weights from
    [8]'s seed through `param_tree_from_model`): [5]'s 8 prompts through one
    compiled 16-row chunked prefill slice over 256-row banks, loaded into
    the 8-slot `compile_decode(256, batch=8)` stream, 8 steps, float and
@@ -155,19 +163,19 @@
    capacity `moe_capacity`, dropped token-slots reported), the launches of
    an NPE-8 execute against the graph's and each of its kernel calls held
    to its plain version;
-12-14. serve the last families at full width and depth through `Server`
+12-14. serve the last families at full width through `Server`
    (`family_phase`; bf16, random weights from a torch generator): [12]
-   RWKV6-3B (32 layers, 3.10 B parameters), [13] Hymba-1.5B (32 layers, 30
-   local over rings of min(1024, 32) rows and 2 global, an SSM head in
-   each, 1.66 B parameters), [14] Whisper-base (6 + 6 layers; first, in
+   RWKV6-3B at 16 of its 32 layers (`FAMILY_LAYERS`), [13]
+   Hymba-1.5B at 16 of 32 (15 local over rings of min(1024, 32) rows and 1
+   global, an SSM head in each), [14] Whisper-base (6 + 6 layers; first, in
    each mode, the encoder and cross K/V over 8 seeded frame batches of
    (1500, 512), its launches checked, host and busy ms printed, its NPE-8
    launches audited): 8 slots, prompts of 7 to 16 tokens one a call, 16
    greedy tokens, a 32-row cache, in float and NPE-8, NPE-16 for one step
    and one prefill; the launches of a step, a prefill and the served run
-   checked exactly (`family_launches`: NPE-8 257/66/192/0/0, 321/129/160/
-   0/32, 49/19/6/0/12 for quant_matmul/nvu_layernorm/pwl_eval/nvu_softmax/
-   flash_attention); every launch of one NPE-8 step audited; one step
+   checked exactly (`family_launches`; NPE-8 at 32 layers 257/66/192/0/0
+   and 321/129/160/0/32, Whisper 49/19/6/0/12 for quant_matmul/
+   nvu_layernorm/pwl_eval/nvu_softmax/flash_attention); every launch of one NPE-8 step audited; one step
    profiled; NPE-8's teacher-forced agreement with float and the NPE-8
    and NPE-16 logits' correlation with float (RWKV6, Hymba), reported; the
    route check (float32, 2 layers, float and NPE-8, prompts of 4 and 2
@@ -196,21 +204,38 @@
    within what AdamW's first step makes of its gradient's gate
    (`train_route_compare`; the worst share of the 1-ulp gate alone is
    printed too), and in NPE-8 the same nonzero gradient entries;
-16. prints the kernel list (the backward kernels too), one JSON line of
+16. trains the decoders at full width and depth through `launch.train.
+   Trainer` (float32 masters and moments, bf16 compute, remat "block",
+   no checkpoints: [15] covers them): (a) StarCoder2-3B (30 layers, 3.18 B
+   parameters) on SyntheticLM(49152, 1024, 4), (b) Granite-3.0-1B-A400M
+   (24 MoE layers) on SyntheticLM(49408, 1024, 4); float for DEC_TRAIN's
+   steps with the loss gated on falling (the last 5 below the first 5 and
+   below step 0; AdamW as DEC_TRAIN sets it, from probes), NPE-16 and NPE-8 for
+   a step or two with finite losses; host ms a step, tokens/s, peak memory,
+   in float device-busy ms and idle share; one NPE-8 step's launches checked exactly
+   (`dec_train_launch_counts`) and each held to its plain version (`Audit`,
+   `GradAudit`: the dense mode's backward by `attn_grad_check`); Granite's
+   router gradients (nonzero in every layer in float) and capacity drops;
+   and the route check at 2 layers, full width, bf16 compute against the
+   CPU's plain route in float and NPE-8 (`train_route_compare`'s
+   gates, the plain route's change under one bf16 ulp of every master;
+   Granite routed as the CPU routed, its own differing choices counted);
+17. prints the kernel list (the backward kernels too), one JSON line of
    per-kernel numbers (launches on the encoder, decode, npec, engine, GLM4,
    Gemma3, Granite, npec GLM4, npec Granite, RWKV6, Hymba, Whisper,
-   Whisper-encoder and training paths; the npec instances of quant_matmul
-   and nvu_softmax; the rows at each model's shapes and at the decoder
-   executor's; the MMU's scale-path rows; a row for each backward kernel
-   with its training launches), the card, and last
-   `{"ok": true, "device": {...}}`.
+   Whisper-encoder and training paths, [16]'s two models' train steps
+   among them; the npec instances of quant_matmul and nvu_softmax; the
+   rows at each model's shapes and at the decoder executor's; the MMU's
+   scale-path rows; a row for each backward kernel with its training
+   launches, flash_attention_grad's with each of its rows), the card, and
+   last `{"ok": true, "device": {...}}`.
 
 Every route check's CPU half (the port's plain route on the CPU, and its
-change under 1-ulp weights; [15]'s train steps too, their trees handed
-over through npz files in a temporary directory) runs in a second process
-(`CpuRoutes`, 6 threads), started after the build, while the card's phases
-run; the check itself waits for its half.  Any failure exits non-zero before the last
-line, and the second process is stopped.  Details go to
+change under 1-ulp weights; [15]'s and [16]'s train steps too, their trees
+handed over through npz files in a temporary directory) runs in a second
+process (`CpuRoutes`, 6 threads), started after the build, while the
+card's phases run; the check itself waits for its half.  Any failure exits
+non-zero before the last line, and the second process is stopped.  Details go to
 `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
@@ -259,6 +284,7 @@ from repro_torch.models import bert, registry  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import common as cm_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.bert import Bert  # noqa: E402
 from repro_torch.models.convert import param_tree_from_model  # noqa: E402
 from repro_torch import npec  # noqa: E402
@@ -378,6 +404,8 @@ TOLS = {
     ("nvu_softmax_grad", torch.float32): (2e-5, 0.0),
     ("nvu_layernorm_grad", torch.bfloat16): (2e-5, BF16_RTOL),
     ("quant_matmul_grad", torch.float32): (2e-5, 0.0),
+    # the dense mode's backward: `attn_grad_check` (its check_fn) holds it
+    ("flash_attention_grad", torch.bfloat16): (0.0, BF16_RTOL),
 }
 
 
@@ -607,7 +635,7 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
 def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
                library_fn=None, library_name="torch._int_mm", cold=False,
                walk_fn=None, yardstick_fn=None, yardstick_name=None, check_fn=None,
-               copy_fn=None, walk_name="walk", cell=None):
+               copy_fn=None, walk_name="walk", cell=None, plain_reps=20):
     """Hold one kernel call against its plain version, time it and append
     its row to `rows`.  `work`: (operations, rate) pairs of the bound.  With
     `cold`, the kernel, library, yardstick and copy times are taken with the
@@ -618,7 +646,7 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
     TOLS comparison with plain_fn.  `copy_fn`: one torch copy that moves the
     kernel's bytes with no arithmetic, timed as the floor of its memory
     stream.  `cell`: the model whose shapes the row takes where it is not
-    BERT ("glm4")."""
+    BERT ("glm4").  `plain_reps`: the plain version's timed calls."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     atol, rtol = TOLS[(kernel, dtype)]
@@ -627,7 +655,7 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
     timer = measure_cold if cold else measure
     ms, ev = timer(kernel_fn)
     lms, lev = timer(library_fn) if library_fn else (None, None)
-    pms, pev = measure(plain_fn)
+    pms, pev = measure(plain_fn, plain_reps)
     yms, yev = timer(yardstick_fn) if yardstick_fn else (None, None)
     cms, cev = timer(copy_fn) if copy_fn else (None, None)
     bms, by = bound(bytes_moved, *work)
@@ -770,6 +798,7 @@ def kernel_rows(dev, floor_ms):
     mask_rows(dev, row)
     family_kernel_rows(dev, g, row)
     grad_kernel_rows(dev, g, row)
+    attn_grad_rows(dev, g, row)
     return rows
 
 
@@ -874,6 +903,88 @@ def grad_kernel_rows(dev, g, row):
             check_fn=grad_check(lambda: qm_mod.quant_matmul_scale_grad_plain(
                 a, b, xq.scale, wq.scale, dyq)),
             library_fn=lambda: torch._int_mm(a, b), library_name="torch._int_mm")
+
+
+def attn_grad_check(q, k, v, do, kw, got):
+    """(max-abs error, ok) of the dense mode's backward kernel's (dq, dk, dv)
+    against its plain backward: each within its gate
+    (`flash_attention.dense_attention_grad_gates`: GRAD_RTOL of its largest
+    value, or twice the plain backward's change under a score scale
+    ceil(sqrt(D)) float32 ulps up or down) plus one bf16 ulp of each
+    entry of a bf16 result."""
+    with torch.no_grad():
+        want = fa_mod.dense_attention_grad_plain(q, k, v, do, **kw)
+        gates = fa_mod.dense_attention_grad_gates(q, k, v, do, want, **kw)
+    worst, ok = 0.0, True
+    for a, b, gate in zip(got, want, gates):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        ulp = BF16_RTOL * torch.maximum(a.abs(), b.abs()) if got[0].dtype == torch.bfloat16 else 0
+        worst = max(worst, float(err.max()))
+        ok = ok and bool((err <= gate + ulp).all()) and bool(torch.isfinite(a).all())
+    return worst, ok
+
+
+# the dense mode's backward at the training path's shapes: (name, b, hq,
+# hkv, sq, skv, d, causal, window, softcap, use_pwl, cell); bf16 q, k, v and
+# cotangent, as a bf16 model hands them over
+ATTN_GRAD_ROWS = [
+    ("StarCoder2", 4, 24, 2, 1024, 1024, 128, True, 4096, 0.0, True, "starcoder2"),
+    ("StarCoder2", 4, 24, 2, 1024, 1024, 128, True, 4096, 0.0, False, "starcoder2"),
+    ("Granite", 4, 16, 8, 1024, 1024, 64, True, 0, 0.0, True, "granite"),
+    ("GLM4", 1, 32, 2, 1024, 1024, 128, True, 0, 0.0, True, "glm4"),
+    ("Gemma3", 1, 32, 16, 2048, 2048, 128, True, 1024, 0.0, True, "gemma3"),
+    ("Gemma3", 1, 32, 16, 2048, 2048, 128, True, 1024, 50.0, True, "gemma3"),
+    ("Whisper cross", 8, 8, 8, 448, 1500, 64, False, 0, 0.0, True, "whisper"),
+]
+ATTN_GRAD_MAIN_ROW = "grad StarCoder2 (4, 24 over 2, 1024, 128) causal pwl"
+# the rows' cells that [16] trains on the card
+TRAINED_CELLS = {"starcoder2": "starcoder2_3b", "granite": "granite_moe_1b_a400m"}
+
+
+def attn_grad_rows(dev, g, row):
+    """The backward of flash attention's dense mode (`dense_attention_grad`,
+    two kernels) at the decoders' training shapes, held by `attn_grad_check`.
+    Bytes: q, k, v and the output's cotangent read once, dq, dk and dv
+    written once (bf16).  Operations: the backward's five products (S =
+    Q.K^T and dP = dO.V^T again, dV, dK, dQ), 2 D a visible pair each, at
+    the bf16 tensor-core rate.  Library: PyTorch's SDPA backward (exact
+    softmax, `enable_gqa`, the same mask; none for a soft cap), timed beside
+    the kernel and never called by the port."""
+    import torch.nn.functional as F
+    for name, b, hq, hkv, sq, skv, d, causal, window, cap, pwl, cell in ATTN_GRAD_ROWS:
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        do = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
+        kw = dict(causal=causal, window=window, softcap=cap, use_pwl=pwl)
+        pairs = b * hq * visible_pairs(sq, skv, causal, window)
+        nbytes = 2 * (2 * q.numel() + 2 * do.numel() + 4 * k.numel())
+        lib = None
+        if cap == 0.0:
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            hides = window > 0 and visible_pairs(sq, skv, causal, window) < visible_pairs(
+                sq, skv, causal, 0)
+            mask = fa_mod.dense_mask(sq, skv, causal, window, dev) if hides else None
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 is_causal=causal and mask is None,
+                                                 enable_gqa=hq != hkv)
+            lib = (lambda out=out, leaves=leaves, do=do:  # noqa: E731
+                   torch.autograd.grad(out, leaves, do, retain_graph=True))
+        mode = ("causal" if causal else "causal off") + (
+            f" window {window}" if window and window < skv else "") + (
+            f" cap {cap:g}" if cap else "") + (" pwl" if pwl else " exact")
+        row("flash_attention_grad", f"grad {name} ({b}, {heads(hq, hkv)}, {sq}, {d})"
+            + (f" kv {skv}" if skv != sq else "") + f" {mode}", torch.bfloat16,
+            lambda: fa_mod.dense_attention_grad(q, k, v, do, **kw),
+            lambda: fa_mod.dense_attention_grad_plain(q, k, v, do, **kw),
+            nbytes, [(pairs * 5 * 2 * d, BF16_OPS_PER_S)],
+            check_fn=lambda got: attn_grad_check(q, k, v, do, kw, got),
+            library_fn=lib,
+            library_name="SDPA backward (exact softmax" + (", enable_gqa" if hq != hkv else "")
+            + ", the same mask)", cell=cell, plain_reps=3)
+        del lib
+
 
 def glm4_kernel_rows(dev, g, row):
     """The kernels at GLM4-9B's shapes that BERT never reached (its dense
@@ -1111,8 +1222,9 @@ def mask_rows(dev, row):
 class Audit:
     """Wrap the kernel wrappers that the models call through `ops` so that
     every launch is also computed by its plain version on the same operands
-    (the dense mode's launches count as flash_attention's; the blocked mode
-    serves no model)."""
+    (the dense mode's launches count as flash_attention's, with or without
+    gradients: `ops.dense_attention_kernel` is what `ops.dense_attention`
+    and its autograd Function launch; the blocked mode serves no model)."""
 
     NAMES = ("pwl_eval", "quant_matmul", "nvu_softmax", "nvu_layernorm", "flash_attention")
 
@@ -1158,7 +1270,8 @@ class Audit:
 
         def dense(q, k, v, **kw):
             y = fa_mod.dense_attention(q, k, v, **kw)
-            err, ok = dense_compare(q, k, v, dict(kw, out_dtype=y.dtype), y)
+            with torch.no_grad():
+                err, ok = dense_compare(q, k, v, dict(kw, out_dtype=y.dtype), y)
             st = self.stats["flash_attention"]
             st[0] += 1
             st[1] = max(st[1], err)
@@ -1167,7 +1280,7 @@ class Audit:
 
         for attr, fn in [("pwl_eval", pwl), ("quant_matmul", qm),
                          ("nvu_softmax", sm), ("nvu_layernorm", ln),
-                         ("dense_attention", dense)]:
+                         ("dense_attention_kernel", dense)]:
             self.saved[attr] = getattr(ops, attr)
             setattr(ops, attr, fn)
         return self
@@ -1229,13 +1342,15 @@ def device_launches(fn) -> int:
     return sum(n for _, _, n in _kernel_times(prof, with_counts=True))
 
 
-def nudge(model, toward: float = float("inf")):
+def nudge(model, toward: float = float("inf"), dtype=torch.float32):
     """A float32 copy of `model` on the CPU with every weight moved by one
-    ulp, up (or toward `toward`)."""
+    ulp of `dtype` (the value next to its `dtype` rounding), up (or toward
+    `toward`)."""
     other = registry.build_model(model.cfg, device="cpu", dtype=torch.float32)
     with torch.no_grad():
         for (_, p), (_, q) in zip(model.named_parameters(), other.named_parameters()):
-            q.copy_(torch.nextafter(p, torch.full_like(p, toward)))
+            c = p.to(dtype)
+            q.copy_(torch.nextafter(c, torch.full_like(c, toward)))
     return other
 
 
@@ -1641,7 +1756,9 @@ def decode_route_check(dev, results, key):
 
 # --- phase 6: the npec compiler and executor --------------------------------
 
-NPEC_T, NPEC_STEPS = 256, 8           # 8 steps keep the script within its budget
+# 4 steps keep the script within its budget (8 until [16], the decoders'
+# training, joined it)
+NPEC_T, NPEC_STEPS = 256, 4
 NPEC_GATE = 1e-2            # the reference's gate for its executor (tests/test_npec.py:215-245)
 NPEC_SLOTS_TOL = 5e-3       # NPE-8 8-slot vs per-sequence streams, if not bit for bit
 
@@ -2622,14 +2739,17 @@ def gemma3_phase(dev, card, results):
 # --- phase 10: Granite-3.0-1B-A400M: an MoE block in every layer --------------
 
 class DropCounter:
-    """Record, for each MoE call, the (token, choice) slots that capacity drops."""
+    """Record, for each MoE call (in call order: a train step's forward, then
+    its backward pass's recomputed layers), the (token, choice) slots that
+    capacity drops, of how many, at what capacity, and its expert ids."""
 
     def __enter__(self):
-        self.route, self.drops = moe_mod.route, []
+        self.route, self.drops, self.ids = moe_mod.route, [], []
 
         def counting(cfg, p, x):
             r = self.route(cfg, p, x)
             self.drops.append((int((~r.kept).sum()), r.kept.numel(), r.capacity))
+            self.ids.append(r.expert_ids.detach().cpu())
             return r
 
         moe_mod.route = counting
@@ -2742,8 +2862,9 @@ def granite_phase(dev, card, results):
 
 # [11](a): GLM4-9B's depth through the executor.  On an H100 80GB HBM3 at
 # 700 W, 32 layers took [11] to 159.7 s, past its 150 s, and the script to
-# 1,144 s; 24 layers took [11] 122.6-148.0 s
-NPEC_GLM4_LAYERS = 24
+# 1,144 s; 24 layers took [11] 122.6-148.0 s; 12 layers since [16] (the
+# decoders' training) joined the script, to keep it inside its budget
+NPEC_GLM4_LAYERS = 12
 NPEC_CHUNK, NPEC_GLM4_T, NPEC_GLM4_STEPS = 16, 256, 8
 NPEC_CHECK_SLOTS, NPEC_CHECK_STEPS, NPEC_CHECK_T = 2, 4, 128     # [11](b), 2 layers
 GRANITE_NPEC_SEQS = (64, 120)                                     # [11](c)
@@ -3146,6 +3267,10 @@ def npec_decoders_phase(dev, results):
 # caches take one token a call in the reference's server), 16 steps, 32 rows
 FAMILY_MAX_PROMPT, FAMILY_GEN, FAMILY_MAX_SEQ = GEMMA3_MAX_PROMPT, 16, 32
 FAMILY_PHASES = {"rwkv6_3b": "[12]", "hymba_1_5b": "[13]", "whisper_base": "[14]"}
+# [12] and [13] at 16 of their 32 layers since [16] (the decoders' training)
+# joined the script, to keep it inside its budget (full depth took them 45.2
+# and 55.6 s on an H100 80GB HBM3 at 700 W)
+FAMILY_LAYERS = {"rwkv6_3b": 16, "hymba_1_5b": 16}
 
 
 def family_launches(cfg, mode: str, what: str = "step"):
@@ -3351,6 +3476,8 @@ def family_phase(dev, card, results, arch):
     Whisper's cross cache on the card against the CPU."""
     key, label = arch.split("_")[0], FAMILY_PHASES[arch]
     cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
     reqs = SyntheticRequests(cfg.vocab_size, max_prompt=FAMILY_MAX_PROMPT, seed=1)
     prompts = [reqs.request(i) for i in range(SLOTS)]
     start = max(len(p) for p in prompts)
@@ -3542,10 +3669,11 @@ GRAD_REFERENCE = {"pwl_eval_grad": "src/repro/core/nvu.py:40",
 class GradAudit:
     """Wrap the backward passes the training path calls through `ops` so
     that every launch is also computed by its plain backward on the same
-    operands (`quant_matmul_scale_grad`: its int32 product by `int_matmul`)."""
+    operands (`quant_matmul_scale_grad`: its int32 product by `int_matmul`;
+    the dense mode's backward held by `attn_grad_check`)."""
 
     NAMES = ("pwl_eval_grad", "nvu_softmax_grad", "nvu_layernorm_grad",
-             "quant_matmul_scale_grad")
+             "quant_matmul_scale_grad", "dense_attention_grad")
 
     def __init__(self):
         self.stats = {k: [0, 0.0, True] for k in self.NAMES}
@@ -3577,6 +3705,18 @@ class GradAudit:
         for attr, (plain, bf16) in plains.items():
             self.saved[attr] = getattr(ops, attr)
             setattr(ops, attr, self._wrap(attr, plain, bf16))
+        kernel = ops.dense_attention_grad
+        self.saved["dense_attention_grad"] = kernel
+
+        def attn(q, k, v, do, **kw):
+            got = kernel(q, k, v, do, **kw)
+            err, ok = attn_grad_check(q, k, v, do, kw, got)
+            st = self.stats["dense_attention_grad"]
+            st[0] += 1
+            st[1] = max(st[1], err)
+            st[2] = st[2] and ok
+            return got
+        ops.dense_attention_grad = attn
         return self
 
     def __exit__(self, *exc):
@@ -3745,7 +3885,14 @@ def train_route_cpu(directory):
     return out
 
 
-def train_route_compare(mode, opt, got, want, plain):
+def nonzero_flips(a, w, top):
+    """Entries above TRAIN_ROUTE_FLOOR * top in either tensor that are zero
+    in one and not in the other."""
+    big = (a.abs() > TRAIN_ROUTE_FLOOR * top) | (w.abs() > TRAIN_ROUTE_FLOOR * top)
+    return int(((a != 0) & big).ne((w != 0) & big).sum())
+
+
+def train_route_compare(mode, opt, got, want, plain, nonzero_gate=None):
     """Hold one mode's train step `got` (the kernel route) to `want` (the
     plain route's trees, {"<tree>/<name>": tensor}) and to `plain` (its loss
     and 1-ulp changes, from `train_route_cpu`): each leaf within twice the
@@ -3759,19 +3906,20 @@ def train_route_compare(mode, opt, got, want, plain):
     sign(g), so an entry whose gradient lies within its gate of 0 may step
     either way (up to 2 lr where the gate holds 0: a rounding residue, such
     as the key biases', whose exact gradient is 0).  In NPE-8 the nonzero
-    gradient entries above that floor are the same.  Also returned: each
+    gradient entries above that floor are the same (with `nonzero_gate`,
+    at most that many differ).  Also returned: each
     tree's worst share of the 1-ulp gate alone (no NPE floor, no AdamW
     step) and the leaf where it lies, which those two widenings are for."""
     worst, rel, grad_gate, ulp = {}, {}, {}, {}
+    flips = 0
     npe = mode != "float"
     loss_gate = max(2 * plain["loss_noise"], NPE16_TOL if npe else 0.0) + 1e-5
     ok = abs(got["loss"] - plain["loss"]) <= loss_gate
-    nonzero_same = True
     gnorm = float(torch.sqrt(sum(torch.sum(torch.square(want[f"grads/{k}"].double()))
                                  for k in got["grads"])))
     clip = min(1.0, opt.grad_clip / max(gnorm, 1e-9)) if opt.grad_clip > 0 else 1.0
     step1 = lambda g: g * clip / ((g * clip).abs() + opt.eps)   # AdamW's first step / lr
-    for t in TRAIN_TREES:
+    for t in plain["noise"]:                # the trees the CPU half measured
         top = max(float(want[f"{t}/{k}"].abs().max()) for k in got[t])
         for k, a in got[t].items():
             w = want[f"{t}/{k}"]
@@ -3793,10 +3941,11 @@ def train_route_compare(mode, opt, got, want, plain):
             rel[t] = max(rel.get(t, 0.0), err / scale if scale > 0 else 0.0)
             ok = ok and err <= gate and bool(torch.isfinite(a).all())
             if t == "grads" and mode == "npe-8bit":
-                big = (a.abs() > TRAIN_ROUTE_FLOOR * top) | (w.abs() > TRAIN_ROUTE_FLOOR * top)
-                nonzero_same = nonzero_same and torch.equal((a != 0) & big, (w != 0) & big)
+                flips += nonzero_flips(a, w, top)
+    nonzero_same = flips == 0 if nonzero_gate is None else flips <= nonzero_gate
     return dict(ok=ok and nonzero_same, loss_gate=loss_gate, worst_share_of_gate=worst,
                 worst_relative=rel, nonzero_same=nonzero_same if mode == "npe-8bit" else None,
+                nonzero_flips=flips if mode == "npe-8bit" else None, nonzero_gate=nonzero_gate,
                 worst_share_of_ulp_gate={t: dict(share=v, leaf=k) for t, (v, k) in ulp.items()})
 
 
@@ -3888,6 +4037,322 @@ def train_phase(dev, card, results):
     route_dir = CPU_ROUTES.train_dir
     train_route_check(dev, results, route_dir)
 
+# --- phase 16: training the decoders ----------------------------------------
+
+DEC_TRAIN_BATCH, DEC_TRAIN_SEQ = 4, 1024
+# each model of [16]: its label, float / NPE-16 / NPE-8 steps and its
+# optimizer (OptimizerConfig fields, the schedule constant), from
+# `scripts/train_probe.py loss --steps 16` on the card (PERF.md §6):
+# over 16 steps StarCoder2's loss rose under AdamW at lr 1e-3 and fell by
+# 0.05-0.11 under lr 3e-5 and under SGD (b1 0, eps 1) at lr 0.5 and 1;
+# Granite's fell most under AdamW at lr 1e-3 (0.06) and 0.01-0.02 under SGD
+DEC_TRAIN = {
+    "starcoder2_3b": dict(label="(a)", steps=(12, 2, 2),
+                          opt=dict(lr=0.5, warmup_steps=4, b1=0.0, eps=1.0, weight_decay=0.0)),
+    "granite_moe_1b_a400m": dict(label="(b)", steps=(12, 1, 2),
+                                 opt=dict(lr=1e-3, warmup_steps=4)),
+}
+# the route check: full width at 2 layers in the kernels' dtype (bf16
+# compute, float32 masters), 1 x 64 tokens (the CPU half in bf16 is slow), one
+# step, in float and NPE-8 (NPE-16 runs the kernels of NPE-8 less the MMU;
+# [15] checks all three); the gradients and the updated parameters (after
+# one step the moments are (1 - b1) g and (1 - b2) g^2 of the gradients
+# compared; [15] compares them too), which halves the trees a 2-layer
+# StarCoder2 hands over (2 GB each)
+DEC_ROUTE_BATCH, DEC_ROUTE_SEQ, DEC_ROUTE_MODES = 1, 64, ("float", "npe-8bit")
+DEC_ROUTE_TREES = ("grads", "params")
+
+
+def dec_train_launch_counts(cfg):
+    """(forward, backward, all) launches of one NPE-8 train step of the
+    decoder `cfg` with remat "block": each layer's kernels twice in the
+    forward (the backward pass runs each layer's forward again), the head
+    and the final norm once; in the backward pass one more product a dense
+    (its int32 product) and a backward of each activation, router softmax,
+    norm and attention."""
+    L = cfg.num_layers
+    moe = transformer.layer_is_moe(cfg)
+    products = norms = acts = routers = 0
+    for is_moe in moe:
+        products += 4
+        norms += 1 + (0 if cfg.parallel_block else 1) + (2 if cfg.qk_norm else 0)
+        if is_moe:
+            shared = cfg.moe.shared_expert
+            products += 3 if shared else 0
+            acts += 1 + (1 if shared else 0) + (1 if cfg.moe.router_act == "sigmoid" else 0)
+            routers += 1 if cfg.moe.router_act == "softmax" else 0
+        else:
+            products += 3 if cfg.mlp_type == "gated" else 2
+            acts += 1
+    fwd = every_kernel({"quant_matmul": 2 * products + 1, "nvu_layernorm": 2 * norms + 1,
+                        "pwl_eval": 2 * acts, "nvu_softmax": 2 * routers,
+                        "flash_attention": 2 * L})
+    bwd = {"quant_matmul": products + 1, "pwl_eval_grad": acts, "nvu_softmax_grad": routers,
+           "nvu_layernorm_grad": norms + 1, "flash_attention_grad": L}
+    return fwd, bwd, every_kernel({k: fwd.get(k, 0) + bwd.get(k, 0) for k in KERNELS})
+
+
+def dec_train_run(arch, mode, steps):
+    """`arch` at full width and depth (float32 masters, bf16 compute, remat
+    "block") in `mode` on SyntheticLM(V, DEC_TRAIN_SEQ, DEC_TRAIN_BATCH)
+    through `launch.train`, with DEC_TRAIN's optimizer."""
+    run = train_mod.make_run(arch, False, steps, DEC_TRAIN_BATCH, DEC_TRAIN_SEQ,
+                             npe=mode != "float", bits=16 if mode == "npe-16bit" else 8,
+                             ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_dec_train_"),
+                             opt=OptimizerConfig(decay_steps=steps, schedule="constant",
+                                                 **DEC_TRAIN[arch]["opt"]))
+    return dataclasses.replace(run, log_every=10 ** 9)
+
+
+def router_grads(trainer):
+    """One more train step with its gradients kept: each MoE layer's router
+    gradient's largest entry, and the choices capacity dropped in each
+    route call of the step."""
+    step = build_train_step(trainer.run, keep_grads=True)
+    with DropCounter() as rec:
+        trainer.model, trainer.opt_state, met = step(trainer.model, trainer.opt_state,
+                                                     trainer.batch_at(trainer.run.steps))
+    g = met["grads"]
+    names = sorted((n for n in g if n.endswith("moe.router")),
+                   key=lambda n: int(n.split(".")[1]))
+    return [float(g[n].abs().max()) for n in names], [d for d, _, _ in rec.drops]
+
+
+def dec_train_mode(dev, card, arch, mode, steps):
+    """Train `arch` in `mode` for `steps` steps (no checkpoints: [15] covers
+    them, and a 3B state is 51 GB); print and return its numbers."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_mod.Trainer(dec_train_run(arch, mode, steps), log=lambda *a: None, device=dev)
+    init_s = time.perf_counter() - t0
+    out = trainer.train(checkpoints=False)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    secs = [h["sec"] for h in out["history"][1:]] or [out["history"][0]["sec"]]
+    host_ms = 1e3 * float(np.median(secs))
+    # one more step under torch.profiler in float alone: a profile of a step
+    # of 20,000-35,000 launches takes longer than the step
+    prof = dict(device_busy_ms=None, idle_share=None, device_launches=None, top=None)
+    if mode == "float":
+        batch = trainer.batch_at(0)
+        prof = profile_call(lambda: trainer.step_fn(trainer.model, trainer.opt_state, batch),
+                            host_ms)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(np.isfinite(v) for v in losses)
+    tokens = DEC_TRAIN_BATCH * DEC_TRAIN_SEQ
+    shutil.rmtree(trainer.run.checkpoint.directory, ignore_errors=True)   # empty: none written
+    r = dict(steps=steps, losses=losses, host_ms=host_ms, first_step_s=out["history"][0]["sec"],
+             device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"],
+             device_launches=prof["device_launches"], top=prof["top"],
+             tokens_per_s=tokens / (host_ms / 1e3), peak_gib=peak, wall_s=wall, init_s=init_s,
+             finite=finite)
+    busy = ("device busy not measured" if r["device_busy_ms"] is None else
+            f"{r['device_busy_ms']:.1f} ms device busy (torch.profiler, "
+            f"{r['device_launches']} device launches), idle share " + (
+                "not measured" if r["idle_share"] is None else f"{r['idle_share']:.3f}"))
+    say(f"  {mode:10s} {steps} steps in {wall:.1f} s (set-up {init_s:.1f} s): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {host_ms:.1f} ms a step host clock (median; "
+        f"the first {1e3 * r['first_step_s']:.0f} ms), {busy}, {r['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak:.2f} GiB on {card}")
+    if not finite:
+        raise SystemExit(f"{arch} {mode}: a training loss is not finite")
+    return trainer, r
+
+
+def dec_train_launches(arch, trainer):
+    """One more NPE-8 train step with every launch counted and held to its
+    plain version (forward: `Audit`; backward: `GradAudit`, the dense
+    mode's backward by its gates)."""
+    fwd_want, bwd_want, all_want = dec_train_launch_counts(trainer.run.model)
+    batch = trainer.batch_at(trainer.run.steps + 1)
+    reset_launches()
+    with Audit() as fwd, GradAudit() as bwd:
+        trainer.model, trainer.opt_state, _ = trainer.step_fn(trainer.model, trainer.opt_state,
+                                                              batch)
+        torch.cuda.synchronize()
+    counts = launches()
+    fwd_n = fwd.counts()
+    bwd_n = {"quant_matmul": bwd.stats["quant_matmul_scale_grad"][0],
+             **{k: bwd.stats[k][0] for k in GRAD_MAIN_ROWS},
+             "flash_attention_grad": bwd.stats["dense_attention_grad"][0]}
+    say(f"  launches of one NPE-8 train step: {counts} (expected {all_want}); forward, each "
+        f"layer's twice (remat): {fwd_n}; backward: {bwd_n}")
+    say("  every launch vs its plain version on its operands: " + ", ".join(
+        f"{k} {n} max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
+        for k, (n, e, ok) in list(fwd.stats.items()) + list(bwd.stats.items()) if n))
+    ok = (counts == all_want and fwd_n == fwd_want and bwd_n == bwd_want
+          and all(st[2] for st in list(fwd.stats.values()) + list(bwd.stats.values())))
+    if not ok:
+        raise SystemExit(f"{arch}: the NPE-8 train step's launches differ from expected or "
+                         "from their plain versions")
+    return dict(counts=counts, forward=fwd_n, backward=bwd_n,
+                audit={k: dict(launches=n, max_abs_err=e, ok=o) for k, (n, e, o) in
+                       list(fwd.stats.items()) + list(bwd.stats.items())})
+
+
+def dec_route_setup(arch):
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, decay_steps=4)
+    batch = SyntheticLM(cfg.vocab_size, DEC_ROUTE_SEQ, DEC_ROUTE_BATCH, seed=4).batch_at(0)
+    return cfg, opt, batch
+
+
+def dec_route_model(cfg):
+    """The route check's float32 masters on the CPU, from seed 1."""
+    return registry.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1),
+                                dtype=torch.float32)
+
+
+def dec_train_route_cpu(arch, directory):
+    """The CPU half of a decoder's training route check (run by `CpuRoutes`):
+    one plain-route train step in each mode, and the same from masters moved
+    one bf16 ulp up and one down; an MoE model's nudged steps take the main
+    step's expert ids (`moe.ForcedRouting`), whose ids go to the npz too.
+    The trees go to `directory`; the loss and each leaf's largest change
+    under either nudge are returned."""
+    cfg, opt, batch = dec_route_setup(arch)
+    base = dec_route_model(cfg)
+    # one ulp of the dtype the kernels compute in, as [15]'s float32 route
+    # moves one float32 ulp
+    nudged = [nudge(base, toward, getattr(torch, cfg.dtype))
+              for toward in (float("inf"), float("-inf"))]
+    out = {}
+    for mode in DEC_ROUTE_MODES:
+        c = MODES[mode](cfg)
+        with DropCounter() as rec:
+            want = train_route_step(c, opt, batch, copy.deepcopy(base))
+        others = []
+        for model in nudged:
+            forced = moe_mod.ForcedRouting(rec.ids) if cfg.moe else contextlib.nullcontext()
+            with forced:
+                others.append(train_route_step(c, opt, batch, copy.deepcopy(model)))
+        noise = {t: {k: max(float((o[t][k] - want[t][k]).abs().max()) for o in others)
+                     for k in want[t]} for t in DEC_ROUTE_TREES}
+        top = max(float(g.abs().max()) for g in want["grads"].values())
+        flips = max(sum(nonzero_flips(o["grads"][k], g, top) for k, g in want["grads"].items())
+                    for o in others)
+        np.savez(Path(directory) / f"{arch}-{mode}.npz",
+                 **{f"{t}/{k}": a.numpy() for t in DEC_ROUTE_TREES for k, a in want[t].items()},
+                 **{f"ids/{i}": a.numpy() for i, a in enumerate(rec.ids)})
+        out[mode] = dict(loss=want["loss"], noise=noise, drops=[d for d, _, _ in rec.drops],
+                         nonzero_flips=flips,
+                         loss_noise=max(abs(o["loss"] - want["loss"]) for o in others))
+    return out
+
+
+def dec_train_route_check(dev, arch, directory):
+    """One train step on the card's kernel route against the port's plain
+    route on the CPU (`dec_train_route_cpu`): `arch` at full width cut to 2
+    layers, bf16 compute, float32 masters, the same weights and batch, in
+    float and NPE-8, gated by `train_route_compare` with the plain
+    route's change under one bf16 ulp of every master (a MoE model routed
+    as the CPU routed: its own choices that differ are counted, with the
+    largest gap in probability between them)."""
+    cpu, seconds = CPU_ROUTES.result(f"dec_train_route_{arch}")
+    cfg, opt, batch = dec_route_setup(arch)
+    weights = dec_route_model(cfg).state_dict()
+    out = {}
+    for mode in DEC_ROUTE_MODES:
+        c = MODES[mode](cfg)
+        with np.load(Path(directory) / f"{arch}-{mode}.npz") as z:
+            want = {k: torch.from_numpy(z[k]).to(dev) for k in z.files if not k.startswith("ids/")}
+            ids = [torch.from_numpy(z[f"ids/{i}"]) for i in
+                   range(sum(k.startswith("ids/") for k in z.files))]
+        model = registry.build_model(cfg, device=dev, dtype=torch.float32)
+        model.load_state_dict(weights)
+        torch.cuda.reset_peak_memory_stats()
+        forced = moe_mod.ForcedRouting(ids) if cfg.moe else None
+        with forced or contextlib.nullcontext():
+            got = train_route_step(c, opt, batch, model)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model
+        plain = cpu[mode]
+        r = train_route_compare(mode, opt, got, want, plain,
+                                nonzero_gate=2 * plain["nonzero_flips"])
+        ok, worst, rel = r["ok"], r["worst_share_of_gate"], r["worst_relative"]
+        out[mode] = dict(r, loss=got["loss"], loss_cpu=plain["loss"],
+                         loss_noise=plain["loss_noise"], peak_gib=peak,
+                         routing_differ=forced.differ if forced else None,
+                         routing_gap=forced.gap if forced else None)
+        say(f"  {mode:10s} {arch} train step, card kernels vs CPU plain route (bf16, 2 layers, "
+            f"{DEC_ROUTE_BATCH} x {DEC_ROUTE_SEQ}): loss {got['loss']:.6f} vs {plain['loss']:.6f} "
+            f"(gate {r['loss_gate']:.2e}); worst error as a share of its gate (and of its leaf's "
+            "largest value): " + ", ".join(f"{t} {worst[t]:.3f} ({rel[t]:.1e})"
+                                            for t in DEC_ROUTE_TREES)
+            + (f"; the card's own top-k differs in {forced.differ} choices (largest gap "
+               f"{forced.gap:.2e}), routed as the CPU routed" if forced else "")
+            + (f"; gradient entries zero on one route and not the other {r['nonzero_flips']} "
+               f"(gate: twice the plain route's own flips under the nudges, "
+               f"{plain['nonzero_flips']})" if mode == "npe-8bit" else "")
+            + f"; peak {peak:.2f} GiB" + ("" if ok else "  FAIL"))
+        del got, want
+        if not ok:
+            raise SystemExit(f"{arch} {mode}: the training kernel route disagrees with the "
+                             "plain route")
+    torch.cuda.empty_cache()
+    say(f"  (the CPU half took {seconds:.1f} s beside the card's phases)")
+    return dict(out, cpu_seconds=seconds)
+
+
+def dec_train_phase(dev, card, results):
+    """[16]: StarCoder2-3B and Granite-3.0-1B-A400M trained at full width and
+    depth through `launch.train.Trainer`: float for DEC_TRAIN's steps (the
+    loss gated on falling: the last 5 below the first 5 and step 0), NPE-16
+    and NPE-8 for a step or two, finite losses; one NPE-8 step's launches
+    counted and audited; Granite's router gradients and capacity drops; the
+    route check at 2 layers."""
+    out = {}
+    for arch, spec in DEC_TRAIN.items():
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        n_float, n16, n8 = spec["steps"]
+        say(f"  {spec['label']} {arch} L={cfg.num_layers} D={cfg.d_model} V={cfg.vocab_size}, "
+            f"{registry.param_count(cfg) / 1e9:.2f} B parameters, float32 masters and moments, "
+            f"bf16 compute, remat block, SyntheticLM({cfg.vocab_size}, {DEC_TRAIN_SEQ}, "
+            f"{DEC_TRAIN_BATCH}), AdamW {spec['opt']}, schedule constant")
+        res = {}
+        trainer, res["float"] = dec_train_mode(dev, card, arch, "float", n_float)
+        losses = res["float"]["losses"]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        say(f"  float: loss of the first step {losses[0]:.4f}, mean of the first 5 steps "
+            f"{first:.4f}, of the last 5 {last:.4f}")
+        if not last < min(first, losses[0]):
+            raise SystemExit(f"{arch} float training: the loss did not fall")
+        if cfg.moe:
+            res["float_router_grads"], res["float_drops"] = router_grads(trainer)
+            say(f"  float: each layer's router gradient, largest entry: "
+                f"{[f'{x:.2e}' for x in res['float_router_grads']]}; choices capacity dropped "
+                f"in each route call of the step (the forward's {cfg.num_layers}, then remat's): "
+                f"{res['float_drops']}")
+            if not all(x > 0 for x in res["float_router_grads"]):
+                raise SystemExit(f"{arch}: a router's gradient is zero in float")
+        del trainer
+        torch.cuda.empty_cache()
+        for mode, n in (("npe-16bit", n16), ("npe-8bit", n8)):
+            trainer, res[mode] = dec_train_mode(dev, card, arch, mode, n)
+            if mode == "npe-8bit":
+                t1 = time.perf_counter()
+                res["npe-8bit_launches"] = dec_train_launches(arch, trainer)
+                res["audit_s"] = time.perf_counter() - t1
+                say(f"  (the audited step took {res['audit_s']:.1f} s)")
+                if cfg.moe:
+                    res["npe8_router_grads"], res["npe8_drops"] = router_grads(trainer)
+                    say(f"  npe-8bit: router gradients {[f'{x:.2e}' for x in res['npe8_router_grads']]} "
+                        f"(the head's MMU passes gradient to the entries that set its scales "
+                        f"alone); dropped choices {res['npe8_drops']}")
+            del trainer
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["route_check"] = dec_train_route_check(dev, arch, CPU_ROUTES.train_dir)
+        res["route_s"] = time.perf_counter() - t1
+        say(f"  (the route check took {res['route_s']:.1f} s on the card, waiting included)")
+        res["seconds"] = time.perf_counter() - t0
+        say(f"  {spec['label']} {arch}: {res['seconds']:.1f} s")
+        out[arch] = res
+    results["dec_train"] = out
+    results["dec_train_launches"] = {arch: r["npe-8bit_launches"]["counts"]
+                                     for arch, r in out.items()}
+
 # each decode route check's set-up (`route_setup`), in the order the phases
 # need them: BERT's with the long run; GLM4's over prefill plus 2 steps
 # (its CPU NPE calls quantize the 151552-column head each call); Gemma3's
@@ -3940,6 +4405,8 @@ class CpuRoutes:
         jobs = [(key, "decode_route_cpu", spec) for key, spec in ROUTE_CHECKS.items()]
         jobs.append(("whisper_cross_check", "cross_cache_cpu", {}))
         jobs.append(("train_route_check", "train_route_cpu", {"directory": self.train_dir}))
+        jobs += [(f"dec_train_route_{arch}", "dec_train_route_cpu",
+                  {"arch": arch, "directory": self.train_dir}) for arch in DEC_TRAIN]
         ctx = multiprocessing.get_context("spawn")
         self.queue = ctx.Queue()
         self.proc = ctx.Process(target=cpu_route_worker, args=(jobs, self.queue), daemon=True)
@@ -4082,6 +4549,10 @@ def serve_phases(dev, card, results, phase) -> int:
           "kernels, with checkpoints and a recovered crash")
     train_phase(dev, card, results)
 
+    phase("[16] training the decoders at full width and depth: StarCoder2-3B (30 layers) and "
+          "Granite-3.0-1B-A400M (24 MoE layers), through flash attention's backward kernel")
+    dec_train_phase(dev, card, results)
+
     # each kernel at the shapes of one NPE-8 decode step (nvu_softmax, which
     # decode does not run, at the encoder's); launches from the run of that
     # path: the served NPE-8 decode run, or the NPE-8 encoder forward
@@ -4117,7 +4588,9 @@ def serve_phases(dev, card, results, phase) -> int:
             launches_hymba=results["hymba_launches"][name],
             launches_whisper=results["whisper_launches"][name],
             launches_whisper_encoder=results["whisper_encoder_launches"][name],
-            launches_train=results["train_launches"][name]))
+            launches_train=results["train_launches"][name],
+            **{f"launches_train_{arch}": results["dec_train_launches"][arch][name]
+               for arch in DEC_TRAIN}))
         npec_rows = [dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                           bound_ms=x["bound_ms"], bound_by=x["bound_by"],
                           library_ms=x["library_ms"], max_abs_err=x["max_abs_err"],
@@ -4162,7 +4635,33 @@ def serve_phases(dev, card, results, phase) -> int:
             launches=n, path="train", shape=f"{r['shape']} {r['dtype']}",
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            library=r["library"], yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"]))
+            library=r["library"], yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"],
+            **{f"launches_train_{arch}": results["dec_train_launches"][arch][name]
+               for arch in DEC_TRAIN}))
+    # the dense mode's backward, at StarCoder2's shape; launches from [16](a)'s
+    # NPE-8 train step, (b)'s beside them
+    r = next(r for r in rows if r["shape"] == ATTN_GRAD_MAIN_ROW)
+    dec = results["dec_train_launches"]
+    if any(dec[arch]["flash_attention_grad"] == 0 for arch in DEC_TRAIN):
+        raise SystemExit("flash_attention_grad was not launched on the decoders' training path")
+    kernels.append(dict(
+        name="flash_attention_grad", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces=REPLACES["flash_attention"],
+        differentiates="src/repro/models/common.py:205 (attention_scores, jax.vjp)",
+        launches=dec["starcoder2_3b"]["flash_attention_grad"], path="train",
+        launches_train=dec["starcoder2_3b"]["flash_attention_grad"],
+        launches_train_granite=dec["granite_moe_1b_a400m"]["flash_attention_grad"],
+        launches_train_bert=results["train_launches"]["flash_attention_grad"],
+        shape=f"{r['shape']} {r['dtype']}", max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], library=r["library"],
+        rows=[dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
+                   bound_ms=x["bound_ms"], bound_by=x["bound_by"], library_ms=x["library_ms"],
+                   max_abs_err=x["max_abs_err"],
+                   # launches a train step of the model whose shape the row takes ([16])
+                   launches_train=dec[TRAINED_CELLS[x["cell"]]]["flash_attention_grad"]
+                   if x["cell"] in TRAINED_CELLS else None)
+              for x in rows if x["kernel"] == "flash_attention_grad"]))
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["mode"] = "dense"   # the decode path's attention: a mode of this kernel's source
     flash["dense_mode_replaces"] = "src/repro/models/common.py:205 (attention_scores, cache case)"
@@ -4171,7 +4670,7 @@ def serve_phases(dev, card, results, phase) -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
-    phase("[16] summary")
+    phase("[17] summary")
     say("kernels: " + " ".join(KERNELS))
     say(json.dumps({"kernels": kernels}))
     say(f"card: {card}")

@@ -1,13 +1,15 @@
-"""BERT-base training on the card: a step's time and launches, and how the
-loss moves under a set of AdamW settings.
+"""Training on the card: a step's time and launches, and how the loss moves
+under a set of AdamW settings.
 
     PYTHONPATH=src python3 scripts/train_probe.py timing [--steps 6]
     PYTHONPATH=src python3 scripts/train_probe.py loss --steps 150 \\
         --opt '{"lr": 3e-4, "warmup_steps": 10}' [--opt '{...}' ...] \\
-        [--dtype float32] [--remat none]
+        [--dtype float32] [--remat none] [--arch starcoder2_3b --batch 4 --seq 1024]
 
-Both run `launch.train.Trainer` on full-width, 12-layer BERT-base (float32
-masters, bf16 compute, remat "block") on `SyntheticLM(30720, 128, 8)`.
+Both run `launch.train.Trainer` on a full-width model at full depth
+(float32 masters, bf16 compute, remat "block"): BERT-base on
+`SyntheticLM(30720, 128, 8)` unless `--arch`, `--batch` and `--seq` say
+otherwise; no checkpoint is written (`Trainer.train(checkpoints=False)`).
 `timing` trains float, NPE-16 and NPE-8 for `--steps` steps each (the
 reference's AdamW defaults but lr 1e-3, warmup 2) and prints each step's
 loss and host seconds (ending in a synchronize), the kernel launches a
@@ -35,8 +37,11 @@ from repro_torch.kernels import launches, reset_launches  # noqa: E402
 from repro_torch.launch.train import Trainer, make_run  # noqa: E402
 
 
+ARCH = dict(arch="bert_base", batch=8, seq=128)
+
+
 def run_config(steps, npe=False, bits=8, dtype="bfloat16", remat="block", **opt):
-    run = make_run("bert_base", False, steps, 8, 128, npe=npe, bits=bits,
+    run = make_run(ARCH["arch"], False, steps, ARCH["batch"], ARCH["seq"], npe=npe, bits=bits,
                    ckpt_dir=tempfile.mkdtemp(prefix="train_probe_"),
                    opt=OptimizerConfig(decay_steps=steps, **opt))
     return dataclasses.replace(run, model=dataclasses.replace(run.model, dtype=dtype),
@@ -60,12 +65,14 @@ def timing(steps):
         per_step = {k: v // steps for k, v in launches().items()}
         print(f"  launches a step {per_step}, peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-        t0 = time.perf_counter()
-        tr._save(0)
-        tr.ckpt.wait()
-        t1 = time.perf_counter()
-        tr._restore()
-        print(f"  save {t1 - t0:.2f} s, restore {time.perf_counter() - t1:.2f} s", flush=True)
+        if ARCH["arch"] == "bert_base":
+            t0 = time.perf_counter()
+            tr._save(0)
+            tr.ckpt.wait()
+            t1 = time.perf_counter()
+            tr._restore()
+            print(f"  save {t1 - t0:.2f} s, restore {time.perf_counter() - t1:.2f} s",
+                  flush=True)
         del tr
         torch.cuda.empty_cache()
 
@@ -75,10 +82,12 @@ def loss(steps, opts, dtype, remat):
         kw = dict(schedule="constant", **json.loads(opt))
         t0 = time.perf_counter()
         out = Trainer(run_config(steps, dtype=dtype, remat=remat, **kw), log=lambda *a: None,
-                      device="cuda").train()
+                      device="cuda").train(checkpoints=False)
+        torch.cuda.empty_cache()
         ls = np.array([h["loss"] for h in out["history"]])
-        print(dtype, remat, f"{time.perf_counter() - t0:.1f} s", kw, [round(float(ls[i:i + 10].mean()), 3) for i in range(0, steps, 10)],
-              "first 5", float(ls[:5].mean()), "last 5", float(ls[-5:].mean()), flush=True)
+        print(ARCH["arch"], dtype, remat, f"{time.perf_counter() - t0:.1f} s", kw,
+              [round(float(x), 3) for x in ls], "first 5", float(ls[:5].mean()),
+              "last 5", float(ls[-5:].mean()), flush=True)
 
 
 def main():
@@ -88,7 +97,11 @@ def main():
     ap.add_argument("--opt", action="append", default=[])
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--remat", default="block", choices=("block", "none"))
+    ap.add_argument("--arch", default="bert_base")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     args = ap.parse_args()
+    ARCH.update(arch=args.arch, batch=args.batch, seq=args.seq)
     if not torch.cuda.is_available():
         sys.exit("train_probe: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1440,6 +1440,716 @@ bool vec_ok(const void* p, long long s0, long long s1, long long s2, long long s
          reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// the dense mode's backward (npe_attention_dense_grad)
+// ---------------------------------------------------------------------------
+//
+// jax.vjp of attention_scores (src/repro/models/common.py:205), which the
+// reference's training differentiates: for each query row over its visible
+// keys, with p^_j the bf16 probabilities of the forward,
+//   dp^_j = bf16(do . v_j)                      (jax rounds this cotangent)
+//   dr = sum_j dp^_j e_j, dS = dr recip'(S)     (the reciprocal's slope at the
+//        mantissa of max(S, 1e-30), times 2^-e twice; 1/2 where S ties 1e-30)
+//   dz_j = (dp^_j r + dS) exp'(z_j)             (the exp table's slope, 1/2 where
+//        the PWL ties 0, 0 past the clamp)
+//   the row max's term -sum_j dz_j, split evenly among the tied maxima;
+//   exact mode: jax.nn.softmax's p (dp - sum p dp);
+//   the soft cap: ((dt c) tanh'(s / c)) / c, tanh' the table's slope;
+//   dS_ij = dt_ij * scale; dq = dS . k, dk = sum_i dS_ij q_i and
+//   dv = sum_i p^_ij do_i over the GQA group's rows, each rounded once to
+//   its operand's dtype.
+// Bound on this card: operations.  The five products of a visible pair
+// (S and dP again, dV, dK, dQ; 2 D each) on the bf16 tensor cores, and some
+// fifty f32 operations a pair on the CUDA cores (two table searches, the
+// chain above), against q, k, v and the cotangent read once.
+// Design (FlashAttention-2's, written to be right first): the forward is
+// recomputed, never stored.  `dense_grad_q_kernel`, a block of 4 warps for
+// 64 query rows of one head, each warp 16 rows over every key of a 64-key
+// chunk (so a row's reductions stay in its quad of lanes, and the block
+// syncs only for the chunks: K and V through a two-stage cp.async ring;
+// S = Q.K^T and dP = dO.V^T by mma.sync on bf16 with f32 accumulation, q
+// split into bf16 pieces when it is f32), makes four sweeps over the
+// visible keys: the max; the sum S, dr and the tied maxima; the sum of dz;
+// then dS into dQ (each f32 dS split into three bf16 pieces, so every
+// product is exact and only sums change order).  It writes each
+// row's m, 1/S (S in exact mode), dS (sum p dp) and the max's share to a
+// workspace.  `dense_grad_kv_kernel`, a block a 64-key block of one q head,
+// takes those and every 16-query tile that sees one of its keys (the next
+// tile's q, cotangent and statistics loaded while this one computes),
+// recomputes S^T = K.Q^T and dP^T = V.dO^T, whose fragments are the A
+// operands of dV += P^T.dO and dK += dS^T.Q, and writes f32 partials a q
+// head; the wrapper sums them over the group and rounds them (a torch sum).
+// A table's value comes from the prefix search (the forward's bits), and
+// its slope from `slope_table`'s row at the segment that search found.
+
+constexpr int GW = 4;                    // warps a backward block
+constexpr int GT = 32 * GW;              // threads a backward block
+constexpr int GKC = 16 * GW;             // keys a staged chunk (the kv kernel: 16 a warp)
+constexpr int GQ = 16 * GW;              // query rows a block of the q kernel, 16 a warp
+
+struct GradArgs {
+  const void* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  void* dq;
+  float* dk;                             // (B, Hq, Skv, D) f32 partials a q head
+  float* dv;
+  float* stats;                          // (B, Hq, Sq, 4): m, norm, dS, share
+  long long qs[4], ks[4], vs[4], dos[4];
+  int hq, hkv, sq, skv, q_bf16, q_pieces, causal, window, use_pwl;
+  float scale, softcap;
+  const float* exp_table;
+  const float* exp_slopes;
+  int exp_segs;
+  float exp_lo, exp_hi;
+  const float* recip_table;
+  const float* recip_slopes;
+  int recip_segs;
+  float recip_lo, recip_hi;
+  const float* tanh_table;
+  const float* tanh_slopes;
+  int tanh_segs;
+  float tanh_lo, tanh_hi;
+};
+
+// The tables of a backward block: values in prefix form, slopes as rows.
+struct GradTables {
+  NpePrefixTable e, r, t;
+  float es[2 * NPE_MAX_TABLE_COLS], rs[2 * NPE_MAX_TABLE_COLS], ts[2 * NPE_MAX_TABLE_COLS];
+  int etop, rtop, ttop;
+};
+
+// Every thread of a block of GT threads calls it; ends synced.
+__device__ __forceinline__ void grad_tables(GradTables& T, const GradArgs& a) {
+  const NpePrefixFetch ef(a.exp_table, a.exp_segs), rf(a.recip_table, a.recip_segs);
+  npe_load_slope_table(T.es, a.exp_slopes, a.exp_segs + 1);
+  npe_load_slope_table(T.rs, a.recip_slopes, a.recip_segs + 1);
+  if (a.softcap > 0.f && a.use_pwl) npe_load_slope_table(T.ts, a.tanh_slopes, a.tanh_segs + 1);
+  npe_build_prefix_tables(T.e, ef, a.exp_segs, T.r, rf, a.recip_segs);
+  if (a.softcap > 0.f && a.use_pwl) {
+    const NpePrefixFetch tf(a.tanh_table, a.tanh_segs);
+    npe_build_prefix_table(T.t, tf, a.tanh_segs);
+  }
+  T.etop = npe_prefix_top(a.exp_segs);
+  T.rtop = npe_prefix_top(a.recip_segs);
+  T.ttop = npe_prefix_top(a.tanh_segs);
+}
+
+__device__ __forceinline__ bool grad_masked(int col, int pos, const GradArgs& a) {
+  return col >= a.skv || (a.causal && col > pos) || (a.window > 0 && col <= pos - a.window);
+}
+
+// N values of one table at once by the prefix search (npe_pwl_prefix_n's
+// steps, so the walk's bits), in place, and the segment each found: the
+// count of interior knots <= x, the segment whose slope is the derivative
+// there.  N independent searches give the scheduler N chains to interleave.
+template <int N>
+__device__ __forceinline__ void grad_pwl_n(float (&v)[N], int (&seg)[N], const NpePrefixTable& t,
+                                           int top) {
+  const char* kb = reinterpret_cast<const char*>(t.knot);
+  int k[N];   // 4 * seg
+#pragma unroll
+  for (int j = 0; j < N; ++j) k[j] = 0;
+  if (top > 0) {
+    const float k_top = t.knot[top];
+#pragma unroll
+    for (int j = 0; j < N; ++j) k[j] = v[j] >= k_top ? 4 * top : 0;
+    int step = top >> 1;
+    if (step > 0) {
+      const float k_lo = t.knot[step], k_hi = t.knot[top + step];
+#pragma unroll
+      for (int j = 0; j < N; ++j) k[j] = v[j] >= (k[j] ? k_hi : k_lo) ? k[j] + 4 * step : k[j];
+      for (step *= 2; step >= 4; step >>= 1) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const int c = k[j] + step;
+          k[j] = v[j] >= *reinterpret_cast<const float*>(kb + c) ? c : k[j];
+        }
+      }
+    }
+  }
+  const char* sb = reinterpret_cast<const char*>(t.si);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 p = *reinterpret_cast<const float2*>(sb + 2 * k[j]);
+    seg[j] = k[j] >> 2;
+    v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
+  }
+}
+
+// A fragment's 8 scores from their raw dots q . k, in place: s = dot *
+// scale, then with a cap c the forward's c * tanh(s / c), keeping u = s / c,
+// t = tanh(u) and, with PWL, tanh's slope at clip(u) for the backward.
+struct GradCap8 {
+  float u[8], t[8], slope[8];
+};
+
+__device__ __forceinline__ void grad_scores8(float (&s)[8], GradCap8& c, const GradArgs& a,
+                                             const GradTables& T) {
+#pragma unroll
+  for (int x = 0; x < 8; ++x) s[x] = __fmul_rn(s[x], a.scale);
+  if (a.softcap <= 0.f) return;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) c.u[x] = __fdiv_rn(s[x], a.softcap);
+  if (a.use_pwl) {
+    int seg[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) c.t[x] = fminf(fmaxf(c.u[x], a.tanh_lo), a.tanh_hi);
+    grad_pwl_n<8>(c.t, seg, T.t, T.ttop);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) c.slope[x] = T.ts[(a.tanh_segs + 1) + seg[x]];
+  } else {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) c.t[x] = tanhf(c.u[x]);
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x) s[x] = __fmul_rn(a.softcap, c.t[x]);
+}
+
+// e at 8 values z = s - m: the PWL exp floored at 0 (with its clipped value
+// er and the slope of er's segment), or expf.
+__device__ __forceinline__ void grad_exp8(const float (&z)[8], float (&e)[8], float (&er)[8],
+                                          float (&slope)[8], const GradArgs& a,
+                                          const GradTables& T) {
+  if (!a.use_pwl) {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      e[x] = er[x] = expf(z[x]);
+      slope[x] = 0.f;
+    }
+    return;
+  }
+  int seg[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) er[x] = fminf(fmaxf(z[x], a.exp_lo), a.exp_hi);
+  grad_pwl_n<8>(er, seg, T.e, T.etop);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    slope[x] = T.es[(a.exp_segs + 1) + seg[x]];
+    e[x] = fmaxf(er[x], 0.f);
+  }
+}
+
+// Stats of one query row, as the q kernel writes them.
+struct GradRow {
+  float m, norm, ds, share;   // norm: 1/S (PWL) or S (exact); ds: dS (PWL) or sum p dp (exact)
+};
+
+// dz of one visible pair without the max's share (PWL), from its z, its
+// exp's er and slope, its bf16 dp^ and the row's statistics.
+__device__ __forceinline__ float grad_dz(float z, float er, float slope, float dph,
+                                         const GradRow& r, const GradArgs& a) {
+  float g = __fmul_rn(__fadd_rn(__fmul_rn(dph, r.norm), r.ds), npe_max_factor(er, 0.f));
+  g = __fmul_rn(g, slope);
+  return __fmul_rn(g, npe_clip_factor(z, a.exp_lo, a.exp_hi));
+}
+
+// (p^, dS_ij times scale) of one visible pair: the forward's bf16
+// probability; the softmax's gradient (its max's share where z = 0), then
+// the cap's (fragment element x of `c`).
+__device__ __forceinline__ float2 grad_pair(float z, float e, float er, float slope, float dph,
+                                            const GradCap8& c, int x, const GradRow& r,
+                                            const GradArgs& a) {
+  float g, p;
+  if (a.use_pwl) {
+    p = __fmul_rn(e, r.norm);
+    g = grad_dz(z, er, slope, dph, r, a);
+    if (z == 0.f) g = __fadd_rn(g, r.share);
+  } else {
+    p = __fdiv_rn(e, r.norm);
+    g = __fadd_rn(__fmul_rn(p, dph), __fmul_rn(p, -r.ds));
+  }
+  if (a.softcap > 0.f) {
+    g = __fmul_rn(g, a.softcap);
+    if (a.use_pwl) {
+      g = __fmul_rn(g, c.slope[x]);
+      g = __fmul_rn(g, npe_clip_factor(c.u[x], a.tanh_lo, a.tanh_hi));
+    } else {
+      g = __fmul_rn(__fadd_rn(g, __fmul_rn(g, c.t[x])), __fsub_rn(1.f, c.t[x]));
+    }
+    g = __fdiv_rn(g, a.softcap);
+  }
+  return make_float2(__bfloat162float(__float2bfloat16_rn(p)), __fmul_rn(g, a.scale));
+}
+
+// Three bf16 A fragments of a 16x16 f32 C-layout tile (two n8 tiles), one a
+// piece (npe_split3): their products sum to the f32 tile's exactly.
+__device__ __forceinline__ void grad_split_frag(const float (&v)[8], uint32_t (&f)[3][4]) {
+  float p[8][3];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) npe_split3(v[x], p[x]);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f[j][r] = npe_pack_bf16(p[2 * r][j], p[2 * r + 1][j]);
+}
+
+// Rows q0..q0+15 of q and of dO in registers, 16-byte pieces (rows of D
+// contiguous values at 16-byte aligned addresses: the wrapper sees to it),
+// zeros past Sq; `grad_put_q` writes them to shared memory, q in bf16
+// pieces.  QV pieces of q a thread (f32 q: 4 values a piece), DV of dO.
+template <int D>
+struct GradQRegs {
+  static constexpr int QV = (16 * D / 4 + GT - 1) / GT;
+  static constexpr int DV = (16 * D / 8 + GT - 1) / GT;
+  uint4 q[QV], d[DV];
+  float4 st;
+};
+
+template <int D>
+__device__ __forceinline__ void grad_fetch_q(const GradArgs& a, int b, int h, int q0,
+                                             GradQRegs<D>& r, bool stats) {
+  const int per_row = a.q_bf16 ? D / 8 : D / 4;
+  const char* qb = static_cast<const char*>(a.q) +
+                   (b * a.qs[0] + h * a.qs[1]) * (a.q_bf16 ? 2 : 4);
+#pragma unroll
+  for (int j = 0; j < GradQRegs<D>::QV; ++j) {
+    const int x = threadIdx.x + j * GT, row = x / per_row, piece = x % per_row;
+    const bool ok = row < 16 && q0 + row < a.sq;
+    r.q[j] = ok ? __ldg(reinterpret_cast<const uint4*>(qb + ((q0 + row) * a.qs[2]) * (a.q_bf16 ? 2 : 4)) + piece)
+                : make_uint4(0, 0, 0, 0);
+  }
+  const __nv_bfloat16* db = a.dout + b * a.dos[0] + h * a.dos[1];
+#pragma unroll
+  for (int j = 0; j < GradQRegs<D>::DV; ++j) {
+    const int x = threadIdx.x + j * GT, row = x / (D / 8), piece = x % (D / 8);
+    const bool ok = row < 16 && q0 + row < a.sq;
+    r.d[j] = ok ? __ldg(reinterpret_cast<const uint4*>(db + (q0 + row) * a.dos[2]) + piece)
+                : make_uint4(0, 0, 0, 0);
+  }
+  if (stats && threadIdx.x < 16 && q0 + (int)threadIdx.x < a.sq)
+    r.st = __ldg(reinterpret_cast<const float4*>(a.stats) +
+                 ((long long)(b * a.hq + h) * a.sq + q0 + threadIdx.x));
+}
+
+template <int D>
+__device__ __forceinline__ void grad_put_q(const GradArgs& a, const GradQRegs<D>& r,
+                                           __nv_bfloat16* qp, __nv_bfloat16* dop) {
+  constexpr int DS = D + 8;
+  const int per_row = a.q_bf16 ? D / 8 : D / 4;
+#pragma unroll
+  for (int j = 0; j < GradQRegs<D>::QV; ++j) {
+    const int x = threadIdx.x + j * GT, row = x / per_row, piece = x % per_row;
+    if (row >= 16) continue;
+    if (a.q_bf16) {                        // one piece (q_pieces = 1)
+      *reinterpret_cast<uint4*>(qp + row * DS + piece * 8) = r.q[j];
+    } else {
+      const float f[4] = {__uint_as_float(r.q[j].x), __uint_as_float(r.q[j].y),
+                          __uint_as_float(r.q[j].z), __uint_as_float(r.q[j].w)};
+      float p[4][3];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) npe_split3(f[c], p[c]);
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc) {
+        uint2 w = make_uint2(npe_pack_bf16(p[0][pc], p[1][pc]), npe_pack_bf16(p[2][pc], p[3][pc]));
+        *reinterpret_cast<uint2*>(qp + (pc * 16 + row) * DS + piece * 4) = w;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < GradQRegs<D>::DV; ++j) {
+    const int x = threadIdx.x + j * GT, row = x / (D / 8), piece = x % (D / 8);
+    if (row < 16) *reinterpret_cast<uint4*>(dop + row * DS + piece * 8) = r.d[j];
+  }
+}
+
+// cp.async of keys k0..k0+GKC-1 of a (batch, kv head)'s K or V rows into
+// shared memory, zeros at and past `end`.
+template <int D>
+__device__ __forceinline__ void grad_async_keys(const __nv_bfloat16* src, long long stride,
+                                                int k0, int end, __nv_bfloat16* dst) {
+  constexpr int DS = D + 8;
+#pragma unroll
+  for (int j = 0; j < GKC * (D / 8) / GT; ++j) {
+    const int x = threadIdx.x + j * GT, kr = x / (D / 8), piece = x % (D / 8), key = k0 + kr;
+    const bool ok = key < end;
+    npe_cp_async16(dst + kr * DS + piece * 8, ok ? src + key * stride + piece * 8 : src,
+                   ok ? 16 : 0);
+  }
+}
+
+// c[2][4] += A (16 rows at `arow`, D wide, `pieces` bf16 pieces 16 rows
+// apart) . B^T (16 rows at `brow`): the forward's S = Q.K^T fragments.
+template <int D>
+__device__ __forceinline__ void grad_mma_nt(float (&c)[2][4], const __nv_bfloat16* arow,
+                                            int pieces, const __nv_bfloat16* brow, int lane) {
+  constexpr int DS = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t bk[4];
+    npe_ldsm_x4(bk, brow + ((lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 + ((lane >> 3) & 1) * 8);
+    for (int pc = 0; pc < pieces; ++pc) {
+      uint32_t aq[4];
+      npe_ldsm_x4(aq, arow + (pc * 16 + (lane & 15)) * DS + kk * 16 + (lane >> 4) * 8);
+      npe_mma_bf16(c[0], aq, bk[0], bk[1]);
+      npe_mma_bf16(c[1], aq, bk[2], bk[3]);
+    }
+  }
+}
+
+// The same product with the roles turned: c[2][4] += B . A^T, fragments of
+// S^T (rows: the 16 of `brow`; columns: the 16 of `arow`).  Each element
+// sums the same products in the same order as grad_mma_nt's.
+template <int D>
+__device__ __forceinline__ void grad_mma_tn(float (&c)[2][4], const __nv_bfloat16* arow,
+                                            int pieces, const __nv_bfloat16* brow, int lane) {
+  constexpr int DS = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t ak[4];
+    npe_ldsm_x4(ak, brow + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
+    for (int pc = 0; pc < pieces; ++pc) {
+      uint32_t bq[4];
+      npe_ldsm_x4(bq, arow + (pc * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      npe_mma_bf16(c[0], ak, bq[0], bq[1]);
+      npe_mma_bf16(c[1], ak, bq[2], bq[3]);
+    }
+  }
+}
+
+// acc[NT][4] += A (16 x 16, a fragment) . Y (16 rows at `yrow`, D wide).
+template <int D>
+__device__ __forceinline__ void grad_mma_acc(float (&acc)[D / 8][4], const uint32_t (&af)[4],
+                                             const __nv_bfloat16* yrow, int lane) {
+  constexpr int DS = D + 8;
+#pragma unroll
+  for (int dd = 0; dd < D / 16; ++dd) {
+    uint32_t bv[4];
+    npe_ldsm_x4_trans(bv, yrow + ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + dd * 16 +
+                              (lane >> 4) * 8);
+    npe_mma_bf16(acc[2 * dd], af, bv[0], bv[1]);
+    npe_mma_bf16(acc[2 * dd + 1], af, bv[2], bv[3]);
+  }
+}
+
+template <int D>
+struct GradLayout {
+  static constexpr int DS = D + 8;
+  static constexpr int CHUNK = GKC * DS;             // a K or V chunk
+  static constexpr int QP = Q_PIECES_MAX * 16 * DS;  // q pieces
+  static constexpr int DO = 16 * DS;
+  // the q kernel: a two-stage ring of (K, V) chunks and GW tiles of q's
+  // pieces and dO (one piece for bf16 q: two blocks an SM); the kv kernel:
+  // one K and one V chunk, one tile
+  static size_t q_bytes(int pieces) {
+    return sizeof(__nv_bfloat16) * (4 * CHUNK + GW * (pieces * 16 * DS + DO));
+  }
+  static constexpr size_t kv_bytes = sizeof(__nv_bfloat16) * (2 * CHUNK + QP + DO);
+};
+
+template <int D>
+__global__ void __launch_bounds__(GT)
+dense_grad_q_kernel(const GradArgs a) {
+  using L = GradLayout<D>;
+  constexpr int DS = L::DS;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // K0 V0 K1 V1
+  const int qtile = a.q_pieces * 16 * DS;                              // a tile's q pieces
+  __nv_bfloat16* qp = ring + 4 * L::CHUNK;                            // GW tiles of them
+  __nv_bfloat16* dop = qp + GW * qtile;
+  __shared__ GradTables T;
+
+  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq, hk = h / (a.hq / a.hkv);
+  const int q0 = blockIdx.x * GQ;                          // the block's first row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int w0 = q0 + 16 * warp;                           // the warp's first row
+  const __nv_bfloat16* kg = a.k + b * a.ks[0] + hk * a.ks[1];
+  const __nv_bfloat16* vg = a.v + b * a.vs[0] + hk * a.vs[1];
+  const int off = a.skv - a.sq;
+  // the keys some row of the block sees
+  const int kv_lo = a.window > 0 ? max(0, off + q0 - a.window + 1) : 0;
+  const int kv_hi = a.causal ? off + min(q0 + GQ, a.sq) : a.skv;
+  const int nc = (kv_hi - kv_lo + GKC - 1) / GKC, items = 4 * nc;
+  // ... and those the warp's rows see
+  const int wlo = a.window > 0 ? max(0, off + w0 - a.window + 1) : 0;
+  const int whi = a.causal ? off + min(w0 + 16, a.sq) : a.skv;
+
+  // item it: phase it / nc, chunk it % nc; K always, V from phase 1 on
+  auto issue = [&](int it) {
+    __nv_bfloat16* kd = ring + (it & 1) * 2 * L::CHUNK;
+    const int c0 = kv_lo + (it % nc) * GKC;
+    grad_async_keys<D>(kg, a.ks[2], c0, kv_hi, kd);
+    if (it >= nc) grad_async_keys<D>(vg, a.vs[2], c0, kv_hi, kd + L::CHUNK);
+  };
+  issue(0);
+  npe_cp_async_commit();
+  __nv_bfloat16* wq = qp + warp * qtile;
+  __nv_bfloat16* wdo = dop + warp * L::DO;
+  for (int t = 0; t < GW; ++t) {           // the block's tiles, all threads staging each
+    GradQRegs<D> qr;
+    grad_fetch_q<D>(a, b, h, q0 + 16 * t, qr, false);
+    grad_put_q<D>(a, qr, qp + t * qtile, dop + t * L::DO);
+  }
+  grad_tables(T, a);                       // ends synced: q and dO staged too
+
+  int pos[2];
+  bool valid[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = w0 + g + 8 * e;
+    valid[e] = i < a.sq;
+    pos[e] = off + i;
+  }
+  float m[2] = {NEG_BIG, NEG_BIG}, sum[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f}, ties[2] = {0.f, 0.f};
+  float gsum[2] = {0.f, 0.f};
+  GradRow row[2];
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // a row's sum (or max) over its quad of lanes, which hold its keys
+  auto quad_reduce = [&](float (&v)[2], bool is_max) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, v[e], o);
+        v[e] = is_max ? fmaxf(v[e], y) : __fadd_rn(v[e], y);
+      }
+  };
+
+  // phase 0: the max; 1: S, dr, ties; 2: the sum of dz (PWL) or of p dp;
+  // 3: dS into dQ.  Each warp takes its 16 rows over all of a chunk's keys.
+  for (int it = 0; it < items; ++it) {
+    const int phase = it / nc, c0 = kv_lo + (it % nc) * GKC;
+    __syncthreads();                       // every warp is done with item it - 1's stage
+    if (it + 1 < items) issue(it + 1);
+    npe_cp_async_commit();
+    npe_cp_async_wait<1>();
+    __syncthreads();                       // item it is staged
+    const __nv_bfloat16* ks_ = ring + (it & 1) * 2 * L::CHUNK;
+    const __nv_bfloat16* vs_ = ks_ + L::CHUNK;
+    if (c0 < whi && c0 + GKC > wlo) {
+#pragma unroll
+      for (int k16 = 0; k16 < GKC / 16; ++k16) {
+        const int kc = c0 + 16 * k16;
+        if (kc >= whi || kc + 16 <= wlo) continue;
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        grad_mma_nt<D>(s, wq, a.q_pieces, ks_ + k16 * 16 * DS, lane);
+        if (phase > 0) grad_mma_nt<D>(dp, wdo, 1, vs_ + k16 * 16 * DS, lane);
+        float sv[8], dph[8], ds[8];
+        bool vis[8];
+        GradCap8 cap;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int e = (x >> 1) & 1;
+          const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
+          vis[x] = valid[e] && !grad_masked(col, pos[e], a);
+          sv[x] = s[x >> 2][x & 3];
+          dph[x] = __bfloat162float(__float2bfloat16_rn(dp[x >> 2][x & 3]));
+          ds[x] = 0.f;
+        }
+        grad_scores8(sv, cap, a, T);
+        if (phase == 0) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) m[(x >> 1) & 1] = fmaxf(m[(x >> 1) & 1], vis[x] ? sv[x] : NEG_BIG);
+        } else {
+          float z[8], ev[8], er[8], sl[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(sv[x], row[(x >> 1) & 1].m);
+          grad_exp8(z, ev, er, sl, a, T);
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int e = (x >> 1) & 1;
+            if (!vis[x]) continue;
+            if (phase == 1) {
+              sum[e] = __fadd_rn(sum[e], ev[x]);
+              dr[e] = __fadd_rn(dr[e], __fmul_rn(dph[x], ev[x]));
+              ties[e] += z[x] == 0.f ? 1.f : 0.f;
+            } else if (phase == 2) {
+              gsum[e] = __fadd_rn(gsum[e], a.use_pwl
+                  ? grad_dz(z[x], er[x], sl[x], dph[x], row[e], a)
+                  : __fmul_rn(__fdiv_rn(ev[x], row[e].norm), dph[x]));
+            } else {
+              ds[x] = grad_pair(z[x], ev[x], er[x], sl[x], dph[x], cap, x, row[e], a).y;
+            }
+          }
+        }
+        if (phase == 3) {
+          uint32_t af[3][4];
+          grad_split_frag(ds, af);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) grad_mma_acc<D>(acc, af[j], ks_ + k16 * 16 * DS, lane);
+        }
+      }
+    }
+    if (it % nc != nc - 1) continue;
+    // the phase's last chunk: each warp finishes its own rows
+    if (phase == 0) {
+      quad_reduce(m, true);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) row[e].m = m[e];
+    } else if (phase == 1) {
+      quad_reduce(sum, false);
+      quad_reduce(dr, false);
+      quad_reduce(ties, false);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sc = fmaxf(sum[e], 1e-30f);
+        if (!a.use_pwl) {
+          row[e].norm = sc;
+          continue;
+        }
+        row[e].norm = npe_recip_via_prefix(sc, T.r, T.rtop);
+        // sc = mant * 2^ex with mant in [0.5, 1): 1/sc = pwl(mant) * 2^-ex
+        const int bits = __float_as_int(sc);
+        const int ex = ((bits >> 23) & 0xff) - 126;
+        const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
+        float gs = ldexpf(dr[e], -ex);
+        gs = __fmul_rn(gs, npe_pwl_slope(fminf(fmaxf(mant, a.recip_lo), a.recip_hi), T.rs,
+                                         a.recip_segs));
+        gs = __fmul_rn(gs, npe_clip_factor(mant, a.recip_lo, a.recip_hi));
+        row[e].ds = __fmul_rn(ldexpf(gs, -ex), npe_max_factor(sum[e], 1e-30f));
+      }
+    } else if (phase == 2) {
+      quad_reduce(gsum, false);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (a.use_pwl) {
+          row[e].share = ties[e] > 0.f ? __fdiv_rn(-gsum[e], ties[e]) : 0.f;
+        } else {
+          row[e].ds = gsum[e];
+          row[e].share = 0.f;
+        }
+        if (t4 == 0 && valid[e]) {
+          float4* st = reinterpret_cast<float4*>(a.stats) +
+                       ((long long)blockIdx.y * a.sq + w0 + g + 8 * e);
+          *st = make_float4(row[e].m, row[e].norm, row[e].ds, row[e].share);
+        }
+      }
+    }
+  }
+
+  // dq: the warp's accumulators, in q's dtype
+  const long long qbase = (long long)blockIdx.y * a.sq * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = w0 + g + 8 * (e >> 1);
+      if (i >= a.sq) continue;
+      const long long o = qbase + (long long)i * D + n * 8 + 2 * t4 + (e & 1);
+      if (a.q_bf16)
+        static_cast<__nv_bfloat16*>(a.dq)[o] = __float2bfloat16_rn(acc[n][e]);
+      else
+        static_cast<float*>(a.dq)[o] = acc[n][e];
+    }
+  npe_cp_async_wait<0>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(GT)
+dense_grad_kv_kernel(const GradArgs a) {
+  using L = GradLayout<D>;
+  constexpr int DS = L::DS;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks_ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs_ = ks_ + L::CHUNK;
+  __nv_bfloat16* qp = ks_ + 2 * L::CHUNK;
+  __nv_bfloat16* dop = qp + L::QP;
+  __shared__ GradRow st[16];
+  __shared__ GradTables T;
+
+  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq, hk = h / (a.hq / a.hkv);
+  const int k0 = blockIdx.x * GKC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int off = a.skv - a.sq;
+  grad_async_keys<D>(a.k + b * a.ks[0] + hk * a.ks[1], a.ks[2], k0, a.skv, ks_);
+  grad_async_keys<D>(a.v + b * a.vs[0] + hk * a.vs[1], a.vs[2], k0, a.skv, vs_);
+  npe_cp_async_commit();
+
+  // the queries that see a key of this block: position >= k0 (causal) and
+  // < the last key + window (window > 0)
+  const int i_lo = a.causal ? max(0, k0 - off) : 0;
+  const int i_hi = a.window > 0 ? min(a.sq - 1, k0 + GKC - 2 + a.window - off) : a.sq - 1;
+  const int t_lo = (i_lo / 16) * 16;
+  GradQRegs<D> qr;
+  if (t_lo <= i_hi) grad_fetch_q<D>(a, b, h, t_lo, qr, true);
+  grad_tables(T, a);
+  npe_cp_async_wait<0>();
+  const int kw = k0 + warp * 16;
+  float acc_v[NT][4], acc_k[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.f;
+
+  for (int q0 = t_lo; q0 <= i_hi; q0 += 16) {
+    __syncthreads();                       // every warp is done with the last tile
+    grad_put_q<D>(a, qr, qp, dop);
+    if (threadIdx.x < 16) st[threadIdx.x] = GradRow{qr.st.x, qr.st.y, qr.st.z, qr.st.w};
+    __syncthreads();
+    if (q0 + 16 <= i_hi) grad_fetch_q<D>(a, b, h, q0 + 16, qr, true);   // in flight meanwhile
+    if (kw >= a.skv) continue;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    grad_mma_tn<D>(s, qp, a.q_pieces, ks_ + warp * 16 * DS, lane);
+    grad_mma_tn<D>(dp, dop, 1, vs_ + warp * 16 * DS, lane);
+    // fragment x: key kw + g + 8 ((x >> 1) & 1), query q0 + 8 (x >> 2) + 2 t4 + (x & 1)
+    float sv[8], z[8], ev[8], er[8], sl[8], p[8], ds[8];
+    GradCap8 cap;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) sv[x] = s[x >> 2][x & 3];
+    grad_scores8(sv, cap, a, T);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(sv[x], st[8 * (x >> 2) + 2 * t4 + (x & 1)].m);
+    grad_exp8(z, ev, er, sl, a, T);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int key = kw + g + 8 * ((x >> 1) & 1);
+      const int qi = 8 * (x >> 2) + 2 * t4 + (x & 1);
+      p[x] = ds[x] = 0.f;
+      if (q0 + qi >= a.sq || grad_masked(key, off + q0 + qi, a)) continue;
+      const float dph = __bfloat162float(__float2bfloat16_rn(dp[x >> 2][x & 3]));
+      const float2 pd = grad_pair(z[x], ev[x], er[x], sl[x], dph, cap, x, st[qi], a);
+      p[x] = pd.x;
+      ds[x] = pd.y;
+    }
+    const uint32_t ap[4] = {npe_pack_bf16(p[0], p[1]), npe_pack_bf16(p[2], p[3]),
+                            npe_pack_bf16(p[4], p[5]), npe_pack_bf16(p[6], p[7])};
+    grad_mma_acc<D>(acc_v, ap, dop, lane);
+    uint32_t af[3][4];
+    grad_split_frag(ds, af);
+    for (int pc = 0; pc < a.q_pieces; ++pc)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) grad_mma_acc<D>(acc_k, af[j], qp + pc * 16 * DS, lane);
+  }
+
+  const long long base = (long long)blockIdx.y * a.skv * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kw + g + 8 * (e >> 1);
+      if (key >= a.skv) continue;
+      const long long o = base + (long long)key * D + n * 8 + 2 * t4 + (e & 1);
+      a.dv[o] = acc_v[n][e];
+      a.dk[o] = acc_k[n][e];
+    }
+}
+
+template <int D>
+int launch_dense_grad(const GradArgs& a, int batch, cudaStream_t stream) {
+  using L = GradLayout<D>;
+  static size_t granted_q = 0, granted_kv = 0;
+  const size_t q_bytes = L::q_bytes(a.q_pieces);
+  if (int err = allow_smem(dense_grad_q_kernel<D>, q_bytes, granted_q)) return err;
+  if (int err = allow_smem(dense_grad_kv_kernel<D>, L::kv_bytes, granted_kv)) return err;
+  dense_grad_q_kernel<D><<<dim3((a.sq + GQ - 1) / GQ, batch * a.hq), GT, q_bytes, stream>>>(a);
+  if (const cudaError_t err = cudaGetLastError()) return (int)err;
+  dense_grad_kv_kernel<D><<<dim3((a.skv + GKC - 1) / GKC, batch * a.hq), GT, L::kv_bytes,
+                            stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int npe_flash_attention(
@@ -1513,6 +2223,50 @@ extern "C" int npe_attention_dense(
     case 32: return launch_dense<32>(a, batch, s);
     case 64: return launch_dense<64>(a, batch, s);
     case 128: return launch_dense<128>(a, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int npe_attention_dense_grad(
+    const void* q, const void* k, const void* v, const void* dout, void* dq, float* dk_part,
+    float* dv_part, float* stats,
+    long long qsb, long long qsh, long long qss, long long qsd,
+    long long ksb, long long ksh, long long kss, long long ksd,
+    long long vsb, long long vsh, long long vss, long long vsd,
+    long long dsb, long long dsh, long long dss, long long dsd,
+    int batch, int hq, int hkv, int sq, int skv, int d, int q_bf16, int causal, int window,
+    float scale, float softcap, int use_pwl,
+    const float* exp_table, const float* exp_slopes, int exp_segments, float exp_lo, float exp_hi,
+    const float* recip_table, const float* recip_slopes, int recip_segments, float recip_lo,
+    float recip_hi, const float* tanh_table, const float* tanh_slopes, int tanh_segments,
+    float tanh_lo, float tanh_hi, void* stream) {
+  const auto bad_table = [](const float* t, const float* s, int segs) {
+    return t == nullptr || s == nullptr || segs < 1 || segs + 1 > NPE_MAX_TABLE_COLS;
+  };
+  if (bad_table(exp_table, exp_slopes, exp_segments) ||
+      bad_table(recip_table, recip_slopes, recip_segments) ||
+      (softcap > 0.f && use_pwl && bad_table(tanh_table, tanh_slopes, tanh_segments)) ||
+      hkv < 1 || hq % hkv != 0 || sq > skv || window < 0 || !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  // q, K, V and dO rows are read as 16-byte vectors
+  if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd) &&
+        vec_ok(dout, dsb, dsh, dss, dsd) && vec_ok(q, qsb, qsh, qss, qsd)))
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
+  GradArgs a{q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+             static_cast<const __nv_bfloat16*>(dout), dq, dk_part, dv_part, stats,
+             {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
+             {dsb, dsh, dss, dsd},
+             hq, hkv, sq, skv, q_bf16, q_bf16 ? 1 : Q_PIECES_MAX, causal ? 1 : 0, window,
+             use_pwl, scale, softcap,
+             exp_table, exp_slopes, exp_segments, exp_lo, exp_hi,
+             recip_table, recip_slopes, recip_segments, recip_lo, recip_hi,
+             tanh_table, tanh_slopes, tanh_segments, tanh_lo, tanh_hi};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch_dense_grad<32>(a, batch, s);
+    case 64: return launch_dense_grad<64>(a, batch, s);
+    case 128: return launch_dense_grad<128>(a, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,10 +4,11 @@ Each kernel module has a public wrapper that launches the CUDA kernel for a
 tensor on the card and runs the plain version for a tensor on the CPU.  The
 wrapper adds one to `LAUNCHES[name]` where it launches its kernel, and
 nowhere else, so a run can show that it went through the kernels.  The
-backward kernels of the training path (the derivative mode of `pwl_eval`
-and the backward passes of `nvu_softmax` and `nvu_layernorm`) count under
-their own names, `<kernel>_grad`; the MMU's backward relaunches
-`quant_matmul`, which counts as `quant_matmul`.
+backward kernels of the training path (the derivative mode of `pwl_eval`,
+the backward passes of `nvu_softmax` and `nvu_layernorm`, and that of
+flash attention's dense mode) count under their own names,
+`<kernel>_grad`; the MMU's backward relaunches `quant_matmul`, which
+counts as `quant_matmul`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Dict
 
 KERNELS = ("pwl_eval", "quant_matmul", "nvu_softmax", "nvu_layernorm",
            "flash_attention", "pwl_eval_grad", "nvu_softmax_grad",
-           "nvu_layernorm_grad")
+           "nvu_layernorm_grad", "flash_attention_grad")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

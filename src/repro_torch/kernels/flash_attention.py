@@ -21,6 +21,13 @@ function's window, its causal switch (off: every key below kv_len, the ring
 cache's prefix validity as a key count) and its logit soft cap.
 `dense_attention_plain` is that arithmetic in torch ops.
 
+`dense_attention_grad(q, k, v, do, ...)` is the dense mode's backward over
+the sequence itself (kv_len = Skv): (dq, dk, dv) as jax.vjp of
+`attention_scores` gives them.  It launches the same source's
+`npe_attention_dense_grad` (two kernels, a 16-query tile's statistics and
+dQ, then dK and dV a 64-key block; see the source) for tensors on the card
+and runs `dense_attention_grad_plain`, explicit torch formulas, on the CPU.
+
 Layout (B, H, S, D), as in the reference.  The mask is end-aligned, as in
 `ref.attention` and the decode path: of `kv_len` visible keys, query i sits
 at position kv_len - Sq + i.  Keys at or beyond `kv_len` are invisible, so
@@ -30,7 +37,8 @@ sees keys at positions <= its own; with window > 0 only keys at positions
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional
 
 import torch
 
@@ -38,7 +46,9 @@ from repro_torch.core import nvu
 from repro_torch.core.pwl import get_table
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import check, library, require_cuda, stream_handle
-from repro_torch.kernels.pwl_eval import device_table
+from repro_torch.kernels.nvu_softmax import softmax_where_grad_plain
+from repro_torch.kernels.pwl_eval import (clip_factor, device_table, pwl_slope_plain,
+                                          slope_table, table_ends)
 
 NEG_BIG = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -301,3 +311,162 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check(err, "dense_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def dense_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                               softcap: float = 0.0, scale: Optional[float] = None,
+                               use_pwl: bool = True, segments: int = 16):
+    """(dq, dk, dv) of `dense_attention_plain(q, k, v, ...)` over all Skv keys
+    against do (the output's cotangent), in q's, k's and v's dtypes: what
+    jax.vjp of the reference's `attention_scores` gives, as explicit torch
+    formulas.  For one query row over its visible keys (PWL mode):
+
+        s_j = scale (q . k_j);  t_j = c tanh(s_j / c) when c > 0
+        p = nvu_softmax(t, where=visible);  p^_j = p_j in v's dtype
+        out = sum_j p^_j v_j
+
+    and back: dp^_j = do . v_j, rounded to v's dtype (the cotangent of the
+    bf16 probabilities as jax's transpose of the P.V einsum rounds it);
+    dv_j = sum over the GQA group's rows of p^_ij do_i, rounded to v's dtype
+    once; dt = the softmax's gradient (`softmax_where_grad_plain`: the
+    reciprocal's slope through frexp/ldexp, each exp's segment slope, 0 past
+    the clamp, the row max's term split evenly among tied maxima) or, exact,
+    jax.nn.softmax's, p (dp - sum p dp); the cap: ((dt c) tanh'(s / c)) / c
+    with tanh' the table's slope at the clipped s / c (1/2 at an end knot, 0
+    past it) or jnp.tanh's (1 + t)(1 - t); dS = ds * scale; dq = dS . k
+    rounded to q's dtype, dk = sum over the group of dS^T q rounded to k's
+    dtype once (jax's transpose of the f32-accumulating score einsum converts
+    its f32 result to the operand's dtype).  Those are every point where
+    jax rounds a cotangent (`jax.vjp` of `repro.models.common.
+    attention_scores` on the CPU); everything else is float32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    group = hq // hkv
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1).to(torch.float32)
+    raw = torch.matmul(q.to(torch.float32), kk.to(torch.float32).transpose(-1, -2)) * scale
+    s = soft_cap(raw, softcap, use_pwl, segments) if softcap > 0 else raw
+    mask = dense_mask(sq, skv, causal, window, q.device)
+    dof = do.to(torch.float32)
+    p = nvu.softmax(s, use_pwl=use_pwl, segments=segments, where=mask)
+    ph = p.to(v.dtype).to(torch.float32)
+    dv = torch.matmul(ph.transpose(-1, -2), dof)                       # b hq kv d
+    dv = dv.reshape(b, hkv, group, skv, d).sum(2).to(v.dtype)
+    dp = torch.matmul(dof, vv.transpose(-1, -2)).to(v.dtype).to(torch.float32)
+    if use_pwl:
+        dt = softmax_where_grad_plain(s, dp, mask, segments)
+    else:
+        dt = p * dp + p * (-(p * dp).sum(dim=-1, keepdim=True))
+    if softcap > 0:
+        g = dt * softcap
+        if use_pwl:
+            u = raw / softcap
+            lo, hi = table_ends("tanh", segments)
+            g = g * pwl_slope_plain(torch.clamp(u, lo, hi), get_table("tanh", segments))
+            g = g * clip_factor(u, lo, hi)
+        else:
+            t = torch.tanh(raw / softcap)
+            g = (g + g * t) * (1 - t)
+        dt = g / softcap
+    ds = dt * scale
+    dq = torch.matmul(ds, kk.to(torch.float32)).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(torch.float32))
+    dk = dk.reshape(b, hkv, group, skv, d).sum(2).to(k.dtype)
+    return dq, dk, dv
+
+
+GRAD_RTOL = 1e-4     # the backward kernel against its plain version, of a result's largest value
+
+
+def dense_attention_grad_gates(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               do: torch.Tensor, want, **kw) -> List[float]:
+    """The gate of each of the backward kernel's (dq, dk, dv) against `want`,
+    the plain backward's on the same operands and options `kw`: max(GRAD_RTOL
+    of the result's largest value, twice the plain backward's own change
+    when the score scale moves ceil(sqrt(D)) float32 ulps up or down); a
+    bf16 result may differ by one bf16 ulp of each entry besides.  The
+    kernel sums each score's D products in another order than torch's
+    product, so the two scores differ by the rounding of D additions, up to
+    about sqrt(D) ulps: a bf16 probability or cotangent may round to its
+    neighbour, and where a row's two largest scores lie within that of each
+    other, or a score next to one of the exp table's knots, the PWL
+    derivative jumps (through the row max's term, by up to a few percent
+    of the largest gradient, in one row).  The scale's nudge moves every
+    score by as much, and shows what that does to the plain version: at
+    Granite's (4, 16 over 8, 1024, 64) its dq moves by 0.018 under 2 or 4
+    ulps and 0.13 under 8, where the kernel's differs by 0.036 (H100)."""
+    scale = torch.tensor(kw.pop("scale", None) or q.shape[-1] ** -0.5, dtype=torch.float32)
+    moved = []
+    for way in (math.inf, -math.inf):
+        s = scale
+        for _ in range(math.ceil(q.shape[-1] ** 0.5)):
+            s = torch.nextafter(s, torch.tensor(way))
+        moved.append(dense_attention_grad_plain(q, k, v, do, scale=float(s), **kw))
+    return [max(GRAD_RTOL * float(w.float().abs().max()),
+                2 * max(float((m[i].float() - w.float()).abs().max()) for m in moved))
+            for i, w in enumerate(want)]
+
+
+def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                window: int, softcap: float) -> None:
+    """Raise ValueError on what the dense mode's backward does not take."""
+    _check_operands("dense_attention_grad", q, k, v, None)
+    if do.shape != q.shape:
+        raise ValueError(f"dense_attention_grad: do {tuple(do.shape)}, q {tuple(q.shape)}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"dense_attention_grad: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if window < 0 or not softcap >= 0:
+        raise ValueError(f"dense_attention_grad: window {window}, softcap {softcap}")
+
+
+def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                         *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                         scale: Optional[float] = None, use_pwl: bool = True,
+                         segments: int = 16):
+    """The backward of `dense_attention(q, k, v, ...)` over all Skv keys
+    (kv_len = Skv, query i at position Skv - Sq + i) against do, the
+    output's cotangent: (dq, dk, dv) in q's, k's and v's dtypes.  Takes q
+    (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) with D in HEAD_DIMS, GQA,
+    causal on or off, window >= 0, softcap >= 0 (ValueError otherwise); on
+    the card q in f32 or bf16, k, v and do in bf16 (do in v's dtype, as the
+    forward returns it), any strided views.  Each launch counts as one of
+    `flash_attention_grad`'s."""
+    _check_grad(q, k, v, do, window, softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, use_pwl=use_pwl,
+              segments=segments)
+    if q.device.type == "cpu":
+        return dense_attention_grad_plain(q, k, v, do, **kw)
+    _check_card("dense_attention_grad", q, k, v)
+    if do.device != q.device:
+        raise ValueError(f"dense_attention_grad: do on {do.device}, q on {q.device}")
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != torch.bfloat16 for t in (k, v, do)):
+        raise ValueError(f"dense_attention_grad: q {q.dtype}, k {k.dtype}, v {v.dtype}, "
+                         f"do {do.dtype}; the kernel takes f32 or bf16 q and bf16 k, v, do")
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    q, k, v, do = _vector_rows(q), _vector_rows(k), _vector_rows(v), _vector_rows(do)
+    dev = q.device
+    dq = torch.empty(b, hq, sq, d, dtype=q.dtype, device=dev)
+    dk = torch.empty(b, hq, skv, d, dtype=torch.float32, device=dev)
+    dv = torch.empty(b, hq, skv, d, dtype=torch.float32, device=dev)
+    stats = torch.empty(b, hq, sq, 4, dtype=torch.float32, device=dev)
+    tables = []
+    for name in ("exp", "recip", "tanh"):
+        packed = device_table(name, segments, dev)       # (3, S+1): S with the guard segments
+        tables += [packed.data_ptr(), slope_table(name, segments, dev).data_ptr(),
+                   packed.shape[1] - 1, *table_ends(name, segments)]
+    scale = float(scale if scale is not None else d ** -0.5)
+    err = library().npe_attention_dense_grad(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        *q.stride(), *k.stride(), *v.stride(), *do.stride(),
+        b, hq, hkv, sq, skv, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
+        scale, float(softcap), int(use_pwl), *tables, stream_handle(q))
+    check(err, "dense_attention_grad")
+    LAUNCHES["flash_attention_grad"] += 1
+    group = hq // hkv
+    dk = dk.view(b, hkv, group, skv, d).sum(2).to(torch.bfloat16)
+    dv = dv.view(b, hkv, group, skv, d).sum(2).to(torch.bfloat16)
+    return dq, dk, dv

@@ -175,19 +175,17 @@ def visible_mask(rows: int, n: int, causal_rows: int = 0,
     return torch.ones(rows, n, dtype=torch.bool, device=device)
 
 
-def nvu_softmax_grad_plain(x: torch.Tensor, dy: torch.Tensor, segments: int = 16,
-                           causal_rows: int = 0, scale: float = 1.0,
-                           limit: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """d/dx (float32) of nvu_softmax(x, ...) against dy, chain rule for chain
-    rule through the reference's jnp code: the PWL reciprocal's slope at the
-    mantissa of max(s, 1e-30) times 2^-e twice (ldexp, frexp), 1/2 where s
-    ties 1e-30; each exp's segment slope, 1/2 where the PWL ties 0
-    (jnp.maximum) or an end of its clip; the row max's term, split evenly
-    among tied maxima.  A masked column, and every column of a row with
-    none visible, gets 0."""
-    rows, n = x.shape
-    vis = visible_mask(rows, n, causal_rows, limit, x.device)
-    xs = torch.where(vis, x.to(torch.float32) * scale, -torch.inf)
+def softmax_where_grad_plain(s: torch.Tensor, dy: torch.Tensor, vis: torch.Tensor,
+                             segments: int = 16) -> torch.Tensor:
+    """d/ds (float32) of `core/nvu.nvu_softmax(s, where=vis)` over the last
+    axis of float32 scores s against dy, chain rule for chain rule through
+    the reference's jnp code: the PWL reciprocal's slope at the mantissa of
+    max(sum, 1e-30) times 2^-e twice (ldexp, frexp), 1/2 where the sum ties
+    1e-30; each exp's segment slope, 1/2 where the PWL ties 0 (jnp.maximum)
+    or an end of its clip; the row max's term, split evenly among tied
+    maxima.  A masked column, and every column of a row with none visible,
+    gets 0."""
+    xs = torch.where(vis, s, -torch.inf)
     m = xs.amax(dim=-1, keepdim=True)
     none = m == -torch.inf
     z = xs - torch.where(none, 0.0, m)
@@ -196,8 +194,8 @@ def nvu_softmax_grad_plain(x: torch.Tensor, dy: torch.Tensor, segments: int = 16
     zc = torch.clamp(z, lo, hi)
     er = nvu.pwl_eval(zc, et)
     e = torch.where(vis, torch.clamp(er, min=0.0), 0.0)
-    s = e.sum(dim=-1, keepdim=True)
-    sc = torch.clamp(s, min=1e-30)
+    total = e.sum(dim=-1, keepdim=True)
+    sc = torch.clamp(total, min=1e-30)
     inv = nvu.nvu_reciprocal(sc, segments)
     dyf = dy.to(torch.float32)
     g_inv = (dyf * e).sum(dim=-1, keepdim=True)
@@ -205,13 +203,23 @@ def nvu_softmax_grad_plain(x: torch.Tensor, dy: torch.Tensor, segments: int = 16
     rlo, rhi = table_ends("recip", segments)
     g_s = (torch.ldexp(g_inv, -ex) * pwl_slope_plain(torch.clamp(mant, rlo, rhi), rt)
            * clip_factor(mant, rlo, rhi))
-    g_s = torch.ldexp(g_s, -ex) * max_factor(s, 1e-30)
+    g_s = torch.ldexp(g_s, -ex) * max_factor(total, 1e-30)
     g_z = (dyf * inv + g_s) * max_factor(er, 0.0) * pwl_slope_plain(zc, et) * clip_factor(z, lo, hi)
     g_z = torch.where(vis, g_z, 0.0)
     ties = vis & (z == 0)
     share = -g_z.sum(dim=-1, keepdim=True) / ties.sum(dim=-1, keepdim=True)
-    g = torch.where(ties, g_z + share, g_z) * scale
+    g = torch.where(ties, g_z + share, g_z)
     return torch.where(vis & ~none, g, 0.0)
+
+
+def nvu_softmax_grad_plain(x: torch.Tensor, dy: torch.Tensor, segments: int = 16,
+                           causal_rows: int = 0, scale: float = 1.0,
+                           limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """d/dx (float32) of nvu_softmax(x, ...) against dy: the masked softmax's
+    gradient (`softmax_where_grad_plain`) at x * scale, times scale."""
+    rows, n = x.shape
+    vis = visible_mask(rows, n, causal_rows, limit, x.device)
+    return softmax_where_grad_plain(x.to(torch.float32) * scale, dy, vis, segments) * scale
 
 
 def nvu_softmax_grad(x: torch.Tensor, dy: torch.Tensor, segments: int = 16,

@@ -5,14 +5,15 @@ kernels take and back, and quantize the MMU's operands (activations per
 tensor or per row, weights per column) outside the kernel, as the reference
 does.
 Flash attention takes (B, H, S, D) operands and the reference's blocking;
-`dense_attention`, its dense mode, is re-exported here for the models.
+`dense_attention`, its dense mode, is the models' attention.
 Each kernel wrapper launches its kernel for a tensor on the card and runs
 its plain version for a tensor on the CPU.
 
 The training path differentiates through these wrappers: `quant_dense`,
-`softmax`, `layernorm`/`rmsnorm` and `pwl_activation`/`pwl_exp`/`pwl_rsqrt`
-run as `torch.autograd.Function`s whose forward is the kernel wrapper and
-whose backward is the kernel's backward (`*_grad`: a hand-written kernel on
+`softmax`, `layernorm`/`rmsnorm`, `pwl_activation`/`pwl_exp`/`pwl_rsqrt` and
+`dense_attention` (where an operand takes a gradient) run as
+`torch.autograd.Function`s whose forward is the kernel wrapper and whose
+backward is the kernel's backward (`*_grad`: a hand-written kernel on
 the card, explicit torch formulas on the CPU), which computes what jax.grad
 of the reference's jnp code computes, its tie rules included (1/2 at a
 tie of jnp.clip or jnp.maximum, an even split among tied maxima).  Under
@@ -27,12 +28,44 @@ import torch
 
 from repro_torch.core import nvu
 from repro_torch.core.quant import quantize, quantize_columns, quantize_scale_grad
-from repro_torch.kernels.flash_attention import dense_attention, dense_attention_plain
+from repro_torch.kernels.flash_attention import dense_attention as dense_attention_kernel
+from repro_torch.kernels.flash_attention import dense_attention_grad, dense_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as flash_attention_kernel
 from repro_torch.kernels.nvu_layernorm import nvu_layernorm, nvu_layernorm_grad
 from repro_torch.kernels.nvu_softmax import nvu_softmax, nvu_softmax_grad
 from repro_torch.kernels.pwl_eval import max_factor, pwl_eval, pwl_eval_grad
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_scale_grad
+
+
+class DenseAttentionFn(torch.autograd.Function):
+    """flash attention's dense mode over the sequence itself (kv_len = Skv);
+    backward `dense_attention_grad`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return dense_attention_kernel(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        kw = dict(ctx.kw)
+        kv_len = kw.pop("kv_len", None)
+        kw.pop("out_dtype", None)
+        if kv_len not in (None, k.shape[2]):
+            raise ValueError(f"dense_attention: no backward over {kv_len} of {k.shape[2]} keys "
+                             "(a cache); it takes the sequence's own keys")
+        return (*dense_attention_grad(q, k, v, do, **kw), None)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+    """flash attention's dense mode (`kernels/flash_attention.dense_attention`);
+    with gradients on and an operand that takes one, through
+    `DenseAttentionFn`, which launches the same kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return DenseAttentionFn.apply(q, k, v, kw)
+    return dense_attention_kernel(q, k, v, **kw)
 
 
 @contextlib.contextmanager

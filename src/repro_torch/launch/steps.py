@@ -57,13 +57,19 @@ def build_train_step(run: RunConfig, keep_grads: bool = False):
     run.microbatch > 0), int8 error-feedback compression of the gradients
     (a fresh zero error each step and one scale a leaf of the reference's
     tree, as the reference's step has it: `compress_like_reference`), and one
-    AdamW update written into the model's parameters.  batch: {"tokens",
-    "labels"} (B, S) integer tensors on the model's device.  With
-    `keep_grads`, metrics["grads"] holds the gradients the update used."""
+    AdamW update written into the model's parameters in place (the
+    reference donates its parameters and state to the step).  batch:
+    {"tokens", "labels"} (B, S) integer tensors on the model's device, and
+    for the vlm "embeds" (B, num_patches, D), whose positions' logits the
+    loss drops.  With `keep_grads`, metrics["grads"] holds the gradients the
+    update used."""
     cfg = run.model
 
     def loss_fn(model, batch):
-        logits = registry.train_apply(cfg, model, batch["tokens"], remat=run.remat != "none")
+        logits = registry.train_apply(cfg, model, batch["tokens"], remat=run.remat != "none",
+                                      extra_embeds=batch.get("embeds"))
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.num_patches:]
         return cm.cross_entropy(logits, batch["labels"])
 
     def value_and_grad(model, batch):
@@ -94,11 +100,7 @@ def build_train_step(run: RunConfig, keep_grads: bool = False):
         loss, grads = grads_of(model, batch)
         if run.optimizer.grad_compression == "int8_ef":
             grads = compress_like_reference(grads)
-        params = trainable(model)
-        new_params, new_opt, metrics = adamw.update(run.optimizer, grads, opt_state, params)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new_params[k])
+        _, new_opt, metrics = adamw.update(run.optimizer, grads, opt_state, trainable(model))
         metrics["loss"] = loss
         if keep_grads:
             metrics["grads"] = grads

@@ -2,14 +2,22 @@
 
 Wires together: config -> data pipeline -> train step -> checkpoint and
 restore -> fault supervisor.  The model's float32 masters, its AdamW
-moments and the batches live on the run's device; BERT trains (every other
-family raises NotImplementedError, `registry.train_apply`), on one card:
-the mesh is (1, 1).
+moments and the batches live on the run's device, on one card: the mesh
+is (1, 1).  BERT and the dense, vlm and moe decoders train
+(`registry.require_trainable`); RWKV6 (ssm) and Hymba (hybrid) raise
+NotImplementedError until their recurrences have a backward pass, and
+Whisper (encdec) until its trainer path (audio frames beside the tokens)
+is ported.  A vlm batch holds seq - num_patches tokens and, as the
+reference's `batch_specs` lays it out, num_patches stub patch embeddings
+(seeded normal values: the modality frontend is a stub).
 
 Usage (on the card):
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert_base \\
         [--npe [--bits 8|16]] --steps 20 --batch 8 --seq 128
-`--smoke` takes the reduced config, `--device cpu` runs on the CPU.
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2_3b \\
+        --steps 10 --batch 4 --seq 1024 --no-checkpoints
+`--smoke` takes the reduced config, `--device cpu` runs on the CPU;
+`--no-checkpoints` writes none (a 3B model's state is 51 GB).
 """
 from __future__ import annotations
 
@@ -73,13 +81,18 @@ class Trainer:
         self.log = log
         self.device = torch.device(device)
         cfg = run.model
-        self.data = SyntheticLM(cfg.vocab_size, run.shape.seq_len,
+        self.patches = cfg.num_patches if cfg.family == "vlm" else 0
+        if self.patches >= run.shape.seq_len:
+            raise ValueError(f"{cfg.name}: seq {run.shape.seq_len} leaves no tokens beside "
+                             f"{self.patches} patches")
+        self.data = SyntheticLM(cfg.vocab_size, run.shape.seq_len - self.patches,
                                 run.shape.global_batch, seed=run.seed)
         self.ckpt = Checkpointer(run.checkpoint.directory, keep=run.checkpoint.keep,
                                  async_save=run.checkpoint.async_save)
         self.supervisor = Supervisor(run.fault)
         self.history: list[Dict[str, float]] = []
         self.step_fn = build_train_step(run)
+        self.checkpoints = True
         self._init_state()
 
     def _init_state(self):
@@ -111,8 +124,17 @@ class Trainer:
     # --- the loop ------------------------------------------------------
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in self.data.batch_at(step).items()}
+        """Step `step`'s batch on the device (the same for the same step, so
+        a rewound step sees its batch again); a vlm's with its patches."""
+        out = {k: torch.as_tensor(v, device=self.device)
+               for k, v in self.data.batch_at(step).items()}
+        if self.patches:
+            cfg = self.run.model
+            gen = torch.Generator().manual_seed(self.run.seed * 1_000_003 + step)
+            shape = (self.run.shape.global_batch, self.patches, cfg.d_model)
+            out["embeds"] = torch.randn(shape, generator=gen).to(self.device,
+                                                                  getattr(torch, cfg.dtype))
+        return out
 
     def _loop(self, start_step: int) -> Dict[str, Any]:
         run = self.run
@@ -132,16 +154,24 @@ class Trainer:
                          f"lr {float(metrics['lr']):.2e} "
                          f"gnorm {float(metrics['grad_norm']):.2f} "
                          f"({elapsed:.2f}s)")
-            if run.checkpoint.interval > 0 and (step + 1) % run.checkpoint.interval == 0:
+            if (self.checkpoints and run.checkpoint.interval > 0
+                    and (step + 1) % run.checkpoint.interval == 0):
                 self._save(step)
-        self._save(run.steps - 1)
-        self.ckpt.wait()
+        if self.checkpoints:
+            self._save(run.steps - 1)
+            self.ckpt.wait()
         return {"final_loss": self.history[-1]["loss"],
                 "history": self.history,
                 "fault_events": self.supervisor.events,
                 "restarts": self.supervisor.restarts}
 
-    def train(self) -> Dict[str, Any]:
+    def train(self, checkpoints: bool = True) -> Dict[str, Any]:
+        """Run the steps.  With checkpoints=False nothing is saved (a state
+        too large to write each run: StarCoder2-3B's masters and moments are
+        51 GB) and a failure is not recovered: it raises."""
+        self.checkpoints = checkpoints
+        if not checkpoints:
+            return self._loop(0)
         # save a step-0 checkpoint so the first rewind has a target
         self._save(0)
         return run_with_recovery(self._loop, self._restore, self.supervisor)
@@ -158,10 +188,12 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-checkpoints", action="store_true",
+                    help="write no checkpoint (a failure is then not recovered)")
     args = ap.parse_args(argv)
     run = make_run(args.arch, args.smoke, args.steps, args.batch, args.seq,
                    npe=args.npe, bits=args.bits, ckpt_dir=args.ckpt_dir)
-    out = Trainer(run, device=args.device).train()
+    out = Trainer(run, device=args.device).train(checkpoints=not args.no_checkpoints)
     print(f"done: final loss {out['final_loss']:.4f}, restarts {out['restarts']}")
 
 

@@ -25,7 +25,8 @@ from repro_torch.kernels import ops
 
 
 def param(*shape, **kw) -> nn.Parameter:
-    """A zeroed weight that takes no gradient (the port serves, it does not train)."""
+    """A zeroed weight that takes no gradient (serving needs none; the
+    trainer turns gradients on for its float32 masters)."""
     return nn.Parameter(torch.zeros(*shape, **kw), requires_grad=False)
 
 

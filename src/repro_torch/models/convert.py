@@ -91,15 +91,39 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.T
     return state
 
 
+def _decoder_leaves(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], Optional[int]]]:
+    """`reference_leaves` of a decoder, from its parameter names: a top-level
+    name is its own path; `layers.<i>.<path>` is `blocks.<path>` at row i,
+    and `layers.<i>.mlp.<path>` or `layers.<i>.moe.<path>` the row of layer
+    i among the dense or the MoE layers (`transformer.layer_is_moe`: llama4
+    interleaves them)."""
+    rows, counts = [], {"mlp": 0, "moe": 0}
+    for is_moe in layer_is_moe(cfg):
+        stack = "moe" if is_moe else "mlp"
+        rows.append(counts[stack])
+        counts[stack] += 1
+    out: Dict[str, Tuple[Tuple[str, ...], Optional[int]]] = {}
+    for name, _ in registry.build_model(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            out[name] = (tuple(parts), None)
+            continue
+        i, path = int(parts[1]), tuple(parts[2:])
+        out[name] = (("blocks",) + path, rows[i] if path[0] in ("mlp", "moe") else i)
+    return out
+
+
 def reference_leaves(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[str, ...], Optional[int]]]:
-    """For BERT: each port parameter's name -> (its leaf's path in the
-    reference's `init_params` tree, its row of that stacked leaf, or None
-    for a leaf that is not stacked), the mapping `params_from_jax` applies,
-    so that a reference gradient tree can be compared with the port's
-    gradients leaf by leaf.  The reference's unused pooler has no port
-    parameter."""
+    """For BERT and the dense, vlm and moe decoders: each port parameter's
+    name -> (its leaf's path in the reference's `init_params` tree, its row
+    of that stacked leaf, or None for a leaf that is not stacked), the
+    mapping `params_from_jax` applies, so that a reference gradient tree can
+    be compared with the port's gradients leaf by leaf.  The reference's
+    unused pooler has no port parameter."""
+    if cfg.family in ("dense", "vlm", "moe"):
+        return _decoder_leaves(cfg)
     if cfg.family != "bert":
-        raise NotImplementedError(f"reference_leaves: {cfg.family}; only bert trains")
+        raise NotImplementedError(f"reference_leaves: {cfg.family}, which does not train")
     out: Dict[str, Tuple[Tuple[str, ...], Optional[int]]] = {
         "embed": (("embed",), None), "pos_embed": (("pos_embed",), None),
         "type_embed": (("type_embed",), None)}

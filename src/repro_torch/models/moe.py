@@ -187,7 +187,7 @@ class ForcedRouting:
             diff = mine != ids
             self.differ += int(diff.sum())
             if diff.any():
-                gap = (probs.gather(-1, mine) - probs.gather(-1, ids)).abs()[diff]
+                gap = (probs.gather(-1, mine) - probs.gather(-1, ids)).detach().abs()[diff]
                 self.gap = max(self.gap, float(gap.max()))
             r = Routing(gates.reshape(b, -1), flat, slot, kept, own.capacity)
             self.calls.append((x.detach().clone(), r))
@@ -200,9 +200,14 @@ class ForcedRouting:
         globals()["route"] = self.route
 
 
-@torch.no_grad()
 def apply(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D)."""
+    """x (B, S, D) -> (B, S, D); differentiable (the serving callers run it
+    under `torch.no_grad()`).  The gradient reaches the router through the
+    gates of the kept choices alone: `top_k`'s sort, `renormalize_gates`
+    and the router function (the NVU softmax's backward kernel, or the
+    sigmoid's table slope), as jax.grad of the reference's one-hot
+    dispatch and combine gives it; a choice dropped by capacity passes
+    none, to its gate or to its token."""
     m = cfg.moe
     b, s, D = x.shape
     E, k = m.num_experts, m.top_k

@@ -45,38 +45,43 @@ def build_model(cfg: ModelConfig, device="cuda",
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=torch.float32):
     """A model of `cfg` with float32 master weights (the reference's
-    `RunConfig.param_dtype`) drawn from `generator`, for training."""
+    `RunConfig.param_dtype`) drawn from `generator`, for training: BERT or
+    a decoder, whose `forward_train` casts them to cfg.dtype each call."""
     return build_model(cfg, device=device, generator=generator, dtype=dtype)
 
 
-# What each family lacks before it can train: the port's backward passes
-# cover the kernels on BERT's path (quant_matmul, nvu_softmax, nvu_layernorm,
-# pwl_eval) and the torch ops around them.
+# What each family lacks before it can train.  BERT, the dense and vlm
+# decoders and the MoE decoders train: the port's backward passes cover the
+# kernels on their paths (quant_matmul, nvu_softmax, nvu_layernorm,
+# pwl_eval and flash attention's dense mode) and the torch ops around them,
+# MoE routing's gates included.
 TRAIN_MISSING = {
-    "dense": "the backward of flash attention's dense mode (its causal self-attention)",
-    "vlm": "the backward of flash attention's dense mode (its causal self-attention)",
-    "moe": "the backward of flash attention's dense mode and MoE routing's router and "
-           "capacity gradients",
-    "ssm": "the backward of the RWKV6 recurrence",
-    "hybrid": "the backward of the Mamba recurrence and of flash attention's dense mode",
-    "encdec": "the backward of flash attention's dense mode (the decoder's causal and "
-              "cross attention)",
+    "ssm": "the backward of the RWKV6 recurrence (its time-mix loop over the sequence)",
+    "hybrid": "the backward of the Mamba recurrence (the selective scan of its SSM head)",
+    "encdec": "the encoder-decoder's training forward and batch (audio frames beside the "
+              "tokens), and its trainer path",
 }
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Only BERT trains; every other family raises NotImplementedError
-    naming what it lacks."""
-    if cfg.family != "bert":
+    """BERT and the dense, vlm and moe decoders train; every other family
+    raises NotImplementedError naming what it lacks."""
+    if cfg.family in TRAIN_MISSING or cfg.family not in _FAMILIES:
         missing = TRAIN_MISSING.get(cfg.family, "a training forward")
         raise NotImplementedError(f"training {cfg.name} ({cfg.family}) needs {missing}, "
                                   "which the port does not have yet")
 
 
-def train_apply(cfg: ModelConfig, model, tokens, remat: bool = True):
-    """Logits with gradients for training (`require_trainable`)."""
+def train_apply(cfg: ModelConfig, model, tokens, remat: bool = True, extra_embeds=None):
+    """Logits with gradients for training (`require_trainable`): BERT's MLM
+    logits, or a decoder's (with extra_embeds, the vlm's patches ahead of
+    the tokens, their logits included)."""
     require_trainable(cfg)
-    return bert_mod.forward_train(cfg, model, tokens, remat=remat)
+    if cfg.family == "bert":
+        if extra_embeds is not None:
+            raise ValueError("train_apply: BERT takes no extra embeddings")
+        return bert_mod.forward_train(cfg, model, tokens, remat=remat)
+    return tf.forward_train(cfg, model, tokens, remat=remat, extra_embeds=extra_embeds)
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -25,16 +25,25 @@ window 0, max_seq rows, appended at pos) and `win` (windowed layers, a ring
 of min(window, max_seq) rows written at pos % its length).  A ring takes one
 token a call; `launch/serve.py` prefills such a model one token at a time.
 
+`forward_train` is `apply` with gradients for the trainer: the model holds
+float32 masters, cast to cfg.dtype on each call as the reference's
+`registry.apply` casts its tree (`cast_params`, a layer at a time inside
+each layer's activation checkpoint), and the attention is the dense mode
+through its autograd Function (`kernels/ops.DenseAttentionFn`, backward
+kernel `dense_attention_grad`).
+
 Not ported: a bidirectional decoder (cfg.causal False), which raises
 NotImplementedError.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
@@ -243,6 +252,52 @@ def apply(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
         x = block(cfg, layer, x, positions, int(window))
     x = cm.apply_norm(cfg, model.ln_f, x)
     return cm.logits_out(cfg, x, model.head())
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> SimpleNamespace:
+    """`module`'s weights cast to `dtype` (differentiably: a gradient goes back
+    to each master in its own dtype; a weight already in `dtype` is itself),
+    as an attribute tree with the module's names, which `block` reads as it
+    reads the module: the reference's `cast_tree` of its masters."""
+    ns = SimpleNamespace(**{n: p.to(dtype) for n, p in module.named_parameters(recurse=False)})
+    for n, child in module.named_children():
+        setattr(ns, n, cast_params(child, dtype))
+    return ns
+
+
+def _train_block(cfg: ModelConfig, layer: Block, x: torch.Tensor, positions: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    return block(cfg, cast_params(layer, getattr(torch, cfg.dtype)), x, positions, window)
+
+
+def forward_train(cfg: ModelConfig, model: Transformer, tokens: torch.Tensor,
+                  remat: bool = True,
+                  extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`apply` with gradients: tokens (B, S) -> logits (B, S', V), S' = P + S
+    with extra_embeds (B, P, D) put ahead of the token embeddings (the vlm).
+    The float32 masters are cast to cfg.dtype as the reference casts them
+    (the embedding table once, for the lookup and a tied head; each layer's
+    weights inside its own call); with `remat`, each layer runs under
+    `torch.utils.checkpoint` (its forward runs again in the backward pass,
+    kernels included)."""
+    check_supported(cfg)
+    dt = getattr(torch, cfg.dtype)
+    table = model.embed.to(dt)
+    x = cm.embed(tokens, table)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dt), x], dim=1)
+    b, s, _ = x.shape
+    positions = _positions(cfg, b, s, 0, x.device)
+    if cfg.rope == "learned":
+        x = x + model.pos_embed[:s][None].to(dt)
+    for layer, window in zip(model.layers, layer_windows(cfg)):
+        if remat:
+            x = checkpoint(_train_block, cfg, layer, x, positions, int(window),
+                           use_reentrant=False)
+        else:
+            x = _train_block(cfg, layer, x, positions, int(window))
+    x = cm.apply_norm(cfg, cast_params(model.ln_f, dt), x)
+    return cm.logits_out(cfg, x, table.T if cfg.tie_embeddings else model.lm_head.to(dt))
 
 
 def _cache_groups(cfg: ModelConfig, max_seq: int) -> Dict[str, Tuple[int, int]]:

@@ -55,7 +55,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "core.fixedpoint", "models.transformer", "configs.glm4_9b",
                 "configs.command_r_plus_104b", "configs.qwen2_vl_7b", "models.moe",
                 "configs.starcoder2_3b", "configs.gemma3_27b",
-                "configs.granite_moe_1b_a400m", "configs.llama4_maverick_400b_a17b"):
+                "configs.granite_moe_1b_a400m", "configs.llama4_maverick_400b_a17b",
+                "kernels.ops", "kernels.nvu_softmax", "optim.adamw", "launch.train",
+                "models.convert", "models.common"):
         assert "repro_torch." + new in names
     npec = {n for n in names if n.startswith("repro_torch.npec")}
     for mod in ("npec", "npec.ir", "npec.lower", "npec.schedule", "npec.trace", "npec.exec",

@@ -12,12 +12,32 @@ result may round to the neighbouring bf16 value (2^-7 of itself).  The
 MMU's backward relaunches the forward kernel for its int32 product: its
 scale gradients equal those from `int_matmul` within 1e-6 of their
 largest value (the same products, summed by torch on each side).
+
+The dense mode's backward (`dense_attention_grad`, two kernels) against
+`dense_attention_grad_plain` at every case of
+`test_torch_dense_attention_grad.py` and at the model shapes of
+`chip_smoke.py`'s rows (StarCoder2, Granite, GLM4, Gemma3 with a window and
+a soft cap, Whisper's cross attention), by
+`flash_attention.dense_attention_grad_gates`: within GRAD_RTOL = 1e-4 of
+the largest value of each result or, where that is larger, twice the
+plain version's own change when the score scale moves ceil(sqrt(D))
+float32 ulps up or down, and for a bf16 result one bf16 ulp of each entry.
+The kernel sums each score's D products in another order than torch's
+product does, so the two scores differ by the rounding of D additions, up
+to about sqrt(D) ulps: a bf16 probability or cotangent may round to its
+neighbour, and where a row's top two scores lie that close, or a score
+sits next to one of the exp table's knots, the PWL derivative jumps (by a
+few percent of a row's gradient, through the row max's term), which the
+scale nudge shows the plain version doing too.  (With a nudge of one ulp,
+then of ceil(sqrt(D) / 2), Granite's dq came to 1.33 and then 1.01 times
+the gate in PWL mode on the H100; every other shape stayed within 0.42.)
 """
 import pytest
 import torch
 
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import LAUNCHES, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import nvu_layernorm as ln
 from repro_torch.kernels import nvu_softmax as sm
 from repro_torch.kernels import pwl_eval as pe
@@ -28,6 +48,7 @@ pytestmark = pytest.mark.cuda
 
 GRAD_RTOL = 2e-5
 BF16_RTOL = 2.0 ** -7
+ATTN_GRAD_RTOL = fa.GRAD_RTOL
 
 
 @pytest.fixture
@@ -166,3 +187,110 @@ def test_ops_backward_on_the_card_matches_the_cpu(dev):
     for a, b in zip(run(dev), run("cpu")):
         err = float((a - b).abs().max())
         assert err <= 1e-4 * float(b.abs().max()) + 1e-7, err
+
+
+def _attn_close(got, want):
+    g, w = got.float(), want.float()
+    gate = ATTN_GRAD_RTOL * float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        gate = gate + BF16_RTOL * torch.maximum(w.abs(), g.abs())
+    err = (g - w).abs()
+    assert bool((err <= gate).all()), float((err - gate).max())
+
+
+def _attn_operands(dev, b, hq, hkv, sq, skv, d, qdt=torch.bfloat16, qscale=1.0, seed=11,
+                   zero_rows=False):
+    g = _gen(dev, seed)
+    q = (torch.randn(b, sq, hq, d, generator=g, device=dev) * qscale)
+    if zero_rows:
+        q[:, ::3] = 0
+    k = torch.randn(b, skv, hkv, d, generator=g, device=dev)
+    v = torch.randn(b, skv, hkv, d, generator=g, device=dev)
+    do = torch.randn(b, sq, hq, d, generator=g, device=dev)
+    # the models' layout: (B, H, S, D) views of (B, S, H, D) projections
+    return (q.to(qdt).permute(0, 2, 1, 3), k.bfloat16().permute(0, 2, 1, 3),
+            v.bfloat16().permute(0, 2, 1, 3), do.bfloat16().permute(0, 2, 1, 3))
+
+
+# the CPU file's cases (its f32 k/v case has no card route: the kernel takes bf16 k, v)
+ATTN_CASES = {
+    "pwl": dict(), "exact": dict(pwl=False), "f32-q": dict(qdt=torch.float32),
+    "f32-q-exact": dict(qdt=torch.float32, pwl=False), "gqa-1-1": dict(hq=4, hkv=4),
+    "gqa-8-1": dict(hq=8, hkv=1), "window-below-seq": dict(sq=48, skv=48, window=16),
+    "window-exact": dict(sq=48, skv=48, window=16, pwl=False),
+    "cross": dict(sq=8, skv=40, causal=False), "cross-exact": dict(sq=8, skv=40, causal=False,
+                                                                   pwl=False),
+    "softcap-50": dict(cap=50.0, qscale=8.0), "softcap-50-exact": dict(cap=50.0, qscale=8.0,
+                                                                       pwl=False),
+    "tied-maxima": dict(zero_rows=True), "past-exp-clamp": dict(qscale=30.0),
+    "odd-lengths": dict(sq=37, skv=53, window=20),
+}
+# chip_smoke.py's rows: (B, Hq, Hkv, Sq, Skv, D), causal, window, cap
+ATTN_MODEL_SHAPES = {
+    "starcoder2": ((4, 24, 2, 1024, 1024, 128), True, 4096, 0.0),
+    "granite": ((4, 16, 8, 1024, 1024, 64), True, 0, 0.0),
+    "glm4": ((1, 32, 2, 1024, 1024, 128), True, 0, 0.0),
+    "gemma3-window": ((1, 32, 16, 2048, 2048, 128), True, 1024, 0.0),
+    "gemma3-window-cap50": ((1, 32, 16, 2048, 2048, 128), True, 1024, 50.0),
+    "whisper-cross": ((8, 8, 8, 448, 1500, 64), False, 0, 0.0),
+}
+
+
+def _attn_check(dev, ops_in, kw):
+    q, k, v, do = ops_in
+    got = _counted("flash_attention_grad", lambda: fa.dense_attention_grad(q, k, v, do, **kw))
+    want = fa.dense_attention_grad_plain(q, k, v, do, **kw)
+    gates = fa.dense_attention_grad_gates(q, k, v, do, want, **kw)
+    for a, b, t, gate in zip(got, want, (q, k, v), gates):
+        assert a.dtype == t.dtype and a.shape == t.shape and bool(torch.isfinite(a).all())
+        g, w = a.float(), b.float()
+        ulp = BF16_RTOL * torch.maximum(w.abs(), g.abs()) if a.dtype == torch.bfloat16 else 0
+        assert bool(((g - w).abs() <= gate + ulp).all()), float(((g - w).abs() - ulp).max())
+
+
+@pytest.mark.parametrize("name", list(ATTN_CASES))
+def test_dense_attention_grad_cases(dev, name):
+    c = dict(dict(b=2, hq=4, hkv=2, sq=24, skv=24, d=32, causal=True, window=0, cap=0.0,
+                  pwl=True, qdt=torch.bfloat16, qscale=1.0, zero_rows=False), **ATTN_CASES[name])
+    for d in (32, 64, 128):
+        ops_in = _attn_operands(dev, c["b"], c["hq"], c["hkv"], c["sq"], c["skv"], d, c["qdt"],
+                                c["qscale"], zero_rows=c["zero_rows"])
+        _attn_check(dev, ops_in, dict(causal=c["causal"], window=c["window"],
+                                      softcap=c["cap"], use_pwl=c["pwl"]))
+
+
+@pytest.mark.parametrize("name", list(ATTN_MODEL_SHAPES))
+@pytest.mark.parametrize("pwl", [True, False])
+def test_dense_attention_grad_model_shapes(dev, name, pwl):
+    shape, causal, window, cap = ATTN_MODEL_SHAPES[name]
+    ops_in = _attn_operands(dev, *shape)
+    _attn_check(dev, ops_in, dict(causal=causal, window=window, softcap=cap, use_pwl=pwl))
+
+
+def test_dense_attention_fn_on_the_card_matches_the_cpu(dev):
+    """`ops.dense_attention` with gradients on the card (the forward kernel,
+    then `DenseAttentionFn`'s backward kernel) against the same on the CPU."""
+    ops_in = _attn_operands(dev, 2, 8, 2, 64, 64, 64, qscale=2.0)
+
+    def run(device):
+        q, k, v, do = (t.detach().to(device) for t in ops_in)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ops.dense_attention(*leaves, window=32, out_dtype=v.dtype)
+        out.backward(do)
+        return [t.grad.cpu() for t in leaves]
+
+    before = LAUNCHES["flash_attention_grad"]
+    got = run(dev)
+    assert LAUNCHES["flash_attention_grad"] == before + 1
+    for a, b in zip(got, run("cpu")):
+        _attn_close(a, b)
+
+
+def test_dense_attention_grad_refuses_on_the_card(dev):
+    q, k, v, do = _attn_operands(dev, 1, 4, 2, 16, 16, 32)
+    with pytest.raises(ValueError, match="bf16 k, v, do"):
+        fa.dense_attention_grad(q, k.float(), v.float(), do)
+    with pytest.raises(ValueError, match="bf16 k, v, do"):
+        fa.dense_attention_grad(q, k, v, do.float())
+    with pytest.raises(ValueError, match="head dim"):
+        fa.dense_attention_grad(q[..., :16], k[..., :16], v[..., :16], do[..., :16])
