@@ -6,7 +6,7 @@
 2. builds the five CUDA kernels (and the empty launch-floor kernel) from
    `src/repro_torch/csrc/`, one nvcc each, in parallel, and prints the
    seconds, ptxas's register and spill lines of every instance, and the
-   HMMA/IMMA (tensor-core) instructions in each kernel's SASS;
+   HMMA/HGMMA/IMMA (tensor-core) instructions in each kernel's SASS;
 3. times the launch floor (an empty 256-thread block), then holds each
    kernel against its plain PyTorch version on the card, at the shapes of
    BERT-base 8x128 encoding and of 8-slot decode, with its tolerance, its
@@ -48,14 +48,20 @@
    function), and the MMU's scale path (one more `quant_matmul` launch
    with unit scales for the int32 product, then torch reductions) at every
    product of a layer and the head, beside `torch._int_mm`; and the
-   backward of flash attention's dense mode (`dense_attention_grad`, bf16)
-   at the decoders' training shapes (StarCoder2 (4, 24 over 2, 1024, 128)
+   backward of flash attention's dense mode (`dense_attention_grad`, bf16,
+   from the row statistics of the forward kernel on the same operands) at
+   the decoders' training shapes (StarCoder2 (4, 24 over 2, 1024, 128)
    causal, PWL and exact; Granite (4, 16 over 8, 1024, 64); GLM4 (1, 32
    over 2, 1024, 128); Gemma3 (1, 32 over 16, 2048, 128) with window 1024,
    with and without a soft cap of 50; Whisper's cross (8, 8, 448 over 1500,
    64)), each held to its plain backward by `attn_grad_check` (the gate of
    `flash_attention.dense_attention_grad_gates`) beside PyTorch's SDPA
-   backward (exact softmax, `enable_gqa`, the same mask; none with a cap);
+   backward (exact softmax, `enable_gqa`, the same mask; none with a cap),
+   and the training forward at StarCoder2's and Granite's shapes with its
+   row statistics; each dense-mode row's bound the larger of its
+   tensor-core products and its pairs' CUDA-core chain
+   (`dense_chain_instr`), and its time before the redesign printed beside
+   (`PREVIOUS_MS`);
 4. serves the encoder: full-width BERT-base (L=12, D=768, V=30720, bf16)
    through `BertServer`, 8 requests x 128 tokens a batch, in float, NPE-8
    and NPE-16; counts the kernel launches of one NPE-8 forward (checked: 73
@@ -123,9 +129,9 @@
    gated); and holds the kernel route (float32, 2 layers, full width,
    prefill plus 2 steps, float and NPE-8) against the port's plain route
    on the CPU;
-9. serves full-width Gemma3-27B cut to 12 of its 62 layers (two whole
-   local:global periods: 10 local layers over 1024-row rings, 2 global;
-   bf16, about 6.4 B parameters) through `launch.serve.Server`:
+9. serves full-width Gemma3-27B cut to 6 of its 62 layers (one whole
+   local:global period: 5 local layers over 1024-row rings, 1 global;
+   bf16, about 3.9 B parameters) through `launch.serve.Server`:
    8 slots, prompts of 7 to 16 tokens prefilled one token a call, 8 greedy
    tokens, in float and NPE-8, NPE-16 for one step and one prefill; checks
    the launches of a step, a prefill and the served run exactly (NPE-8 85
@@ -145,7 +151,7 @@
    profiled; teacher-forced agreement with float (not gated); the route
    check at 2 layers in every mode;
 11. runs the npec compiler and executor for the dense and MoE families on
-   the card: (a) GLM4-9B at full width, 12 of its 40 layers (float32 weights from
+   the card: (a) GLM4-9B at full width, 4 of its 40 layers (float32 weights from
    [8]'s seed through `param_tree_from_model`): [5]'s 8 prompts through one
    compiled 16-row chunked prefill slice over 256-row banks, loaded into
    the 8-slot `compile_decode(256, batch=8)` stream, 8 steps, float and
@@ -165,7 +171,7 @@
    to its plain version;
 12-14. serve the last families at full width through `Server`
    (`family_phase`; bf16, random weights from a torch generator): [12]
-   RWKV6-3B at 16 of its 32 layers (`FAMILY_LAYERS`), [13]
+   RWKV6-3B at 8 of its 32 layers (`FAMILY_LAYERS`), [13]
    Hymba-1.5B at 16 of 32 (15 local over rings of min(1024, 32) rows and 1
    global, an SSM head in each), [14] Whisper-base (6 + 6 layers; first, in
    each mode, the encoder and cross K/V over 8 seeded frame batches of
@@ -244,6 +250,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import multiprocessing
 import queue
@@ -267,6 +274,7 @@ from repro_torch.checkpoint.ckpt import Checkpointer  # noqa: E402
 from repro_torch.config import (SMOKE_MESH, FaultConfig, OptimizerConfig,  # noqa: E402
                                 RunConfig, ShapeConfig)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import nvu as nvu_mod  # noqa: E402
 from repro_torch.core.quant import quantize  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, SyntheticRequests  # noqa: E402
 from repro_torch.kernels import KERNELS, build, launches, ops, reset_launches  # noqa: E402
@@ -296,6 +304,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+# instructions a second of the CUDA cores, one a lane a cycle (the 67 TFLOP/s
+# count an FMA as two operations): the rate of a chain of compares, selects,
+# loads and single adds or multiplies, such as the PWL table searches
+F32_INSTR_PER_S = 33.5e12
 L2_FLUSH_BYTES = 2 * 50 * 2 ** 20   # twice the H100's 50 MB L2
 
 
@@ -347,9 +359,10 @@ GLM4_PREFILL_ROWS = 120     # the longest of [5]'s prompts: M of the tiled insta
 # since 1040 one-token steps of all 62 take about 90 s of host launches
 GEMMA3_MAX_PROMPT, GEMMA3_GEN, GEMMA3_MAX_SEQ = 16, 8, 32
 GEMMA3_WRAP_POS, GEMMA3_WRAP_SEQ, GEMMA3_WRAP_LAYERS = 1040, 1048, 6
-# served depth: 12 of the 62 layers, two whole local:global periods (5
+# served depth: 6 of the 62 layers, one whole local:global period (5
 # local, 1 global), which keeps the whole script inside its time budget
-GEMMA3_LAYERS = 12
+# (12 layers took [9] 62.3-77.3 s on an H100 80GB HBM3 at 700 W)
+GEMMA3_LAYERS = 6
 # launches of one Gemma3-27B decode step (a prefill: one such step a prompt
 # token) at L layers: q/k/v/o/gate/up/down a layer and the tied head; two
 # RMSNorms and the q and k norms a layer and the final one; the GELU of each
@@ -420,17 +433,53 @@ def compare(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
     return float(err.max()), bool((err <= atol + rtol * w.abs()).all())
 
 
+STATS_RTOL = 1e-4   # the forward's row statistics against the plain version's
+
+
+def recip_jump() -> float:
+    """The NVU reciprocal's relative jump at a power of two (its table's
+    ends do not meet: 1/x just below 2^e and at 2^e differ by about 6.5e-4
+    of the value), which a row's PWL norm may take when the kernel's and
+    the plain version's sums, added in other orders, lie on either side
+    of a power of two."""
+    one = torch.tensor([1.0])
+    below = torch.nextafter(one, torch.tensor([0.0]))
+    at = nvu_mod.nvu_reciprocal(one)
+    return float((nvu_mod.nvu_reciprocal(below) - at).abs() / at)
+
+
 def dense_compare(q, k, v, kw, got):
     """(max-abs error, ok) of the dense mode against its plain version: within
     atol + rtol*|want| as for flash (TOLS), plus 2^-7 of sum_j p_j |v_j|,
     since with sums in another order a probability can round to the
-    neighbouring bf16 value before P.V (tests/test_torch_cuda_kernels.py)."""
-    want = fa_mod.dense_attention_plain(q, k, v, **kw)
-    spread = fa_mod.dense_attention_plain(q, k, v.abs(), **dict(kw, out_dtype=torch.float32))
+    neighbouring bf16 value before P.V (tests/test_torch_cuda_kernels.py).
+    A call that also returned its row statistics (m, norm) is held by its
+    output and by them: m within STATS_RTOL of max(|m|, 1) of the plain
+    version's `row_stats`, since the scores differ by the order of their D
+    products' sums; the norm within STATS_RTOL of its value, and in PWL mode
+    also the reciprocal's jump at a power of two (`recip_jump`), since the
+    row's sum may lie on the other side of one.  A call of more than 2^26
+    scores runs the plain version a batch element at a time (a train step's
+    audit holds it beside the step's state)."""
+    kw = {key: val for key, val in kw.items() if key != "with_stats"}
+    stats = got[1] if isinstance(got, tuple) else None
+    got = got[0] if isinstance(got, tuple) else got
     atol, rtol = TOLS[("flash_attention", got.dtype)]
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= atol + rtol * want.float().abs() + 2.0 ** -7 * spread).all())
-    return float(err.max()), ok
+    norm_rtol = STATS_RTOL + (recip_jump() if kw.get("use_pwl", True) else 0.0)
+    big = q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2] > 1 << 26
+    worst, ok = 0.0, True
+    for lo, hi in ([(i, i + 1) for i in range(q.shape[0])] if big else [(0, q.shape[0])]):
+        qi, ki, vi = q[lo:hi], k[lo:hi], v[lo:hi]
+        want, want_stats = fa_mod.dense_attention_plain(qi, ki, vi, with_stats=True, **kw)
+        spread = fa_mod.dense_attention_plain(qi, ki, vi.abs(), **dict(kw, out_dtype=torch.float32))
+        err = (got[lo:hi].float() - want.float()).abs()
+        worst = max(worst, float(err.max()))
+        ok = ok and bool((err <= atol + rtol * want.float().abs() + 2.0 ** -7 * spread).all())
+        if stats is not None:
+            gate = torch.stack([STATS_RTOL * want_stats[..., 0].abs().clamp(min=1.0),
+                                norm_rtol * want_stats[..., 1].abs()], -1)
+            ok = ok and bool(((stats[lo:hi] - want_stats).abs() <= gate).all())
+    return worst, ok
 
 
 def _kernel_times(prof, with_counts: bool = False):
@@ -453,8 +502,10 @@ def _kernel_times(prof, with_counts: bool = False):
 
 def measure(fn, reps: int = 20):
     """(device ms per call from torch.profiler, or None if it saw no device
-    time; ms per call between CUDA events).  A trace that holds fewer device
-    launches than calls has lost events: it is taken again, up to 3 times."""
+    time; ms per call between CUDA events).  A trace in which some kernel
+    ran fewer times than there were calls has lost events (a call that
+    launches two kernels can lose one of them): it is taken again, up to 3
+    times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -472,7 +523,7 @@ def measure(fn, reps: int = 20):
                 fn()
             torch.cuda.synchronize()
         times = _kernel_times(prof, with_counts=True)
-        if sum(n for _, _, n in times) >= reps:
+        if times and all(n >= reps for _, _, n in times):
             dev_us = sum(us for _, us, _ in times)
             return dev_us / 1e3 / reps, event_ms
     return None, event_ms
@@ -574,8 +625,9 @@ def demangle(names):
 
 def sass_counts(lib: Path):
     """{kernel function: (HMMA, IMMA) instruction count} in the SASS of the
-    built library, by cuobjdump from the CUDA toolkit; None where the tool
-    is missing or fails."""
+    built library, by cuobjdump from the CUDA toolkit, HMMA counting the
+    warpgroup products (HGMMA) too; None where the tool is missing or
+    fails."""
     tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
         return None
@@ -591,7 +643,7 @@ def sass_counts(lib: Path):
             fn = line.split("Function :", 1)[1].strip()
             counts.setdefault(fn, [0, 0])
         elif fn is not None:
-            counts[fn][0] += "HMMA" in line
+            counts[fn][0] += "HMMA" in line or "HGMMA" in line
             counts[fn][1] += "IMMA" in line
     return counts
 
@@ -600,6 +652,48 @@ def pwl_ops(name: str) -> int:
     """Operations of one PWL evaluation by the walk: a compare and two adds
     for each interior knot, then a multiply and an add."""
     return 3 * (get_table(name, 16).num_segments - 1) + 2
+
+
+def prefix_search_instr(name: str) -> int:
+    """Instructions of one PWL evaluation by the prefix search
+    (`npe_pwl_prefix_n`): each step of the binary search over the S-1
+    interior knots an address add, a shared load, a compare and a select;
+    then the 8-byte load of the segment's prefixes, a multiply and an add."""
+    return 4 * (get_table(name, 16).num_segments - 1).bit_length() + 3
+
+
+def dense_chain_instr(use_pwl: bool, cap: float, backward: bool = False) -> int:
+    """CUDA-core instructions that the function needs for one visible
+    (query, key) pair of the dense mode, each step once (the function's
+    chain, not the kernels' repeated sweeps), counted from
+    `csrc/flash_attention.cu` and `csrc/flash_attention_grad.cu`.  The
+    mask's compares and selects are left out: the function needs them only
+    at chunks that some row sees in part (the kernels skip them on chunks
+    that every row of a tile sees).  Forward: the scale multiply, the max,
+    the subtract, the exp (PWL: the -18 clamp, the search, the floor at 0;
+    exact: ex2 and its multiply), the sum, the normalizing multiply (exact:
+    a divide) and the rounding to bf16.  Backward (PWL): the scale,
+    subtract, clamp, the exp's search and its slope's load, the floor, dp^'s
+    rounding; the statistics' dr (multiply, add), sum, w (two multiplies,
+    the floor's and the clip's compares and selects), sum dp^ w and sum w,
+    the tie's compare and add; dS_ij's multiply, add and three multiplies,
+    the max's share (compare, add), the scale; p^'s multiply and rounding.
+    Exact: scale, subtract, exp (2), dp^'s rounding, p's divide, sum p dp^
+    (2), dS_ij (three) and its scale, p^'s rounding.  dS's split into three
+    bf16 pieces is the kernels' way to an exact product on the tensor
+    cores, not the function's: it is in neither this chain nor the rows'
+    product count (five products of one piece).  A soft cap adds its
+    divide, clamp, tanh (PWL: a search; exact: four) and multiply, and in
+    the backward the tanh slope's load, a multiply, the clip (three) and a
+    divide."""
+    if use_pwl:
+        chain = (8 if not backward else 30) + prefix_search_instr("exp")
+    else:
+        chain = 8 if not backward else 13
+    if cap:
+        tanh = prefix_search_instr("tanh") if use_pwl else 4
+        chain += 4 + tanh + (6 if backward else 0)
+    return chain
 
 
 def pwl_prefix_ops(name: str) -> int:
@@ -630,6 +724,31 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
     not 16-byte aligned, so the kernels take their scalar/block instances."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
     return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
+# The dense mode's rows that its tensor-core instance and its backward run,
+# device ms before their redesign (PERF.md section 6: this script's [3] on
+# the H100 80GB HBM3 at 700 W, the backward rows at the parent tree of the
+# redesign, the forward rows at the trees that added them)
+PREVIOUS_MS = {
+    "dense prefill (1, 12, 128, 64) kv 128/256 pwl": 0.0070,
+    "dense prefill (1, 12, 128, 64) kv 128/256": 0.0077,
+    "dense decode (8, 32 over 2, 1, 128) kv 256/256 pwl": 0.0219,
+    "dense decode (8, 32 over 2, 1, 128) kv 256/256": 0.0257,
+    "dense decode (8, 32 over 2, 1, 128) kv 256/256 pwl cold L2": 0.0225,
+    "dense prefill (1, 32 over 2, 128, 128) kv 128/256 pwl": 0.0199,
+    "dense prefill (1, 32 over 2, 128, 128) kv 128/256": 0.0212,
+    "ring decode (8, 24 over 2, 1, 128) kv 4096/4096 causal off pwl": 0.4858,
+    "windowed prefill (1, 32 over 16, 2048, 128) kv 2048/2048 window 1024 pwl": 1.5341,
+    "encoder (8, 8, 1500, 64) kv 1500/1500 pwl": 1.3273,
+    "grad StarCoder2 (4, 24 over 2, 1024, 128) causal pwl": 6.4226,
+    "grad StarCoder2 (4, 24 over 2, 1024, 128) causal exact": 5.7173,
+    "grad Granite (4, 16 over 8, 1024, 64) causal pwl": 2.9457,
+    "grad GLM4 (1, 32 over 2, 1024, 128) causal pwl": 3.0062,
+    "grad Gemma3 (1, 32 over 16, 2048, 128) causal window 1024 pwl": 6.0590,
+    "grad Gemma3 (1, 32 over 16, 2048, 128) causal window 1024 cap 50 pwl": 7.7935,
+    "grad Whisper cross (8, 8, 448, 64) kv 1500 causal off pwl": 3.6949,
+}
 
 
 def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_moved, work,
@@ -681,6 +800,9 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
         extra += f"  [a copy of the same bytes {r['copy_ms']:.4f}]"
     if shape.startswith("(8,"):
         extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
+    if shape in PREVIOUS_MS:
+        r["previous_ms"] = PREVIOUS_MS[shape]
+        extra += f"  [before the redesign: {PREVIOUS_MS[shape]:.4f}]"
     say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
         f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}{extra}  "
         f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
@@ -911,10 +1033,22 @@ def attn_grad_check(q, k, v, do, kw, got):
     (`flash_attention.dense_attention_grad_gates`: GRAD_RTOL of its largest
     value, or twice the plain backward's change under a score scale
     ceil(sqrt(D)) float32 ulps up or down) plus one bf16 ulp of each
-    entry of a bf16 result."""
+    entry of a bf16 result.  The plain backward recomputes its own row
+    statistics: the kernel's (`stats` in kw) stay the kernel's.  The plain
+    backward and its gates run a batch element at a time, so that a train
+    step's audit at StarCoder2's (4, 24 over 2, 1024, 128) fits beside the
+    step's state: the gate of the whole is the largest of the elements'
+    (each is a largest value or a largest change)."""
+    kw = {key: val for key, val in kw.items() if key != "stats"}
     with torch.no_grad():
-        want = fa_mod.dense_attention_grad_plain(q, k, v, do, **kw)
-        gates = fa_mod.dense_attention_grad_gates(q, k, v, do, want, **kw)
+        parts, part_gates = [], []
+        for i in range(q.shape[0]):
+            ops_i = [t[i:i + 1] for t in (q, k, v, do)]
+            parts.append(fa_mod.dense_attention_grad_plain(*ops_i, **kw))
+            part_gates.append(fa_mod.dense_attention_grad_gates(*ops_i, parts[-1], **kw))
+        want = [torch.cat(ts) for ts in zip(*parts)]
+        gates = [max(gs) for gs in zip(*part_gates)]
+        del parts
     worst, ok = 0.0, True
     for a, b, gate in zip(got, want, gates):
         a, b = a.float(), b.float()
@@ -944,13 +1078,16 @@ TRAINED_CELLS = {"starcoder2": "starcoder2_3b", "granite": "granite_moe_1b_a400m
 
 def attn_grad_rows(dev, g, row):
     """The backward of flash attention's dense mode (`dense_attention_grad`,
-    two kernels) at the decoders' training shapes, held by `attn_grad_check`.
-    Bytes: q, k, v and the output's cotangent read once, dq, dk and dv
-    written once (bf16).  Operations: the backward's five products (S =
-    Q.K^T and dP = dO.V^T again, dV, dK, dQ), 2 D a visible pair each, at
-    the bf16 tensor-core rate.  Library: PyTorch's SDPA backward (exact
-    softmax, `enable_gqa`, the same mask; none for a soft cap), timed beside
-    the kernel and never called by the port."""
+    two kernels) at the decoders' training shapes, from the row statistics
+    of the forward kernel on the same operands (as the train step hands them
+    over), held by `attn_grad_check`.  Bytes: q, k, v and the output's
+    cotangent read once, dq, dk and dv written once (bf16).  Operations: the
+    backward's five products (S = Q.K^T and dP = dO.V^T again, dV, dK, dQ),
+    2 D a visible pair each, at the bf16 tensor-core rate, and each visible
+    pair's CUDA-core chain (`dense_chain_instr(backward=True)`) at
+    F32_INSTR_PER_S.  Library: PyTorch's SDPA backward (exact softmax,
+    `enable_gqa`, the same mask; none for a soft cap), timed beside the
+    kernel and never called by the port."""
     import torch.nn.functional as F
     for name, b, hq, hkv, sq, skv, d, causal, window, cap, pwl, cell in ATTN_GRAD_ROWS:
         q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
@@ -958,6 +1095,7 @@ def attn_grad_rows(dev, g, row):
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         do = torch.randn(b, sq, hq, d, generator=g, device=dev).to(torch.bfloat16).permute(0, 2, 1, 3)
         kw = dict(causal=causal, window=window, softcap=cap, use_pwl=pwl)
+        _, stats = fa_mod.dense_attention(q, k, v, with_stats=True, **kw)
         pairs = b * hq * visible_pairs(sq, skv, causal, window)
         nbytes = 2 * (2 * q.numel() + 2 * do.numel() + 4 * k.numel())
         lib = None
@@ -976,9 +1114,10 @@ def attn_grad_rows(dev, g, row):
             f" cap {cap:g}" if cap else "") + (" pwl" if pwl else " exact")
         row("flash_attention_grad", f"grad {name} ({b}, {heads(hq, hkv)}, {sq}, {d})"
             + (f" kv {skv}" if skv != sq else "") + f" {mode}", torch.bfloat16,
-            lambda: fa_mod.dense_attention_grad(q, k, v, do, **kw),
+            lambda: fa_mod.dense_attention_grad(q, k, v, do, stats=stats, **kw),
             lambda: fa_mod.dense_attention_grad_plain(q, k, v, do, **kw),
-            nbytes, [(pairs * 5 * 2 * d, BF16_OPS_PER_S)],
+            nbytes, [(pairs * 5 * 2 * d, BF16_OPS_PER_S),
+                     (pairs * dense_chain_instr(pwl, cap, backward=True), F32_INSTR_PER_S)],
             check_fn=lambda got: attn_grad_check(q, k, v, do, kw, got),
             library_fn=lib,
             library_name="SDPA backward (exact softmax" + (", enable_gqa" if hq != hkv else "")
@@ -1123,9 +1262,11 @@ def heads(hq: int, hkv: int) -> str:
 def dense_rows(dev, g, row):
     """The flash kernel's dense mode (the decode path's attention) at a decode
     step over 256, 1024 and 2048 keys (one pass) and 16384 keys (two
-    segments of 8192: three passes over K), and a 128-token prefill; bytes
-    and operations as for `flash_rows` (each input read once, whatever the
-    passes read again).  The decode rows are timed once more with the L2
+    segments of 8192: three passes over K), and a 128-token prefill.  Bytes
+    as for `flash_rows` (each input read once, whatever the passes read
+    again); operations: the Q.K^T and P.V products at the bf16 tensor-core
+    rate and each visible pair's CUDA-core chain (`dense_chain_instr`) at
+    F32_INSTR_PER_S.  The decode rows are timed once more with the L2
     flushed before each launch."""
     import torch.nn.functional as F
     for name, b, hq, hkv, sq, skv, kv_len, d, cell in DENSE_ROWS:
@@ -1138,7 +1279,6 @@ def dense_rows(dev, g, row):
         kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
         for use_pwl in (True, False):
             kw = dict(kv_len=kv_len, use_pwl=use_pwl, out_dtype=torch.bfloat16)
-            exp_ops = pwl_prefix_ops("exp") + 2 if use_pwl else 1
             lib = None
             if not use_pwl:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1150,7 +1290,8 @@ def dense_rows(dev, g, row):
                     torch.bfloat16,
                     lambda: fa_mod.dense_attention(q, k, v, **kw),
                     lambda: fa_mod.dense_attention_plain(q, k, v, **kw),
-                    nbytes, [(pairs * 4 * d, BF16_OPS_PER_S), (pairs * (exp_ops + 5), F32_OPS_PER_S)],
+                    nbytes, [(pairs * 4 * d, BF16_OPS_PER_S),
+                             (pairs * dense_chain_instr(use_pwl, 0.0), F32_INSTR_PER_S)],
                     library_fn=lib, library_name="scaled_dot_product_attention", cold=cold,
                     check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell)
 
@@ -1171,15 +1312,20 @@ MASK_ROWS = [
     ("ring decode", 8, 25, 5, 1, 32, 32, 64, "hymba", False, 0, 0.0),
     ("cross decode", 8, 8, 8, 1, 1500, 1500, 64, "whisper", False, 0, 0.0),
     ("encoder", 8, 8, 8, 1500, 1500, 1500, 64, "whisper", True, 0, 0.0),
+    # the train step's forward (and its remat) at [16]'s shapes, with the row
+    # statistics the backward reads
+    ("training forward", 4, 24, 2, 1024, 1024, 1024, 128, "starcoder2", True, 4096, 0.0),
+    ("training forward", 4, 16, 8, 1024, 1024, 1024, 64, "granite", True, 0, 0.0),
 ]
 
 
 def mask_rows(dev, row):
     """The dense mode's window, causal switch and soft cap (MASK_ROWS), PWL
     and exact, each held to `dense_attention_plain` on the same inputs with
-    the dense gate; bytes and operations as for `dense_rows` over the keys
-    the mask lets through, plus the soft cap's divide, tanh (PWL: the
-    prefix search) and multiply a score.  The library call is
+    the dense gate (the training rows with their row statistics, as the
+    train step's forward asks for them); bytes and operations as for
+    `dense_rows` over the keys the mask lets through, the soft cap's steps
+    in the chain.  The library call is
     `scaled_dot_product_attention` with the same mask, beside the exact
     rows without a cap (it has no soft cap).  A generator of its own keeps
     the other rows' inputs as they were."""
@@ -1198,8 +1344,8 @@ def mask_rows(dev, row):
         for use_pwl in (True, False):
             kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=cap,
                       use_pwl=use_pwl, out_dtype=torch.bfloat16)
-            exp_ops = pwl_prefix_ops("exp") + 2 if use_pwl else 1
-            cap_ops = 0 if not cap else (pwl_prefix_ops("tanh") + 2 if use_pwl else 1) + 2
+            if name == "training forward":
+                kw["with_stats"] = True
             lib = None
             if not use_pwl and not cap:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1212,9 +1358,10 @@ def mask_rows(dev, row):
                 lambda: fa_mod.dense_attention(q, k, v, **kw),
                 lambda: fa_mod.dense_attention_plain(q, k, v, **kw),
                 nbytes, [(pairs * 4 * d, BF16_OPS_PER_S),
-                         (pairs * (exp_ops + 5 + cap_ops), F32_OPS_PER_S)],
+                         (pairs * dense_chain_instr(use_pwl, cap), F32_INSTR_PER_S)],
                 library_fn=lib, library_name="scaled_dot_product_attention",
-                check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell)
+                check_fn=lambda got: dense_compare(q, k, v, kw, got), cell=cell,
+                plain_reps=3 if name == "training forward" else 20)
 
 
 # --- phase 4: full-width BERT-base ------------------------------------------
@@ -1270,8 +1417,9 @@ class Audit:
 
         def dense(q, k, v, **kw):
             y = fa_mod.dense_attention(q, k, v, **kw)
+            out = y[0] if isinstance(y, tuple) else y
             with torch.no_grad():
-                err, ok = dense_compare(q, k, v, dict(kw, out_dtype=y.dtype), y)
+                err, ok = dense_compare(q, k, v, dict(kw, out_dtype=out.dtype), y)
             st = self.stats["flash_attention"]
             st[0] += 1
             st[1] = max(st[1], err)
@@ -2592,9 +2740,9 @@ def glm4_phase(dev, card, results):
 # --- phase 9: Gemma3-27B: local:global attention over ring caches -----------
 
 def gemma3_phase(dev, card, results):
-    """Full-width Gemma3-27B cut to GEMMA3_LAYERS = 12 of its 62 layers (two
-    whole local:global periods: 10 local over 1024-row rings, 2 global;
-    bf16, about 6.4 B parameters drawn from a torch generator) through
+    """Full-width Gemma3-27B cut to GEMMA3_LAYERS = 6 of its 62 layers (one
+    whole local:global period: 5 local over 1024-row rings, 1 global;
+    bf16, about 3.9 B parameters drawn from a torch generator) through
     `launch.serve.Server`: (a) 8 slots, prompts of up to 16 tokens prefilled
     one token a call, 8 greedy steps, in float and NPE-8; (b) the launches
     of one step and of one prefill (a step a prompt token), and of the
@@ -2862,9 +3010,10 @@ def granite_phase(dev, card, results):
 
 # [11](a): GLM4-9B's depth through the executor.  On an H100 80GB HBM3 at
 # 700 W, 32 layers took [11] to 159.7 s, past its 150 s, and the script to
-# 1,144 s; 24 layers took [11] 122.6-148.0 s; 12 layers since [16] (the
-# decoders' training) joined the script, to keep it inside its budget
-NPEC_GLM4_LAYERS = 12
+# 1,144 s; 24 layers took [11] 122.6-148.0 s; 12 layers, once [16] (the
+# decoders' training) joined the script, 90.0-126.0 s and the script
+# 1,021-1,232 s, past its 1,200 s on the slower host; 4 layers since
+NPEC_GLM4_LAYERS = 4
 NPEC_CHUNK, NPEC_GLM4_T, NPEC_GLM4_STEPS = 16, 256, 8
 NPEC_CHECK_SLOTS, NPEC_CHECK_STEPS, NPEC_CHECK_T = 2, 4, 128     # [11](b), 2 layers
 GRANITE_NPEC_SEQS = (64, 120)                                     # [11](c)
@@ -3269,8 +3418,9 @@ FAMILY_MAX_PROMPT, FAMILY_GEN, FAMILY_MAX_SEQ = GEMMA3_MAX_PROMPT, 16, 32
 FAMILY_PHASES = {"rwkv6_3b": "[12]", "hymba_1_5b": "[13]", "whisper_base": "[14]"}
 # [12] and [13] at 16 of their 32 layers since [16] (the decoders' training)
 # joined the script, to keep it inside its budget (full depth took them 45.2
-# and 55.6 s on an H100 80GB HBM3 at 700 W)
-FAMILY_LAYERS = {"rwkv6_3b": 16, "hymba_1_5b": 16}
+# and 55.6 s on an H100 80GB HBM3 at 700 W); RWKV6 at 8 since (16 took [12]
+# 29.5-35.4 s).  Hymba stays at 16: its 16th layer is its global one
+FAMILY_LAYERS = {"rwkv6_3b": 8, "hymba_1_5b": 16}
 
 
 def family_launches(cfg, mode: str, what: str = "step"):
@@ -4120,7 +4270,11 @@ def router_grads(trainer):
 
 def dec_train_mode(dev, card, arch, mode, steps):
     """Train `arch` in `mode` for `steps` steps (no checkpoints: [15] covers
-    them, and a 3B state is 51 GB); print and return its numbers."""
+    them, and a 3B state is 51 GB); print and return its numbers.  The last
+    mode's trainer is collected first (its closures hold it in reference
+    cycles), so that the peak is this mode's own."""
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_mod.Trainer(dec_train_run(arch, mode, steps), log=lambda *a: None, device=dev)
@@ -4473,7 +4627,8 @@ def main() -> int:
                else "HMMA/IMMA not available")
         say(f"    {names[fn][:58]:58s} {regs:3d} regs {smem:5d} B  spills {st}/{ld}  {mma}")
     rebuilt = ("pwl_stream_kernel", "nvu_layernorm_warp_kernel", "nvu_softmax_kernel",
-               "flash_dense_decode_kernel", "flash_dense_mma_kernel")
+               "flash_dense_decode_kernel", "flash_dense_wg_kernel", "flash_dense_wgt_kernel",
+               "dense_grad_dq_kernel", "dense_grad_dkv_kernel")
     new = {fn: ptx[fn] for fn in ptx if any(k in fn for k in rebuilt)}
     spilled = [names[fn] for fn, (_, _, st, ld) in new.items() if st or ld]
     say(f"    {len(new)} instances of {' / '.join(rebuilt)}, "
@@ -4481,7 +4636,8 @@ def main() -> int:
     if sass is None:
         say("    SASS tensor-core instructions: not available (no cuobjdump)")
     else:
-        for name, key, col in (("flash_attention", "flash", 0), ("quant_matmul", "qmm", 1)):
+        for name, key, col in (("flash_attention", "flash", 0), ("its backward", "dense_grad", 0),
+                               ("quant_matmul", "qmm", 1)):
             n = sum(c[col] for f, c in sass.items() if key in f)
             say(f"    SASS of {name}: {n} {'HMMA' if col == 0 else 'IMMA'} instructions")
 
@@ -4607,8 +4763,8 @@ def serve_phases(dev, card, results, phase) -> int:
                 kernels[-1]["copy_cold_ms"] = cold["copy_ms"]
         if r["yardstick"]:
             kernels[-1].update(yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"])
-        for cell in ("glm4", "gemma3", "starcoder2", "npec_decoders", "rwkv6", "hymba",
-                     "whisper"):
+        for cell in ("glm4", "gemma3", "starcoder2", "granite", "npec_decoders", "rwkv6",
+                     "hymba", "whisper"):
             cell_rows = [
                 dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
                      bound_ms=x["bound_ms"], bound_by=x["bound_by"],
@@ -4645,7 +4801,8 @@ def serve_phases(dev, card, results, phase) -> int:
     if any(dec[arch]["flash_attention_grad"] == 0 for arch in DEC_TRAIN):
         raise SystemExit("flash_attention_grad was not launched on the decoders' training path")
     kernels.append(dict(
-        name="flash_attention_grad", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        name="flash_attention_grad", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_grad.cu",
         replaces=REPLACES["flash_attention"],
         differentiates="src/repro/models/common.py:205 (attention_scores, jax.vjp)",
         launches=dec["starcoder2_3b"]["flash_attention_grad"], path="train",

@@ -5,6 +5,8 @@ under a set of AdamW settings.
     PYTHONPATH=src python3 scripts/train_probe.py loss --steps 150 \\
         --opt '{"lr": 3e-4, "warmup_steps": 10}' [--opt '{...}' ...] \\
         [--dtype float32] [--remat none] [--arch starcoder2_3b --batch 4 --seq 1024]
+    PYTHONPATH=src python3 scripts/train_probe.py profile --arch starcoder2_3b \\
+        --batch 4 --seq 1024 [--steps 3] [--modes float,npe-8bit] [--json out.json]
 
 Both run `launch.train.Trainer` on a full-width model at full depth
 (float32 masters, bf16 compute, remat "block"): BERT-base on
@@ -17,7 +19,12 @@ step, the peak memory, and one checkpoint save and restore in seconds.
 `loss` trains float once for each `--opt` (OptimizerConfig fields as JSON,
 schedule "constant" unless given), with the compute dtype and remat of
 `--dtype` and `--remat` (bfloat16 and "block" unless given), and prints the
-mean loss of each 10 steps and of the first and last 5.  Needs a CUDA card.
+mean loss of each 10 steps and of the first and last 5.  `profile` trains
+each of `--modes` for `--steps` steps (host ms a step, the median past the
+first), then takes one more step under torch.profiler and prints the device
+busy ms, the idle share, the ten device kernels that take the most time,
+and the share of the dense attention's forward kernels and of its backward
+kernels (names holding `flash_dense` and `dense_grad`).  Needs a CUDA card.
 """
 import argparse
 import dataclasses
@@ -90,9 +97,66 @@ def loss(steps, opts, dtype, remat):
               "last 5", float(ls[-5:].mean()), flush=True)
 
 
+ATTENTION_KERNELS = {"dense forward": "flash_dense", "dense backward": "dense_grad"}
+
+
+def profile(steps, modes, out_path):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    import subprocess
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"card: {card.strip()}", flush=True)
+    out = {}
+    for mode in modes:
+        npe, bits = mode != "float", 16 if mode == "npe-16bit" else 8
+        tr = Trainer(run_config(steps + 1, npe, bits, lr=1e-3, warmup_steps=2), device="cuda")
+        host = []
+        for s in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.model, tr.opt_state, m = tr.step_fn(tr.model, tr.opt_state, tr.batch_at(s))
+            float(m["loss"])
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        host_ms = float(np.median(host[1:] if len(host) > 1 else host))
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tr.model, tr.opt_state, m = tr.step_fn(tr.model, tr.opt_state, tr.batch_at(steps))
+            torch.cuda.synchronize()
+        kernels = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            if us > 0:
+                kernels.append((e.key, us / 1e3, e.count))
+        kernels.sort(key=lambda t: -t[1])
+        busy = sum(ms for _, ms, _ in kernels)
+        shares = {label: (sum(ms for k, ms, _ in kernels if key in k),
+                          sum(n for k, _, n in kernels if key in k))
+                  for label, key in ATTENTION_KERNELS.items()}
+        print(f"{ARCH['arch']} {mode}: host {host_ms:.1f} ms a step (median of {host}), device "
+              f"busy {busy:.1f} ms, idle share {1 - busy / host_ms:.3f}, "
+              f"{sum(n for _, _, n in kernels)} device launches", flush=True)
+        for label, (ms, n) in shares.items():
+            print(f"  {label}: {ms:.2f} ms in {n} launches, {ms / busy:.1%} of device busy",
+                  flush=True)
+        for name, ms, n in kernels[:10]:
+            print(f"  {ms:9.2f} ms {n:6d} x  {ms / busy:6.1%}  {name[:110]}", flush=True)
+        out[mode] = dict(host_ms=host_ms, host_runs=host, device_busy_ms=busy,
+                         idle_share=1 - busy / host_ms, top=kernels[:10],
+                         attention={k: dict(ms=ms, launches=n) for k, (ms, n) in shares.items()})
+        del tr
+        torch.cuda.empty_cache()
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(dict(card=card.strip(), arch=ARCH, **out), indent=1))
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("timing", "loss"))
+    ap.add_argument("what", choices=("timing", "loss", "profile"))
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--opt", action="append", default=[])
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
@@ -100,6 +164,8 @@ def main():
     ap.add_argument("--arch", default="bert_base")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--modes", default="float,npe-8bit")
+    ap.add_argument("--json", default="")
     args = ap.parse_args()
     ARCH.update(arch=args.arch, batch=args.batch, seq=args.seq)
     if not torch.cuda.is_available():
@@ -107,6 +173,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.what == "timing":
         timing(args.steps)
+    elif args.what == "profile":
+        profile(args.steps, args.modes.split(","), args.json)
     else:
         loss(args.steps, args.opt, args.dtype, args.remat)
 

@@ -58,7 +58,7 @@
 // After the decode path moved to the dense mode below, the blocked mode
 // serves no model, as the TPU kernel serves none in the reference.
 //
-// The dense mode (`npe_attention_dense`) is what the decode path runs: the
+// The dense mode (`npe_attention_dense`) is the models' attention: the
 // cache case of the reference's `attention_scores` (src/repro/models/
 // common.py, with nvu_softmax and nvu_reciprocal of src/repro/core/nvu.py),
 // which is no Pallas kernel.  For each query row at position pos (causal,
@@ -66,23 +66,43 @@
 // masked; m = the max over every visible key, with no running rescale;
 // e = nvu_exp(s - m) (npe_softmax_exp_n) or exp; p = e * pwl_recip(sum e)
 // or e / sum e, rounded to bf16 as `probs.astype(v.dtype)`; out = P.V
-// accumulated in f32.  A pass keeps its keys' scores in shared memory
-// (8192 keys of one query row, or 1024 of 8 rows or of a 16-row tile):
-// when the visible keys fit, one pass of Q.K^T gives the max, the sum and p;
-// past that the kernel makes three passes over the keys (the max, then the
-// sum with that max fixed, then P.V with the normalized, rounded p), so
-// every cache length is served in one launch.  Two instances, chosen by
-// shape as in the blocked mode:
-// * at most 8 query rows a kv head: `flash_dense_decode_kernel`, the decode
-//   instance's layout (a block of 8 warps a (batch, kv head), 16-byte loads
-//   of the cache, keys split across threads, f32 products on the CUDA
-//   cores, partial accumulators summed at the end).
-// * more rows: `flash_dense_mma_kernel`, the tensor-core instance's layout
-//   (16 query rows a block, 128-key chunks through the cp.async ring,
-//   mma.sync for Q.K^T and P.V).  q is split into bf16 pieces unscaled (one
-//   piece for bf16 q) and the scale multiplies the f32 product, as in
-//   attention_scores; p is one bf16 operand by definition, so it needs no
-//   split.
+// accumulated in f32.  The PWL exp does not rescale (pwl_exp(0) = 0.999),
+// so the three stages are part of the function: m must be known before any
+// e, and the sum before any p.  Two instances, chosen by shape:
+// * at most 8 query rows a kv head (a decode step of a small GQA group):
+//   `flash_dense_decode_kernel`, a block of 8 warps a (batch, kv head),
+//   16-byte loads of the cache, keys split across threads, f32 products on
+//   the CUDA cores, partial accumulators summed at the end; a pass keeps
+//   the scores of 8192 keys of one row or 1024 of 8 rows in shared memory,
+//   past that it makes three passes over the keys (max, sum, P.V).
+// * more rows, or any call that asks for the row statistics (the train
+//   step's forward): `flash_dense_wg_kernel`, one warpgroup a block on a
+//   64-row wgmma tile.  A tile's rows are (q head, query) pairs of one
+//   (batch, kv head), query-major (row r: query r / group of q head
+//   r % group), so the group's heads share every K and V chunk, a decode
+//   step of a 12- or 16-head group fills one tile, and a tile's rows see
+//   nearly the same causal key range; the tiles that see the most keys are
+//   launched first.  The 64 x 1024 f32 scores of a tile do not fit in 227 KB
+//   of shared memory, so the three stages are three sweeps over the tile's
+//   keys, each recomputing S = q . K^T on the tensor cores (wgmma
+//   m64n64k16, q in bf16 pieces, unscaled, from shared memory), which have
+//   ten times the headroom of the PWL chain: the max; the sum of e with the
+//   max fixed; then e again, p^ = bf16(e * norm) packed in registers as the
+//   A operand of out += p^ . V (wgmma, V as the transposed B).  K and V come
+//   in 64-key chunks through a four-slot cp.async ring in wgmma's layout
+//   without swizzle (hopper.cuh: eight rows of a 16-byte piece a core
+//   matrix), three chunks in flight.  The backward (flash_attention_grad.cu)
+//   takes its tiles by TMA in the 128-byte swizzle, which shortened its
+//   kernels on the H100 (PERF.md); this ring is to follow it.
+//   Each warp owns 16 rows over every key of a chunk, so a row's max and
+//   sum reduce over its quad of lanes, with no cross-warp reduction.  When
+//   asked, the block writes each row's statistics (B, Hq, Sq, 2): m and the
+//   norm its p^ was taken with (the PWL reciprocal of the sum, or the sum),
+//   which the backward reads instead of recomputing them.  Bound: the PWL
+//   chain on the CUDA cores at training shapes (each visible pair's exp
+//   twice, its search some twenty instructions), the K/V bytes at decode.
+// Its backward, which reads those statistics, is flash_attention_grad.cu;
+// the pieces both use are flash_tiles.cuh.
 // The dense mode also takes the rest of attention_scores' mask and its soft
 // cap.  `causal` = 0 lets every row see every key below kv_len (a ring
 // cache: the reference's prefix validity arange(wlen) <= pos | pos >= wlen
@@ -92,17 +112,12 @@
 // (clamped to its end knots, as nvu_tanh) or tanhf.  A block reads only the
 // keys some row of it sees: from the first row's pos - window + 1 (0
 // without a window) to its last row's pos (kv_len with causality off), so
-// a windowed prefill tile reads about window + 16 keys, not all before it.
-// The row max is taken over visible keys only (masked scores are NEG_BIG),
-// since the PWL exp does not rescale.  With causal = 1, window = 0 and
-// softcap = 0 every key range, mask and sum is the one before these
-// arguments existed, so those launches give the same bits.
-#include "hopper.cuh"
-#include "pwl.cuh"
+// a windowed prefill tile reads about window + its queries' keys, not all
+// before it.  The row max is taken over visible keys only (masked scores
+// are NEG_BIG), since the PWL exp does not rescale.
+#include "flash_tiles.cuh"
 
 namespace {
-
-constexpr float NEG_BIG = -1e30f;
 
 struct Args {
   const void* q;
@@ -124,12 +139,10 @@ struct Args {
   const float* tanh_table;
   int tanh_segs;
   float tanh_lo, tanh_hi;
+  // the dense mode's row statistics (B, Hq, Sq, 2): m and the norm, or null
+  float* stats;
+  int q_vec;                              // q's rows 16-byte aligned and contiguous
 };
-
-__device__ __forceinline__ float load(const void* p, long long i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
 
 __device__ __forceinline__ void store(const Args& a, long long o, float y) {
   if (a.out_bf16)
@@ -193,16 +206,6 @@ __device__ __forceinline__ void load_tables(const Args& a, float* etab, float* r
   if (a.use_pwl) {
     npe_load_table(etab, a.exp_table, a.exp_segs + 1);
     npe_load_table(rtab, a.recip_table, a.recip_segs + 1);
-  }
-}
-
-// 8 bf16 of a 16-byte load as f32 (exact).
-__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
 
@@ -576,7 +579,6 @@ flash_decode_kernel(const Args a) {
 constexpr int MMA_WARPS = 8;
 constexpr int KC = 16 * MMA_WARPS;       // keys a staged chunk, 16 a warp
 constexpr int RING = 4;                  // stages of the K/V ring
-constexpr int Q_PIECES_MAX = 3;
 
 template <int D>
 struct MmaLayout {
@@ -857,7 +859,6 @@ flash_mma_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 
 constexpr int DENSE_SCORES = 8192;       // scores a decode block keeps in shared memory (32 KB)
-constexpr int DENSE_SEG = 1024;          // keys a pass of the tensor-core instance keeps, 16 rows each
 
 // exp of N values z = s - m: the NVU's (npe_softmax_exp_n) or expf.
 template <int N>
@@ -1131,256 +1132,579 @@ flash_dense_decode_kernel(const Args a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(32 * MMA_WARPS)
-flash_dense_mma_kernel(const Args a) {
-  using L = MmaLayout<D>;
-  constexpr int DS = L::DS;
-  constexpr int NT = D / 8;              // n8 tiles of the output
-  constexpr int CHUNKS = DENSE_SEG / KC; // chunks of a segment
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qp = ring + L::RING_ELEMS;
-  float* s_s = reinterpret_cast<float*>(qp + L::QP);   // a segment's scores or e, fragment order
-  __shared__ float red[MMA_WARPS][16];
+// ---------------------------------------------------------------------------
+// the dense mode's tensor-core instance: a GQA group's rows in warpgroup tiles
+// ---------------------------------------------------------------------------
+
+constexpr int WRING = 4;                 // slots of the forward's K/V ring
+
+// A MN-major (transposed) from shared memory.
+template <int N>
+__device__ __forceinline__ void wg_ss_ta(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) npe_wgmma_ss_ta_n32(d, da, db, scale_d);
+  else npe_wgmma_ss_ta_n16(d, da, db, scale_d);
+}
+
+// The dense mode's steps of a score with PWL as a template argument, so
+// that no score branches on it: exp of N values z = s - m; the soft cap
+// (nothing when c = 0); p^; the norm of a row with sum l.
+template <bool PWL, int N>
+__device__ __forceinline__ void wg_exp(float (&z)[N], const NpePrefixTable& t, int top) {
+  if constexpr (PWL) {
+    npe_softmax_exp_n<N>(z, t, top);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) z[i] = expf(z[i]);
+  }
+}
+
+template <bool PWL, int N>
+__device__ __forceinline__ void wg_cap(float (&s)[N], const Args& a, const NpePrefixTable& t,
+                                       int top) {
+  if (a.softcap <= 0.f) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = __fdiv_rn(s[i], a.softcap);
+  if constexpr (PWL) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = fminf(fmaxf(s[i], a.tanh_lo), a.tanh_hi);
+    npe_pwl_prefix_n<N>(s, t, top);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = tanhf(s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = __fmul_rn(a.softcap, s[i]);
+}
+
+template <bool PWL>
+__device__ __forceinline__ float wg_p(float e, float norm) {
+  float p;
+  if constexpr (PWL) p = __fmul_rn(e, norm);
+  else p = __fdiv_rn(e, norm);
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
+template <bool PWL>
+__device__ __forceinline__ float wg_norm(float l, const NpePrefixTable& rt, int rtop) {
+  if constexpr (PWL) return npe_softmax_inv(l, rt, rtop);
+  else return fmaxf(l, 1e-30f);
+}
+
+// Whether key col is hidden from a row at position pos (-1: a padding row)
+// of a block whose keys end at kv_hi, without branches.
+__device__ __forceinline__ bool wg_hidden(int col, int pos, int kv_hi, const Args& a) {
+  return (pos < 0) | (col >= kv_hi) | ((a.causal != 0) & (col > pos)) |
+         ((a.window > 0) & (col <= pos - a.window));
+}
+
+// A block's output rows from shared memory (f32, `stride` floats a row;
+// `parts` partial outputs `part_stride` floats apart, summed in order) to
+// out, 16 bytes a store: row rho of `rows` is GroupRow `at(rho)`, or
+// skipped when at(rho).head < 0.
+template <int D, typename F>
+__device__ __forceinline__ void wg_write_out(const Args& a, int b, const float* ost, int stride,
+                                             int rows, F at, int parts = 1, int part_stride = 0) {
+  for (int x = threadIdx.x; x < rows * (D / 8); x += blockDim.x) {
+    const int rho = x / (D / 8), c = x % (D / 8);
+    const GroupRow gr = at(rho);
+    if (gr.head < 0) continue;
+    const long long o = b * a.os[0] + gr.head * a.os[1] + gr.query * a.os[2] + 8 * c;
+    float4 lo = *reinterpret_cast<const float4*>(ost + rho * stride + 8 * c);
+    float4 hi = *reinterpret_cast<const float4*>(ost + rho * stride + 8 * c + 4);
+    for (int k = 1; k < parts; ++k) {
+      const float4 l2 = *reinterpret_cast<const float4*>(ost + k * part_stride + rho * stride + 8 * c);
+      const float4 h2 = *reinterpret_cast<const float4*>(ost + k * part_stride + rho * stride + 8 * c + 4);
+      lo = make_float4(__fadd_rn(lo.x, l2.x), __fadd_rn(lo.y, l2.y), __fadd_rn(lo.z, l2.z),
+                       __fadd_rn(lo.w, l2.w));
+      hi = make_float4(__fadd_rn(hi.x, h2.x), __fadd_rn(hi.y, h2.y), __fadd_rn(hi.z, h2.z),
+                       __fadd_rn(hi.w, h2.w));
+    }
+    if (a.out_bf16) {
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) + o) =
+          make_uint4(npe_pack_bf16(lo.x, lo.y), npe_pack_bf16(lo.z, lo.w),
+                     npe_pack_bf16(hi.x, hi.y), npe_pack_bf16(hi.z, hi.w));
+    } else {
+      float4* d4 = reinterpret_cast<float4*>(static_cast<float*>(a.out) + o);
+      d4[0] = lo;
+      d4[1] = hi;
+    }
+  }
+}
+
+// The row-major instance: 64 group rows a warpgroup, 32 scores a thread a
+// chunk.
+template <int D, bool PWL>
+__global__ void __launch_bounds__(WG)
+flash_dense_wg_kernel(const Args a) {
+  constexpr int SLOT = WK * D * 2;       // bytes of a K or V chunk
+  constexpr int NS = WK / 2;             // scores a thread a chunk
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;                     // WRING slots
+  unsigned char* qt = smem_raw + WRING * SLOT;        // q's pieces, WT x D each
   __shared__ NpePrefixTable etab, rtab, ttab;
   const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
 
-  const int bh = blockIdx.y;
-  const int b = bh / a.hq, h = bh % a.hq;
-  const int hk = h / (a.hq / a.hkv);
-  const int q0 = blockIdx.x * 16;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int group = a.hq / a.hkv, R = group * a.sq;
+  const int tile = gridDim.x - 1 - blockIdx.x;        // the tiles that see the most keys first
+  const int b = blockIdx.y / a.hkv, hk = blockIdx.y % a.hkv;
+  const int r0 = tile * WT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-
-  // q (unscaled: the scale multiplies the product) in bf16 pieces
-  const long long qbase = b * a.qs[0] + h * a.qs[1];
-  for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D;
-    const float x = q0 + r < a.sq ? load(a.q, qbase + (q0 + r) * a.qs[2] + c * a.qs[3], a.q_bf16)
-                                  : 0.f;
-    float p[3];
-    npe_split3(x, p);
+  const int off = a.kv_len - a.sq;
+  // the keys some row of the tile sees: from its first query's window on,
+  // below its last query's position + 1 (kv_len with causality off)
+  const int pos_lo = off + r0 / group, pos_hi = off + (min(r0 + WT, R) - 1) / group;
+  const int kv_lo = dense_kv_lo(pos_lo, a);
+  const int kv_hi = a.causal ? pos_hi + 1 : a.kv_len;
+  const int nc = (kv_hi - kv_lo + WK - 1) / WK;
+  // whether every row of the tile sees every key of the chunk from key0:
+  // then no score is masked
+  auto chunk_full = [&](int key0) {
+    return r0 + WT <= R && key0 + WK <= kv_hi && (!a.causal || key0 + WK - 1 <= pos_lo) &&
+           (a.window == 0 || key0 > pos_hi - a.window);
+  };
+  // items 0..nc-1: K chunks of the max sweep; nc..2nc-1: of the sum sweep;
+  // then K and V of each chunk in turn for P.V
+  const int items = 4 * nc;
+  auto chunk_of = [&](int it, bool& is_v) {
+    is_v = it >= 2 * nc && ((it - 2 * nc) & 1);
+    return it < 2 * nc ? it % nc : (it - 2 * nc) >> 1;
+  };
+  auto issue = [&](int it) {
+    bool is_v;
+    const int c = chunk_of(it, is_v);
+    wg_stage_rows<D, WK>(is_v ? vg : kg, is_v ? a.vs[2] : a.ks[2], kv_lo + c * WK, kv_hi,
+                         ring + (it % WRING) * SLOT);
+  };
+  // q's slots of this thread first, so that their loads do not queue behind
+  // the ring's; then the ring's first copies; then q's pieces
+  constexpr int QS = WT * (D / 8) / WG;   // q slots a thread
+  auto row_src = [&](int rho) -> long long {
+    if (r0 + rho >= R) return -1;
+    const GroupRow gr = group_row(r0 + rho, hk, group);
+    return b * a.qs[0] + gr.head * a.qs[1] + gr.query * a.qs[2];
+  };
+  float qf[QS][8];
+  int qrho[QS], qc[QS];
 #pragma unroll
-    for (int j = 0; j < Q_PIECES_MAX; ++j) qp[(j * 16 + r) * DS + c] = __float2bfloat16_rn(p[j]);
+  for (int j = 0; j < QS; ++j)
+    wg_q_fetch<D>(a.q, a.qs[3], a.q_bf16, a.q_vec, threadIdx.x + j * WG, row_src, qf[j], qrho[j],
+                  qc[j]);
+#pragma unroll
+  for (int it = 0; it < WRING - 1; ++it) {
+    if (it < items) issue(it);
+    npe_cp_async_commit();
   }
-  // ends synced: q pieces staged too
-  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+#pragma unroll
+  for (int j = 0; j < QS; ++j) wg_q_put<D, WT>(qf[j], qrho[j], qc[j], a.q_pieces, qt);
+  npe_fence_async_smem();
+  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);  // ends synced
   dense_cap_table(ttab, a);
   const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
   const int ttop = npe_prefix_top(a.tanh_segs);
 
-  // this lane's rows of the tile: g and g + 8 (-1: past Sq, every key masked)
+  // this thread's rows of the tile: 16 warp + g and + 8 (pos -1: padding)
   int pos[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const int i = q0 + g + 8 * e;
-    pos[e] = i < a.sq ? a.kv_len - a.sq + i : -1;
+    const int r = r0 + 16 * warp + g + 8 * e;
+    pos[e] = r < R ? off + r / group : -1;
   }
-  // the keys some row of the tile sees: kv_lo.. past its first row's window,
-  // below kv_hi (its last row's position + 1, or kv_len with causality off)
-  const int kv_lo = dense_kv_lo(a.kv_len - a.sq + q0, a);
-  const int kv_hi = a.causal ? a.kv_len - a.sq + min(q0 + 16, a.sq) : a.kv_len;
-  const int nseg = (kv_hi - kv_lo + DENSE_SEG - 1) / DENSE_SEG;
-  float m[2] = {NEG_BIG, NEG_BIG}, norm[2] = {1.f, 1.f}, part[2] = {0.f, 0.f}, acc[NT][4];
+  const bool live = r0 + 16 * warp < R;   // some row of the warp is a real one
+  float m[2] = {NEG_BIG, NEG_BIG}, part[2] = {0.f, 0.f}, norm[2] = {1.f, 1.f};
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint32_t pa[WK / 16][4];                // p^ of the last K chunk: P.V's A operand
 
-  // each row's max (or sum, in the order of the warps) over the block: the
-  // quad of lanes that hold it, then the warps
-  auto rows_reduce = [&](float (&v)[2], bool is_max) {
+  for (int it = 0; it < items; ++it) {
+    npe_cp_async_wait<WRING - 2>();
+    npe_fence_async_smem();
+    __syncthreads();          // item `it` staged; every warp is done with item it - 1's slot
+    if (it + WRING - 1 < items) issue(it + WRING - 1);
+    npe_cp_async_commit();
+    const unsigned char* slot = ring + (it % WRING) * SLOT;
+    bool is_v;
+    const int key0 = kv_lo + chunk_of(it, is_v) * WK;
+    const int sweep = it < nc ? 0 : it < 2 * nc ? 1 : 2;
+    if (is_v) {               // out += p^ . V, p^ straight from the registers
+      npe_wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
+      for (int u = 0; u < WK / 16; ++u) wg_rs<D>(o, pa[u], npe_mnmajor<D>(slot, 16 * u), 1);
+      npe_wgmma_commit();
+      npe_wgmma_wait();
+      npe_reg_fence(o);
+      continue;
+    }
+    // S = q . K^T over the chunk's keys
+    float s[NS];
+    npe_wgmma_fence();
+    wg_ss_chain<WK, D>(s, a.q_pieces,
+                       [&](int p, int kk) { return npe_kmajor<D>(qt + p * (WT * D * 2), 0, 16 * kk); },
+                       [&](int, int kk) { return npe_kmajor<D>(slot, 0, 16 * kk); });
+    npe_wgmma_commit();
+    npe_wgmma_wait();
+    npe_reg_fence(s);
+    if (!live) continue;      // the same for the warp's lanes
+    // score i: row (i >> 1) & 1, key key0 + 8 (i >> 2) + 2 t4 + (i & 1)
 #pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float y = __shfl_xor_sync(0xffffffffu, v[e], o);
-        v[e] = is_max ? fmaxf(v[e], y) : __fadd_rn(v[e], y);
+    for (int i = 0; i < NS; ++i) s[i] = __fmul_rn(s[i], a.scale);
+    wg_cap<PWL, NS>(s, a, ttab, ttop);
+    const bool full = chunk_full(key0);
+    uint32_t hid = 0;
+    if (!full) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = key0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        hid |= (uint32_t)wg_hidden(col, pos[(i >> 1) & 1], kv_hi, a) << i;
+        s[i] = (hid >> i) & 1u ? NEG_BIG : s[i];
       }
-    if (t4 == 0) {
-      red[warp][g] = v[0];
-      red[warp][g + 8] = v[1];
+    }
+    if (sweep == 0) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = __fsub_rn(s[i], m[(i >> 1) & 1]);
+      wg_exp<PWL, NS>(s, etab, top);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = (hid >> i) & 1u ? 0.f : s[i];
+      if (sweep == 1) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) part[(i >> 1) & 1] = __fadd_rn(part[(i >> 1) & 1], s[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s[i] = wg_p<PWL>(s[i], norm[(i >> 1) & 1]);
+#pragma unroll
+        for (int u = 0; u < WK / 16; ++u) wg_pack_a(s + 8 * u, pa[u]);
+      }
+    }
+    if (it == nc - 1) quad_reduce(m, true);          // the max sweep's end
+    if (it == 2 * nc - 1) {                          // the sum sweep's end
+      quad_reduce(part, false);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) norm[e] = wg_norm<PWL>(part[e], rtab, rtop);
+    }
+  }
+  npe_cp_async_wait<0>();
+  __syncthreads();            // the ring is free: the output goes through it
+
+  // each row's statistics (m, and the norm p^ was taken with) for the
+  // backward, when asked; out = the accumulators (p^ was normalized)
+  constexpr int OS = D + 4;
+  float* ost = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int rho = 16 * warp + g + 8 * e;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(ost + rho * OS + 8 * j + 2 * t4) =
+          make_float2(o[4 * j + 2 * e], o[4 * j + 2 * e + 1]);
+    if (a.stats && t4 == 0 && pos[e] >= 0) {
+      const GroupRow gr = group_row(r0 + rho, hk, group);
+      reinterpret_cast<float2*>(a.stats)[((long long)b * a.hq + gr.head) * a.sq + gr.query] =
+          make_float2(m[e], norm[e]);
+    }
+  }
+  __syncthreads();
+  wg_write_out<D>(a, b, ost, OS, WT, [&](int rho) {
+    return r0 + rho < R ? group_row(r0 + rho, hk, group) : GroupRow{-1, 0};
+  });
+}
+
+// The transposed instance, for a tile of NR (16 or 32) group rows: a decode
+// step of a GQA group of 9 to 32 heads, or a prefill whose 64-row tiles
+// would leave most SMs idle.  S^T = K . q^T puts 64 keys on wgmma's rows and
+// the tile's rows on its columns, NR / 2 scores a thread a chunk and no
+// padding rows at decode; p^T goes through shared memory to
+// out^T += V^T . p^T (V the transposed A).  Such a block has an SM to
+// itself, so WGT_GROUPS warpgroups split the chunks in turn, each with a
+// ring of its own and a named barrier; a row's max and sum are reduced
+// across lanes, warps and warpgroups once a sweep, and the warpgroups'
+// partial outputs are summed in order at the end.  A launch takes as many
+// warpgroups as its tiles have chunks, two to WGT_GROUPS.
+constexpr int WGT_GROUPS = 4;
+
+// Slots of a warpgroup's ring in the transposed instance: three, or two
+// where three would not fit beside f32 q's three pieces.
+template <int D, int NR>
+__host__ __device__ __forceinline__ int wgt_ring(int q_pieces) {
+  return D == 128 && NR == 32 && q_pieces > 1 ? 2 : 3;
+}
+
+template <int D, bool PWL, int NR>
+__global__ void __launch_bounds__(WGT_GROUPS * WG, 1)
+flash_dense_wgt_kernel(const Args a) {
+  constexpr int SLOT = WK * D * 2;       // bytes of a K or V chunk
+  constexpr int NS = NR / 2;             // scores a thread a chunk
+  constexpr int NCOL = NR / 4;           // rows (wgmma's columns) a thread holds
+  constexpr int DB = (D + 63) / 64;      // 64-row blocks of D (D = 32: half of one used)
+  constexpr int PT = NR * WK * 2;        // bytes of p^T: NR rows of 64 keys
+  constexpr int QSLOTS = NR * (D / 8);   // q's 16-byte slots, at most two a thread
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int wrt = wgt_ring<D, NR>(a.q_pieces);
+  const int ng = blockDim.x >> 7;        // warpgroups: 2 to WGT_GROUPS
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & (WG - 1);
+  unsigned char* ring = smem_raw + wg * (wrt * SLOT + PT);     // this warpgroup's ring
+  unsigned char* pt = ring + wrt * SLOT;                       // and its p^T
+  unsigned char* qt = smem_raw + ng * (wrt * SLOT + PT);       // q's pieces, NR x D each
+  __shared__ float red[WGT_GROUPS * 4][NR];
+  __shared__ NpePrefixTable etab, rtab, ttab;
+  const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
+
+  const int group = a.hq / a.hkv, R = group * a.sq;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * NR;   // the tiles that see the most keys first
+  const int b = blockIdx.y / a.hkv, hk = blockIdx.y % a.hkv;
+  const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  const int off = a.kv_len - a.sq;
+  // the keys some row of the tile sees, as in the row-major instance
+  const int kv_lo = dense_kv_lo(off + r0 / group, a);
+  const int kv_hi = a.causal ? off + (min(r0 + NR, R) - 1) / group + 1 : a.kv_len;
+  const int nc = (kv_hi - kv_lo + WK - 1) / WK;
+  // this warpgroup's chunks: wg, wg + ng, ...  The first one's
+  // scores, then its e, stay in registers (sc), so it is staged and
+  // multiplied once; the others three times.  Its loads, in order: K of
+  // each chunk (the max sweep), K of each but the first (the sum sweep),
+  // then V of the first and K and V of each other (P.V).
+  const int mine = nc > wg ? (nc - wg + ng - 1) / ng : 0;
+  const int nloads = mine > 0 ? 4 * mine - 2 : 0;
+  auto issue = [&](int u) {
+    int j;
+    bool is_v = false;
+    if (u < mine) {
+      j = u;
+    } else if (u < 2 * mine - 1) {
+      j = u - mine + 1;
+    } else {
+      const int w = u - (2 * mine - 1);
+      j = (w + 1) >> 1;
+      is_v = (w & 1) == 0;
+    }
+    wg_stage_rows<D, WK>(is_v ? vg : kg, is_v ? a.vs[2] : a.ks[2],
+                         kv_lo + (wg + ng * j) * WK, kv_hi, ring + (u % wrt) * SLOT, tw);
+  };
+  // q's slot of this thread first, so that its loads do not queue behind
+  // the ring's; then the ring's first copies; then q's pieces
+  auto row_src = [&](int rho) -> long long {
+    if (r0 + rho >= R) return -1;
+    const GroupRow gr = group_row(r0 + rho, hk, group);
+    return b * a.qs[0] + gr.head * a.qs[1] + gr.query * a.qs[2];
+  };
+  float qf[2][8];
+  int qrho[2] = {0, 0}, qc[2] = {0, 0};
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (threadIdx.x + k * blockDim.x < QSLOTS)
+      wg_q_fetch<D>(a.q, a.qs[3], a.q_bf16, a.q_vec, threadIdx.x + k * blockDim.x, row_src, qf[k],
+                    qrho[k], qc[k]);
+  if (nloads > 0) issue(0);              // the first chunk now, the ring's other copies
+  npe_cp_async_commit();                  // once q and the tables are in place
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (threadIdx.x + k * blockDim.x < QSLOTS)
+      wg_q_put<D, NR>(qf[k], qrho[k], qc[k], a.q_pieces, qt);
+  npe_fence_async_smem();
+  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);  // ends synced
+  dense_cap_table(ttab, a);
+  for (int u = 1; u < wrt - 1; ++u) {
+    if (u < nloads) issue(u);
+    npe_cp_async_commit();
+  }
+  const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
+  const int ttop = npe_prefix_top(a.tanh_segs);
+
+  // this thread's rows: column c of its NCOL is row 8 (c >> 1) + 2 t4 + (c & 1)
+  int pos[NCOL];
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c) {
+    const int n = r0 + 8 * (c >> 1) + 2 * t4 + (c & 1);
+    pos[c] = n < R ? off + n / group : -1;
+  }
+  float m[NCOL], part[NCOL], norm[NCOL];
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c) m[c] = NEG_BIG, part[c] = 0.f, norm[c] = 1.f;
+  float ot[DB][NS];                       // out^T: 64 values of D a wgmma, NR rows
+#pragma unroll
+  for (int db = 0; db < DB; ++db)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) ot[db][i] = 0.f;
+  float sc[NS];                           // the first chunk's scores, then its e
+  uint32_t hidc = 0;                      // and its hidden scores
+  // each row's max (or sum) over the block: the 8 lanes of a column, then
+  // the warps of every warpgroup in order
+  auto cols_reduce = [&](float (&v)[NCOL], bool is_max) {
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c)
+#pragma unroll
+      for (int o = 4; o <= 16; o <<= 1) {
+        const float y = __shfl_xor_sync(0xffffffffu, v[c], o);
+        v[c] = is_max ? fmaxf(v[c], y) : __fadd_rn(v[c], y);
+      }
+    if (g == 0) {
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) red[4 * wg + warp][8 * (c >> 1) + 2 * t4 + (c & 1)] = v[c];
     }
     __syncthreads();
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float x = red[0][g + 8 * e];
-#pragma unroll
-      for (int w = 1; w < MMA_WARPS; ++w)
-        x = is_max ? fmaxf(x, red[w][g + 8 * e]) : __fadd_rn(x, red[w][g + 8 * e]);
-      v[e] = x;
+    for (int c = 0; c < NCOL; ++c) {
+      const int n = 8 * (c >> 1) + 2 * t4 + (c & 1);
+      float x = red[0][n];
+      for (int w = 1; w < ng * 4; ++w)
+        x = is_max ? fmaxf(x, red[w][n]) : __fadd_rn(x, red[w][n]);
+      v[c] = x;
     }
-    __syncthreads();                       // red is free again
-  };
-  // e of a fragment's 8 scores (keys from kc), masked to 0; summed into part
-  auto frag_exp = [&](float (&z)[8], int kc) {
-#pragma unroll
-    for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(z[x], m[(x >> 1) & 1]);
-    dense_exp_n<8>(z, a, etab, top);
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
-      z[x] = key_masked(col, pos[(x >> 1) & 1], a) ? 0.f : z[x];
-      part[(x >> 1) & 1] = __fadd_rn(part[(x >> 1) & 1], z[x]);
-    }
+    __syncthreads();                      // red is free again
   };
 
-  // One sweep over the keys s0.. of a segment: its K chunks and, in phase 2,
-  // its V chunks, through the ring (RING - 1 of them in flight).  Phase 0:
-  // the max of the scores; phase 1: the sum of e; phase 2: e into s_s
-  // (with one segment: the scores, then at the first V chunk the max, e and
-  // the sum), then P.V with p = e normalized and rounded to bf16.
-  auto sweep = [&](int phase, int s0) {
-    const int s_end = min(s0 + DENSE_SEG, kv_hi);
-    const int nc = (s_end - s0 + KC - 1) / KC;
-    const int items = phase == 2 ? 2 * nc : nc;
-    auto issue = [&](int it) {
-      const bool is_k = it < nc;
-      const __nv_bfloat16* src = is_k ? kg : vg;
-      const long long stride = is_k ? a.ks[2] : a.vs[2];
-      const int key0 = s0 + (is_k ? it : it - nc) * KC;
-      __nv_bfloat16* dst = ring + (it % RING) * KC * DS;
-      for (int x = tid; x < KC * (D / 8); x += blockDim.x) {
-        const int kr = x / (D / 8), piece = x % (D / 8);
-        const int key = key0 + kr;
-        const bool ok = key < s_end;       // never past the keys the tile sees
-        npe_cp_async16(dst + kr * DS + piece * 8, ok ? src + key * stride + piece * 8 : src,
-                       ok ? 16 : 0);
-      }
-    };
-#pragma unroll
-    for (int it = 0; it < RING - 1; ++it) {
-      if (it < items) issue(it);
+  // steps: every warpgroup's chunks of a sweep in turn (the P.V sweep a K
+  // step and a V step a chunk; a warpgroup with fewer chunks waits out the
+  // last steps), the sweeps' ends block-wide
+  const int mmax = (nc + ng - 1) / ng;
+  int u = 0;                              // the next load of the ring
+  for (int t = 0; t < 4 * mmax; ++t) {
+    const int sweep = t < mmax ? 0 : t < 2 * mmax ? 1 : 2;
+    const int j = sweep < 2 ? t % mmax : (t - 2 * mmax) >> 1;
+    const bool vstep = sweep == 2 && ((t - 2 * mmax) & 1);
+    const bool cached = j == 0 && sweep > 0 && !vstep;
+    if (j < mine) do {
+    const unsigned char* slot = ring;
+    if (!cached) {            // the step reads the ring's next chunk
+      if (wrt == 3) npe_cp_async_wait<1>();
+      else npe_cp_async_wait<0>();
+      npe_fence_async_smem();
+      // load u staged (and p^T written); every warp of the warpgroup is
+      // done with load u - 1's slot
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(WG) : "memory");
+      if (u + wrt - 1 < nloads) issue(u + wrt - 1);
       npe_cp_async_commit();
+      slot = ring + (u % wrt) * SLOT;
+      ++u;
     }
-    for (int it = 0; it < items; ++it) {
-      npe_cp_async_wait<RING - 2>();
-      __syncthreads();        // item `it` staged; every warp is done with item it-1's stage
-      if (it + RING - 1 < items) issue(it + RING - 1);
-      npe_cp_async_commit();
-      const __nv_bfloat16* tile = ring + (it % RING) * KC * DS;
-      const int j = it < nc ? it : it - nc;
-      const int kc = s0 + j * KC + warp * 16;   // this warp's first key
-      float* sfrag = s_s + ((warp * CHUNKS + j) * 32 + lane) * 8;
-      if (it < nc) {
-        // S = (q . K^T) * scale over this warp's 16 keys, masked at NEG_BIG
-        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if (vstep) {              // out^T += V^T . p^T, a 64-row block of D at a time
+      npe_wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t bk[4];
-          npe_ldsm_x4(bk, tile + (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-          for (int pc = 0; pc < a.q_pieces; ++pc) {
-            uint32_t aq[4];
-            npe_ldsm_x4(aq, qp + (pc * 16 + (lane & 15)) * DS + kk * 16 + (lane >> 4) * 8);
-            npe_mma_bf16(s[0], aq, bk[0], bk[1]);
-            npe_mma_bf16(s[1], aq, bk[2], bk[3]);
-          }
-        }
-        float z[8];
+      for (int db = 0; db < DB; ++db)
 #pragma unroll
-        for (int x = 0; x < 8; ++x) z[x] = __fmul_rn(s[x >> 2][x & 3], a.scale);
-        dense_cap_n<8>(z, a, ttab, ttop);
+        for (int kk = 0; kk < WK / 16; ++kk)
+          wg_ss_ta<NR>(ot[db], npe_mnmajor<D>(slot, 16 * kk, 64 * db),
+                       npe_kmajor<WK>(pt, 0, 16 * kk), 1);
+      npe_wgmma_commit();
+      npe_wgmma_wait();
 #pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
-          z[x] = key_masked(col, pos[(x >> 1) & 1], a) ? NEG_BIG : z[x];
-        }
-        if (phase == 0 || (phase == 2 && nseg == 1)) {
+      for (int db = 0; db < DB; ++db) npe_reg_fence(ot[db]);
+      break;
+    }
+    const int key0 = kv_lo + (wg + ng * j) * WK;
+    float s[NS];
+    uint32_t hid = 0;
+    if (cached) {
 #pragma unroll
-          for (int x = 0; x < 8; ++x) m[(x >> 1) & 1] = fmaxf(m[(x >> 1) & 1], z[x]);
-        } else {
-          frag_exp(z, kc);                 // phase 1, or phase 2 of several segments
-        }
-        if (phase == 2) {
-          reinterpret_cast<float4*>(sfrag)[0] = make_float4(z[0], z[1], z[2], z[3]);
-          reinterpret_cast<float4*>(sfrag)[1] = make_float4(z[4], z[5], z[6], z[7]);
-        }
-      } else {
-        if (it == nc && nseg == 1) {       // every K chunk is done: the sync above
-          rows_reduce(m, true);
-          for (int jj = 0; jj < nc; ++jj) {
-            float* f = s_s + ((warp * CHUNKS + jj) * 32 + lane) * 8;
-            float z[8];
+      for (int i = 0; i < NS; ++i) s[i] = sc[i];
+      hid = hidc;
+    } else {
+      // S^T = K . q^T: the chunk's 64 keys by the NR rows
+      npe_wgmma_fence();
+      wg_ss_chain<NR, D>(s, a.q_pieces, [&](int, int kk) { return npe_kmajor<D>(slot, 0, 16 * kk); },
+                         [&](int p, int kk) { return npe_kmajor<D>(qt + p * (NR * D * 2), 0, 16 * kk); });
+      npe_wgmma_commit();
+      npe_wgmma_wait();
+      npe_reg_fence(s);
+      // score i: key key0 + 16 warp + g + 8 ((i >> 1) & 1), row column
+      // c(i) = 2 (i >> 2) + (i & 1)
 #pragma unroll
-            for (int x = 0; x < 8; ++x) z[x] = f[x];
-            frag_exp(z, s0 + jj * KC + warp * 16);
+      for (int i = 0; i < NS; ++i) s[i] = __fmul_rn(s[i], a.scale);
+      wg_cap<PWL, NS>(s, a, ttab, ttop);
 #pragma unroll
-            for (int x = 0; x < 8; ++x) f[x] = z[x];
-          }
-          rows_reduce(part, false);
+      for (int i = 0; i < NS; ++i) {
+        const int key = key0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+        hid |= (uint32_t)wg_hidden(key, pos[2 * (i >> 2) + (i & 1)], kv_hi, a) << i;
+        s[i] = (hid >> i) & 1u ? NEG_BIG : s[i];
+      }
+      if (j == 0) {           // the max sweep's first chunk: keep its scores
 #pragma unroll
-          for (int e = 0; e < 2; ++e) norm[e] = dense_norm(part[e], a, rtab, rtop);
-        }
-        // p = e normalized, one bf16 operand straight from the accumulator layout
-        const float4 f0 = reinterpret_cast<const float4*>(sfrag)[0];
-        const float4 f1 = reinterpret_cast<const float4*>(sfrag)[1];
-        const float z[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
-        float p[8];
-#pragma unroll
-        for (int x = 0; x < 8; ++x) p[x] = dense_p(z[x], norm[(x >> 1) & 1], a);
-        const uint32_t ap[4] = {npe_pack_bf16(p[0], p[1]), npe_pack_bf16(p[2], p[3]),
-                                npe_pack_bf16(p[4], p[5]), npe_pack_bf16(p[6], p[7])};
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t bv[4];
-          npe_ldsm_x4_trans(bv, tile + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
-                                    dd * 16 + (lane >> 4) * 8);
-          npe_mma_bf16(acc[2 * dd], ap, bv[0], bv[1]);
-          npe_mma_bf16(acc[2 * dd + 1], ap, bv[2], bv[3]);
-        }
+        for (int i = 0; i < NS; ++i) sc[i] = s[i];
+        hidc = hid;
       }
     }
-    __syncthreads();          // the ring is free for the next sweep
-  };
-
-  if (nseg > 1) {
-    for (int seg = 0; seg < nseg; ++seg) sweep(0, kv_lo + seg * DENSE_SEG);
-    rows_reduce(m, true);
-    for (int seg = 0; seg < nseg; ++seg) sweep(1, kv_lo + seg * DENSE_SEG);
-    rows_reduce(part, false);
+    if (sweep == 0) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) norm[e] = dense_norm(part[e], a, rtab, rtop);
+      for (int i = 0; i < NS; ++i) {
+        const int c = 2 * (i >> 2) + (i & 1);
+        m[c] = fmaxf(m[c], s[i]);
+      }
+      break;
+    }
+    // e, from the scores; the first chunk's e of the sum sweep is kept
+    if (!(cached && sweep == 2)) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = __fsub_rn(s[i], m[2 * (i >> 2) + (i & 1)]);
+      wg_exp<PWL, NS>(s, etab, top);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = (hid >> i) & 1u ? 0.f : s[i];
+    }
+    if (sweep == 1) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 2 * (i >> 2) + (i & 1);
+        part[c] = __fadd_rn(part[c], s[i]);
+      }
+      if (cached) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] = s[i];
+      }
+      break;
+    }
+    // p^T to shared memory, the B operand of the V step
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int kl = 16 * warp + g + 8 * ((i >> 1) & 1);
+      const int n = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      *reinterpret_cast<__nv_bfloat16*>(pt + npe_tile_off<WK>(n, kl >> 3) + (kl & 7) * 2) =
+          __float2bfloat16_rn(wg_p<PWL>(s[i], norm[2 * (i >> 2) + (i & 1)]));
+    }
+    } while (false);
+    if (t == mmax - 1) cols_reduce(m, true);            // the max
+    if (t == 2 * mmax - 1) {                            // the sum with the max fixed
+      cols_reduce(part, false);
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) norm[c] = wg_norm<PWL>(part[c], rtab, rtop);
+    }
   }
-  for (int seg = 0; seg < nseg; ++seg) sweep(2, kv_lo + seg * DENSE_SEG);
+  npe_cp_async_wait<0>();
+  __syncthreads();            // the rings are free: the partial outputs go through them
 
-  // out = the warps' partial accumulators summed (p was normalized)
-  float* comb = reinterpret_cast<float*>(smem_raw);   // MMA_WARPS x 16 x D, over the ring
+  constexpr int OS = D + 4;
+  float* ost = reinterpret_cast<float*>(smem_raw);    // a warpgroup's NR rows of D
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int db = 0; db < DB; ++db)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      comb[(warp * 16 + g + 8 * (e >> 1)) * D + n * 8 + 2 * t4 + (e & 1)] = acc[n][e];
+    for (int i = 0; i < NS; ++i) {
+      const int d = 64 * db + 16 * warp + g + 8 * ((i >> 1) & 1);
+      if (d < D) ost[wg * NR * OS + (8 * (i >> 2) + 2 * t4 + (i & 1)) * OS + d] = ot[db][i];
+    }
+  if (a.stats && threadIdx.x < 32 && g == 0) {
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) {
+      const int n = r0 + 8 * (c >> 1) + 2 * t4 + (c & 1);
+      if (n >= R) continue;
+      const GroupRow gr = group_row(n, hk, group);
+      reinterpret_cast<float2*>(a.stats)[((long long)b * a.hq + gr.head) * a.sq + gr.query] =
+          make_float2(m[c], norm[c]);
+    }
+  }
   __syncthreads();
-  const long long obase = b * a.os[0] + h * a.os[1];
-  for (int idx = tid; idx < 16 * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D;
-    if (q0 + r >= a.sq) continue;
-    float s = comb[r * D + c];
-#pragma unroll
-    for (int w = 1; w < MMA_WARPS; ++w) s = __fadd_rn(s, comb[(w * 16 + r) * D + c]);
-    store(a, obase + (q0 + r) * a.os[2] + c * a.os[3], s);
-  }
+  wg_write_out<D>(a, b, ost, OS, NR, [&](int rho) {
+    return r0 + rho < R ? group_row(r0 + rho, hk, group) : GroupRow{-1, 0};
+  }, ng, NR * OS);
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-// Raise a kernel's dynamic shared memory limit to what this launch needs
-// (static and dynamic shared memory together may pass 48 KB only so).
-template <typename K>
-int allow_smem(K kernel, size_t bytes, size_t& granted) {
-  if (bytes <= granted) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  granted = bytes;
-  return 0;
-}
 
 template <int D>
 int launch(const Args& a, int batch, cudaStream_t stream) {
@@ -1415,10 +1739,42 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D, bool PWL, int NR>
+int launch_dense_wgt(const Args& a, int batch, int tiles, cudaStream_t stream) {
+  // warpgroups: one a chunk of the keys a tile may see, two to WGT_GROUPS
+  const int ng = min(WGT_GROUPS, max(2, (a.kv_len + WK - 1) / WK));
+  const size_t smem = ng * ((size_t)wgt_ring<D, NR>(a.q_pieces) * WK * D * 2 + NR * WK * 2) +
+                      (size_t)a.q_pieces * NR * D * 2;
+  static size_t granted = 0;
+  if (int err = allow_smem(flash_dense_wgt_kernel<D, PWL, NR>, smem, granted)) return err;
+  flash_dense_wgt_kernel<D, PWL, NR><<<dim3(tiles, batch * a.hkv), ng * WG, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool PWL>
+int launch_dense_wg(const Args& a, int batch, cudaStream_t stream) {
+  const int rows = (a.hq / a.hkv) * a.sq;
+  // the row-major grid, and whether it fills two waves of the SMs
+  const int tiles64 = (rows + WT - 1) / WT;
+  const bool fills = (long long)tiles64 * batch * a.hkv >= 2 * npe_sm_count();
+  if (rows > 16 && rows <= 32) return launch_dense_wgt<D, PWL, 32>(a, batch, 1, stream);
+  if (rows <= 16 || !fills)
+    return launch_dense_wgt<D, PWL, 16>(a, batch, (rows + 15) / 16, stream);
+  const size_t smem = (size_t)WRING * WK * D * 2 + (size_t)a.q_pieces * WT * D * 2;
+  static size_t granted = 0;
+  if (int err = allow_smem(flash_dense_wg_kernel<D, PWL>, smem, granted)) return err;
+  flash_dense_wg_kernel<D, PWL><<<dim3(tiles64, batch * a.hkv), WG, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// At most 8 rows a kv head and no statistics asked: the decode instance;
+// up to 32, the transposed tensor-core instance on one tile; more, whose
+// 64-row tiles would not fill two waves of the SMs, the transposed one in
+// 16-row tiles; else the row-major one.
 template <int D>
 int launch_dense(const Args& a, int batch, cudaStream_t stream) {
   const int rows = (a.hq / a.hkv) * a.sq;
-  if (rows <= DEC_ROWS) {
+  if (rows <= DEC_ROWS && a.stats == nullptr) {
     const int rmax = rows == 1 ? 1 : DEC_ROWS;
     const size_t smem = sizeof(float) * max((size_t)DENSE_SCORES, (size_t)DEC_WARPS * rmax * D);
     if (rows == 1)
@@ -1427,727 +1783,8 @@ int launch_dense(const Args& a, int batch, cudaStream_t stream) {
       flash_dense_decode_kernel<D, DEC_ROWS><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
   }
-  const size_t smem = MmaLayout<D>::bytes(DENSE_SEG);
-  static size_t granted = 0;
-  if (int err = allow_smem(flash_dense_mma_kernel<D>, smem, granted)) return err;
-  const dim3 grid((a.sq + 15) / 16, batch * a.hq);
-  flash_dense_mma_kernel<D><<<grid, 32 * MMA_WARPS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-bool vec_ok(const void* p, long long s0, long long s1, long long s2, long long s3) {
-  return s3 == 1 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-
-// ---------------------------------------------------------------------------
-// the dense mode's backward (npe_attention_dense_grad)
-// ---------------------------------------------------------------------------
-//
-// jax.vjp of attention_scores (src/repro/models/common.py:205), which the
-// reference's training differentiates: for each query row over its visible
-// keys, with p^_j the bf16 probabilities of the forward,
-//   dp^_j = bf16(do . v_j)                      (jax rounds this cotangent)
-//   dr = sum_j dp^_j e_j, dS = dr recip'(S)     (the reciprocal's slope at the
-//        mantissa of max(S, 1e-30), times 2^-e twice; 1/2 where S ties 1e-30)
-//   dz_j = (dp^_j r + dS) exp'(z_j)             (the exp table's slope, 1/2 where
-//        the PWL ties 0, 0 past the clamp)
-//   the row max's term -sum_j dz_j, split evenly among the tied maxima;
-//   exact mode: jax.nn.softmax's p (dp - sum p dp);
-//   the soft cap: ((dt c) tanh'(s / c)) / c, tanh' the table's slope;
-//   dS_ij = dt_ij * scale; dq = dS . k, dk = sum_i dS_ij q_i and
-//   dv = sum_i p^_ij do_i over the GQA group's rows, each rounded once to
-//   its operand's dtype.
-// Bound on this card: operations.  The five products of a visible pair
-// (S and dP again, dV, dK, dQ; 2 D each) on the bf16 tensor cores, and some
-// fifty f32 operations a pair on the CUDA cores (two table searches, the
-// chain above), against q, k, v and the cotangent read once.
-// Design (FlashAttention-2's, written to be right first): the forward is
-// recomputed, never stored.  `dense_grad_q_kernel`, a block of 4 warps for
-// 64 query rows of one head, each warp 16 rows over every key of a 64-key
-// chunk (so a row's reductions stay in its quad of lanes, and the block
-// syncs only for the chunks: K and V through a two-stage cp.async ring;
-// S = Q.K^T and dP = dO.V^T by mma.sync on bf16 with f32 accumulation, q
-// split into bf16 pieces when it is f32), makes four sweeps over the
-// visible keys: the max; the sum S, dr and the tied maxima; the sum of dz;
-// then dS into dQ (each f32 dS split into three bf16 pieces, so every
-// product is exact and only sums change order).  It writes each
-// row's m, 1/S (S in exact mode), dS (sum p dp) and the max's share to a
-// workspace.  `dense_grad_kv_kernel`, a block a 64-key block of one q head,
-// takes those and every 16-query tile that sees one of its keys (the next
-// tile's q, cotangent and statistics loaded while this one computes),
-// recomputes S^T = K.Q^T and dP^T = V.dO^T, whose fragments are the A
-// operands of dV += P^T.dO and dK += dS^T.Q, and writes f32 partials a q
-// head; the wrapper sums them over the group and rounds them (a torch sum).
-// A table's value comes from the prefix search (the forward's bits), and
-// its slope from `slope_table`'s row at the segment that search found.
-
-constexpr int GW = 4;                    // warps a backward block
-constexpr int GT = 32 * GW;              // threads a backward block
-constexpr int GKC = 16 * GW;             // keys a staged chunk (the kv kernel: 16 a warp)
-constexpr int GQ = 16 * GW;              // query rows a block of the q kernel, 16 a warp
-
-struct GradArgs {
-  const void* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  void* dq;
-  float* dk;                             // (B, Hq, Skv, D) f32 partials a q head
-  float* dv;
-  float* stats;                          // (B, Hq, Sq, 4): m, norm, dS, share
-  long long qs[4], ks[4], vs[4], dos[4];
-  int hq, hkv, sq, skv, q_bf16, q_pieces, causal, window, use_pwl;
-  float scale, softcap;
-  const float* exp_table;
-  const float* exp_slopes;
-  int exp_segs;
-  float exp_lo, exp_hi;
-  const float* recip_table;
-  const float* recip_slopes;
-  int recip_segs;
-  float recip_lo, recip_hi;
-  const float* tanh_table;
-  const float* tanh_slopes;
-  int tanh_segs;
-  float tanh_lo, tanh_hi;
-};
-
-// The tables of a backward block: values in prefix form, slopes as rows.
-struct GradTables {
-  NpePrefixTable e, r, t;
-  float es[2 * NPE_MAX_TABLE_COLS], rs[2 * NPE_MAX_TABLE_COLS], ts[2 * NPE_MAX_TABLE_COLS];
-  int etop, rtop, ttop;
-};
-
-// Every thread of a block of GT threads calls it; ends synced.
-__device__ __forceinline__ void grad_tables(GradTables& T, const GradArgs& a) {
-  const NpePrefixFetch ef(a.exp_table, a.exp_segs), rf(a.recip_table, a.recip_segs);
-  npe_load_slope_table(T.es, a.exp_slopes, a.exp_segs + 1);
-  npe_load_slope_table(T.rs, a.recip_slopes, a.recip_segs + 1);
-  if (a.softcap > 0.f && a.use_pwl) npe_load_slope_table(T.ts, a.tanh_slopes, a.tanh_segs + 1);
-  npe_build_prefix_tables(T.e, ef, a.exp_segs, T.r, rf, a.recip_segs);
-  if (a.softcap > 0.f && a.use_pwl) {
-    const NpePrefixFetch tf(a.tanh_table, a.tanh_segs);
-    npe_build_prefix_table(T.t, tf, a.tanh_segs);
-  }
-  T.etop = npe_prefix_top(a.exp_segs);
-  T.rtop = npe_prefix_top(a.recip_segs);
-  T.ttop = npe_prefix_top(a.tanh_segs);
-}
-
-__device__ __forceinline__ bool grad_masked(int col, int pos, const GradArgs& a) {
-  return col >= a.skv || (a.causal && col > pos) || (a.window > 0 && col <= pos - a.window);
-}
-
-// N values of one table at once by the prefix search (npe_pwl_prefix_n's
-// steps, so the walk's bits), in place, and the segment each found: the
-// count of interior knots <= x, the segment whose slope is the derivative
-// there.  N independent searches give the scheduler N chains to interleave.
-template <int N>
-__device__ __forceinline__ void grad_pwl_n(float (&v)[N], int (&seg)[N], const NpePrefixTable& t,
-                                           int top) {
-  const char* kb = reinterpret_cast<const char*>(t.knot);
-  int k[N];   // 4 * seg
-#pragma unroll
-  for (int j = 0; j < N; ++j) k[j] = 0;
-  if (top > 0) {
-    const float k_top = t.knot[top];
-#pragma unroll
-    for (int j = 0; j < N; ++j) k[j] = v[j] >= k_top ? 4 * top : 0;
-    int step = top >> 1;
-    if (step > 0) {
-      const float k_lo = t.knot[step], k_hi = t.knot[top + step];
-#pragma unroll
-      for (int j = 0; j < N; ++j) k[j] = v[j] >= (k[j] ? k_hi : k_lo) ? k[j] + 4 * step : k[j];
-      for (step *= 2; step >= 4; step >>= 1) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const int c = k[j] + step;
-          k[j] = v[j] >= *reinterpret_cast<const float*>(kb + c) ? c : k[j];
-        }
-      }
-    }
-  }
-  const char* sb = reinterpret_cast<const char*>(t.si);
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float2 p = *reinterpret_cast<const float2*>(sb + 2 * k[j]);
-    seg[j] = k[j] >> 2;
-    v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
-  }
-}
-
-// A fragment's 8 scores from their raw dots q . k, in place: s = dot *
-// scale, then with a cap c the forward's c * tanh(s / c), keeping u = s / c,
-// t = tanh(u) and, with PWL, tanh's slope at clip(u) for the backward.
-struct GradCap8 {
-  float u[8], t[8], slope[8];
-};
-
-__device__ __forceinline__ void grad_scores8(float (&s)[8], GradCap8& c, const GradArgs& a,
-                                             const GradTables& T) {
-#pragma unroll
-  for (int x = 0; x < 8; ++x) s[x] = __fmul_rn(s[x], a.scale);
-  if (a.softcap <= 0.f) return;
-#pragma unroll
-  for (int x = 0; x < 8; ++x) c.u[x] = __fdiv_rn(s[x], a.softcap);
-  if (a.use_pwl) {
-    int seg[8];
-#pragma unroll
-    for (int x = 0; x < 8; ++x) c.t[x] = fminf(fmaxf(c.u[x], a.tanh_lo), a.tanh_hi);
-    grad_pwl_n<8>(c.t, seg, T.t, T.ttop);
-#pragma unroll
-    for (int x = 0; x < 8; ++x) c.slope[x] = T.ts[(a.tanh_segs + 1) + seg[x]];
-  } else {
-#pragma unroll
-    for (int x = 0; x < 8; ++x) c.t[x] = tanhf(c.u[x]);
-  }
-#pragma unroll
-  for (int x = 0; x < 8; ++x) s[x] = __fmul_rn(a.softcap, c.t[x]);
-}
-
-// e at 8 values z = s - m: the PWL exp floored at 0 (with its clipped value
-// er and the slope of er's segment), or expf.
-__device__ __forceinline__ void grad_exp8(const float (&z)[8], float (&e)[8], float (&er)[8],
-                                          float (&slope)[8], const GradArgs& a,
-                                          const GradTables& T) {
-  if (!a.use_pwl) {
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      e[x] = er[x] = expf(z[x]);
-      slope[x] = 0.f;
-    }
-    return;
-  }
-  int seg[8];
-#pragma unroll
-  for (int x = 0; x < 8; ++x) er[x] = fminf(fmaxf(z[x], a.exp_lo), a.exp_hi);
-  grad_pwl_n<8>(er, seg, T.e, T.etop);
-#pragma unroll
-  for (int x = 0; x < 8; ++x) {
-    slope[x] = T.es[(a.exp_segs + 1) + seg[x]];
-    e[x] = fmaxf(er[x], 0.f);
-  }
-}
-
-// Stats of one query row, as the q kernel writes them.
-struct GradRow {
-  float m, norm, ds, share;   // norm: 1/S (PWL) or S (exact); ds: dS (PWL) or sum p dp (exact)
-};
-
-// dz of one visible pair without the max's share (PWL), from its z, its
-// exp's er and slope, its bf16 dp^ and the row's statistics.
-__device__ __forceinline__ float grad_dz(float z, float er, float slope, float dph,
-                                         const GradRow& r, const GradArgs& a) {
-  float g = __fmul_rn(__fadd_rn(__fmul_rn(dph, r.norm), r.ds), npe_max_factor(er, 0.f));
-  g = __fmul_rn(g, slope);
-  return __fmul_rn(g, npe_clip_factor(z, a.exp_lo, a.exp_hi));
-}
-
-// (p^, dS_ij times scale) of one visible pair: the forward's bf16
-// probability; the softmax's gradient (its max's share where z = 0), then
-// the cap's (fragment element x of `c`).
-__device__ __forceinline__ float2 grad_pair(float z, float e, float er, float slope, float dph,
-                                            const GradCap8& c, int x, const GradRow& r,
-                                            const GradArgs& a) {
-  float g, p;
-  if (a.use_pwl) {
-    p = __fmul_rn(e, r.norm);
-    g = grad_dz(z, er, slope, dph, r, a);
-    if (z == 0.f) g = __fadd_rn(g, r.share);
-  } else {
-    p = __fdiv_rn(e, r.norm);
-    g = __fadd_rn(__fmul_rn(p, dph), __fmul_rn(p, -r.ds));
-  }
-  if (a.softcap > 0.f) {
-    g = __fmul_rn(g, a.softcap);
-    if (a.use_pwl) {
-      g = __fmul_rn(g, c.slope[x]);
-      g = __fmul_rn(g, npe_clip_factor(c.u[x], a.tanh_lo, a.tanh_hi));
-    } else {
-      g = __fmul_rn(__fadd_rn(g, __fmul_rn(g, c.t[x])), __fsub_rn(1.f, c.t[x]));
-    }
-    g = __fdiv_rn(g, a.softcap);
-  }
-  return make_float2(__bfloat162float(__float2bfloat16_rn(p)), __fmul_rn(g, a.scale));
-}
-
-// Three bf16 A fragments of a 16x16 f32 C-layout tile (two n8 tiles), one a
-// piece (npe_split3): their products sum to the f32 tile's exactly.
-__device__ __forceinline__ void grad_split_frag(const float (&v)[8], uint32_t (&f)[3][4]) {
-  float p[8][3];
-#pragma unroll
-  for (int x = 0; x < 8; ++x) npe_split3(v[x], p[x]);
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) f[j][r] = npe_pack_bf16(p[2 * r][j], p[2 * r + 1][j]);
-}
-
-// Rows q0..q0+15 of q and of dO in registers, 16-byte pieces (rows of D
-// contiguous values at 16-byte aligned addresses: the wrapper sees to it),
-// zeros past Sq; `grad_put_q` writes them to shared memory, q in bf16
-// pieces.  QV pieces of q a thread (f32 q: 4 values a piece), DV of dO.
-template <int D>
-struct GradQRegs {
-  static constexpr int QV = (16 * D / 4 + GT - 1) / GT;
-  static constexpr int DV = (16 * D / 8 + GT - 1) / GT;
-  uint4 q[QV], d[DV];
-  float4 st;
-};
-
-template <int D>
-__device__ __forceinline__ void grad_fetch_q(const GradArgs& a, int b, int h, int q0,
-                                             GradQRegs<D>& r, bool stats) {
-  const int per_row = a.q_bf16 ? D / 8 : D / 4;
-  const char* qb = static_cast<const char*>(a.q) +
-                   (b * a.qs[0] + h * a.qs[1]) * (a.q_bf16 ? 2 : 4);
-#pragma unroll
-  for (int j = 0; j < GradQRegs<D>::QV; ++j) {
-    const int x = threadIdx.x + j * GT, row = x / per_row, piece = x % per_row;
-    const bool ok = row < 16 && q0 + row < a.sq;
-    r.q[j] = ok ? __ldg(reinterpret_cast<const uint4*>(qb + ((q0 + row) * a.qs[2]) * (a.q_bf16 ? 2 : 4)) + piece)
-                : make_uint4(0, 0, 0, 0);
-  }
-  const __nv_bfloat16* db = a.dout + b * a.dos[0] + h * a.dos[1];
-#pragma unroll
-  for (int j = 0; j < GradQRegs<D>::DV; ++j) {
-    const int x = threadIdx.x + j * GT, row = x / (D / 8), piece = x % (D / 8);
-    const bool ok = row < 16 && q0 + row < a.sq;
-    r.d[j] = ok ? __ldg(reinterpret_cast<const uint4*>(db + (q0 + row) * a.dos[2]) + piece)
-                : make_uint4(0, 0, 0, 0);
-  }
-  if (stats && threadIdx.x < 16 && q0 + (int)threadIdx.x < a.sq)
-    r.st = __ldg(reinterpret_cast<const float4*>(a.stats) +
-                 ((long long)(b * a.hq + h) * a.sq + q0 + threadIdx.x));
-}
-
-template <int D>
-__device__ __forceinline__ void grad_put_q(const GradArgs& a, const GradQRegs<D>& r,
-                                           __nv_bfloat16* qp, __nv_bfloat16* dop) {
-  constexpr int DS = D + 8;
-  const int per_row = a.q_bf16 ? D / 8 : D / 4;
-#pragma unroll
-  for (int j = 0; j < GradQRegs<D>::QV; ++j) {
-    const int x = threadIdx.x + j * GT, row = x / per_row, piece = x % per_row;
-    if (row >= 16) continue;
-    if (a.q_bf16) {                        // one piece (q_pieces = 1)
-      *reinterpret_cast<uint4*>(qp + row * DS + piece * 8) = r.q[j];
-    } else {
-      const float f[4] = {__uint_as_float(r.q[j].x), __uint_as_float(r.q[j].y),
-                          __uint_as_float(r.q[j].z), __uint_as_float(r.q[j].w)};
-      float p[4][3];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) npe_split3(f[c], p[c]);
-#pragma unroll
-      for (int pc = 0; pc < 3; ++pc) {
-        uint2 w = make_uint2(npe_pack_bf16(p[0][pc], p[1][pc]), npe_pack_bf16(p[2][pc], p[3][pc]));
-        *reinterpret_cast<uint2*>(qp + (pc * 16 + row) * DS + piece * 4) = w;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < GradQRegs<D>::DV; ++j) {
-    const int x = threadIdx.x + j * GT, row = x / (D / 8), piece = x % (D / 8);
-    if (row < 16) *reinterpret_cast<uint4*>(dop + row * DS + piece * 8) = r.d[j];
-  }
-}
-
-// cp.async of keys k0..k0+GKC-1 of a (batch, kv head)'s K or V rows into
-// shared memory, zeros at and past `end`.
-template <int D>
-__device__ __forceinline__ void grad_async_keys(const __nv_bfloat16* src, long long stride,
-                                                int k0, int end, __nv_bfloat16* dst) {
-  constexpr int DS = D + 8;
-#pragma unroll
-  for (int j = 0; j < GKC * (D / 8) / GT; ++j) {
-    const int x = threadIdx.x + j * GT, kr = x / (D / 8), piece = x % (D / 8), key = k0 + kr;
-    const bool ok = key < end;
-    npe_cp_async16(dst + kr * DS + piece * 8, ok ? src + key * stride + piece * 8 : src,
-                   ok ? 16 : 0);
-  }
-}
-
-// c[2][4] += A (16 rows at `arow`, D wide, `pieces` bf16 pieces 16 rows
-// apart) . B^T (16 rows at `brow`): the forward's S = Q.K^T fragments.
-template <int D>
-__device__ __forceinline__ void grad_mma_nt(float (&c)[2][4], const __nv_bfloat16* arow,
-                                            int pieces, const __nv_bfloat16* brow, int lane) {
-  constexpr int DS = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t bk[4];
-    npe_ldsm_x4(bk, brow + ((lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 + ((lane >> 3) & 1) * 8);
-    for (int pc = 0; pc < pieces; ++pc) {
-      uint32_t aq[4];
-      npe_ldsm_x4(aq, arow + (pc * 16 + (lane & 15)) * DS + kk * 16 + (lane >> 4) * 8);
-      npe_mma_bf16(c[0], aq, bk[0], bk[1]);
-      npe_mma_bf16(c[1], aq, bk[2], bk[3]);
-    }
-  }
-}
-
-// The same product with the roles turned: c[2][4] += B . A^T, fragments of
-// S^T (rows: the 16 of `brow`; columns: the 16 of `arow`).  Each element
-// sums the same products in the same order as grad_mma_nt's.
-template <int D>
-__device__ __forceinline__ void grad_mma_tn(float (&c)[2][4], const __nv_bfloat16* arow,
-                                            int pieces, const __nv_bfloat16* brow, int lane) {
-  constexpr int DS = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t ak[4];
-    npe_ldsm_x4(ak, brow + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
-    for (int pc = 0; pc < pieces; ++pc) {
-      uint32_t bq[4];
-      npe_ldsm_x4(bq, arow + (pc * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      npe_mma_bf16(c[0], ak, bq[0], bq[1]);
-      npe_mma_bf16(c[1], ak, bq[2], bq[3]);
-    }
-  }
-}
-
-// acc[NT][4] += A (16 x 16, a fragment) . Y (16 rows at `yrow`, D wide).
-template <int D>
-__device__ __forceinline__ void grad_mma_acc(float (&acc)[D / 8][4], const uint32_t (&af)[4],
-                                             const __nv_bfloat16* yrow, int lane) {
-  constexpr int DS = D + 8;
-#pragma unroll
-  for (int dd = 0; dd < D / 16; ++dd) {
-    uint32_t bv[4];
-    npe_ldsm_x4_trans(bv, yrow + ((lane & 7) + ((lane >> 3) & 1) * 8) * DS + dd * 16 +
-                              (lane >> 4) * 8);
-    npe_mma_bf16(acc[2 * dd], af, bv[0], bv[1]);
-    npe_mma_bf16(acc[2 * dd + 1], af, bv[2], bv[3]);
-  }
-}
-
-template <int D>
-struct GradLayout {
-  static constexpr int DS = D + 8;
-  static constexpr int CHUNK = GKC * DS;             // a K or V chunk
-  static constexpr int QP = Q_PIECES_MAX * 16 * DS;  // q pieces
-  static constexpr int DO = 16 * DS;
-  // the q kernel: a two-stage ring of (K, V) chunks and GW tiles of q's
-  // pieces and dO (one piece for bf16 q: two blocks an SM); the kv kernel:
-  // one K and one V chunk, one tile
-  static size_t q_bytes(int pieces) {
-    return sizeof(__nv_bfloat16) * (4 * CHUNK + GW * (pieces * 16 * DS + DO));
-  }
-  static constexpr size_t kv_bytes = sizeof(__nv_bfloat16) * (2 * CHUNK + QP + DO);
-};
-
-template <int D>
-__global__ void __launch_bounds__(GT)
-dense_grad_q_kernel(const GradArgs a) {
-  using L = GradLayout<D>;
-  constexpr int DS = L::DS;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // K0 V0 K1 V1
-  const int qtile = a.q_pieces * 16 * DS;                              // a tile's q pieces
-  __nv_bfloat16* qp = ring + 4 * L::CHUNK;                            // GW tiles of them
-  __nv_bfloat16* dop = qp + GW * qtile;
-  __shared__ GradTables T;
-
-  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq, hk = h / (a.hq / a.hkv);
-  const int q0 = blockIdx.x * GQ;                          // the block's first row
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int w0 = q0 + 16 * warp;                           // the warp's first row
-  const __nv_bfloat16* kg = a.k + b * a.ks[0] + hk * a.ks[1];
-  const __nv_bfloat16* vg = a.v + b * a.vs[0] + hk * a.vs[1];
-  const int off = a.skv - a.sq;
-  // the keys some row of the block sees
-  const int kv_lo = a.window > 0 ? max(0, off + q0 - a.window + 1) : 0;
-  const int kv_hi = a.causal ? off + min(q0 + GQ, a.sq) : a.skv;
-  const int nc = (kv_hi - kv_lo + GKC - 1) / GKC, items = 4 * nc;
-  // ... and those the warp's rows see
-  const int wlo = a.window > 0 ? max(0, off + w0 - a.window + 1) : 0;
-  const int whi = a.causal ? off + min(w0 + 16, a.sq) : a.skv;
-
-  // item it: phase it / nc, chunk it % nc; K always, V from phase 1 on
-  auto issue = [&](int it) {
-    __nv_bfloat16* kd = ring + (it & 1) * 2 * L::CHUNK;
-    const int c0 = kv_lo + (it % nc) * GKC;
-    grad_async_keys<D>(kg, a.ks[2], c0, kv_hi, kd);
-    if (it >= nc) grad_async_keys<D>(vg, a.vs[2], c0, kv_hi, kd + L::CHUNK);
-  };
-  issue(0);
-  npe_cp_async_commit();
-  __nv_bfloat16* wq = qp + warp * qtile;
-  __nv_bfloat16* wdo = dop + warp * L::DO;
-  for (int t = 0; t < GW; ++t) {           // the block's tiles, all threads staging each
-    GradQRegs<D> qr;
-    grad_fetch_q<D>(a, b, h, q0 + 16 * t, qr, false);
-    grad_put_q<D>(a, qr, qp + t * qtile, dop + t * L::DO);
-  }
-  grad_tables(T, a);                       // ends synced: q and dO staged too
-
-  int pos[2];
-  bool valid[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int i = w0 + g + 8 * e;
-    valid[e] = i < a.sq;
-    pos[e] = off + i;
-  }
-  float m[2] = {NEG_BIG, NEG_BIG}, sum[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f}, ties[2] = {0.f, 0.f};
-  float gsum[2] = {0.f, 0.f};
-  GradRow row[2];
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  // a row's sum (or max) over its quad of lanes, which hold its keys
-  auto quad_reduce = [&](float (&v)[2], bool is_max) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float y = __shfl_xor_sync(0xffffffffu, v[e], o);
-        v[e] = is_max ? fmaxf(v[e], y) : __fadd_rn(v[e], y);
-      }
-  };
-
-  // phase 0: the max; 1: S, dr, ties; 2: the sum of dz (PWL) or of p dp;
-  // 3: dS into dQ.  Each warp takes its 16 rows over all of a chunk's keys.
-  for (int it = 0; it < items; ++it) {
-    const int phase = it / nc, c0 = kv_lo + (it % nc) * GKC;
-    __syncthreads();                       // every warp is done with item it - 1's stage
-    if (it + 1 < items) issue(it + 1);
-    npe_cp_async_commit();
-    npe_cp_async_wait<1>();
-    __syncthreads();                       // item it is staged
-    const __nv_bfloat16* ks_ = ring + (it & 1) * 2 * L::CHUNK;
-    const __nv_bfloat16* vs_ = ks_ + L::CHUNK;
-    if (c0 < whi && c0 + GKC > wlo) {
-#pragma unroll
-      for (int k16 = 0; k16 < GKC / 16; ++k16) {
-        const int kc = c0 + 16 * k16;
-        if (kc >= whi || kc + 16 <= wlo) continue;
-        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        grad_mma_nt<D>(s, wq, a.q_pieces, ks_ + k16 * 16 * DS, lane);
-        if (phase > 0) grad_mma_nt<D>(dp, wdo, 1, vs_ + k16 * 16 * DS, lane);
-        float sv[8], dph[8], ds[8];
-        bool vis[8];
-        GradCap8 cap;
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int e = (x >> 1) & 1;
-          const int col = kc + (x >> 2) * 8 + 2 * t4 + (x & 1);
-          vis[x] = valid[e] && !grad_masked(col, pos[e], a);
-          sv[x] = s[x >> 2][x & 3];
-          dph[x] = __bfloat162float(__float2bfloat16_rn(dp[x >> 2][x & 3]));
-          ds[x] = 0.f;
-        }
-        grad_scores8(sv, cap, a, T);
-        if (phase == 0) {
-#pragma unroll
-          for (int x = 0; x < 8; ++x) m[(x >> 1) & 1] = fmaxf(m[(x >> 1) & 1], vis[x] ? sv[x] : NEG_BIG);
-        } else {
-          float z[8], ev[8], er[8], sl[8];
-#pragma unroll
-          for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(sv[x], row[(x >> 1) & 1].m);
-          grad_exp8(z, ev, er, sl, a, T);
-#pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            const int e = (x >> 1) & 1;
-            if (!vis[x]) continue;
-            if (phase == 1) {
-              sum[e] = __fadd_rn(sum[e], ev[x]);
-              dr[e] = __fadd_rn(dr[e], __fmul_rn(dph[x], ev[x]));
-              ties[e] += z[x] == 0.f ? 1.f : 0.f;
-            } else if (phase == 2) {
-              gsum[e] = __fadd_rn(gsum[e], a.use_pwl
-                  ? grad_dz(z[x], er[x], sl[x], dph[x], row[e], a)
-                  : __fmul_rn(__fdiv_rn(ev[x], row[e].norm), dph[x]));
-            } else {
-              ds[x] = grad_pair(z[x], ev[x], er[x], sl[x], dph[x], cap, x, row[e], a).y;
-            }
-          }
-        }
-        if (phase == 3) {
-          uint32_t af[3][4];
-          grad_split_frag(ds, af);
-#pragma unroll
-          for (int j = 0; j < 3; ++j) grad_mma_acc<D>(acc, af[j], ks_ + k16 * 16 * DS, lane);
-        }
-      }
-    }
-    if (it % nc != nc - 1) continue;
-    // the phase's last chunk: each warp finishes its own rows
-    if (phase == 0) {
-      quad_reduce(m, true);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) row[e].m = m[e];
-    } else if (phase == 1) {
-      quad_reduce(sum, false);
-      quad_reduce(dr, false);
-      quad_reduce(ties, false);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float sc = fmaxf(sum[e], 1e-30f);
-        if (!a.use_pwl) {
-          row[e].norm = sc;
-          continue;
-        }
-        row[e].norm = npe_recip_via_prefix(sc, T.r, T.rtop);
-        // sc = mant * 2^ex with mant in [0.5, 1): 1/sc = pwl(mant) * 2^-ex
-        const int bits = __float_as_int(sc);
-        const int ex = ((bits >> 23) & 0xff) - 126;
-        const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
-        float gs = ldexpf(dr[e], -ex);
-        gs = __fmul_rn(gs, npe_pwl_slope(fminf(fmaxf(mant, a.recip_lo), a.recip_hi), T.rs,
-                                         a.recip_segs));
-        gs = __fmul_rn(gs, npe_clip_factor(mant, a.recip_lo, a.recip_hi));
-        row[e].ds = __fmul_rn(ldexpf(gs, -ex), npe_max_factor(sum[e], 1e-30f));
-      }
-    } else if (phase == 2) {
-      quad_reduce(gsum, false);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (a.use_pwl) {
-          row[e].share = ties[e] > 0.f ? __fdiv_rn(-gsum[e], ties[e]) : 0.f;
-        } else {
-          row[e].ds = gsum[e];
-          row[e].share = 0.f;
-        }
-        if (t4 == 0 && valid[e]) {
-          float4* st = reinterpret_cast<float4*>(a.stats) +
-                       ((long long)blockIdx.y * a.sq + w0 + g + 8 * e);
-          *st = make_float4(row[e].m, row[e].norm, row[e].ds, row[e].share);
-        }
-      }
-    }
-  }
-
-  // dq: the warp's accumulators, in q's dtype
-  const long long qbase = (long long)blockIdx.y * a.sq * D;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = w0 + g + 8 * (e >> 1);
-      if (i >= a.sq) continue;
-      const long long o = qbase + (long long)i * D + n * 8 + 2 * t4 + (e & 1);
-      if (a.q_bf16)
-        static_cast<__nv_bfloat16*>(a.dq)[o] = __float2bfloat16_rn(acc[n][e]);
-      else
-        static_cast<float*>(a.dq)[o] = acc[n][e];
-    }
-  npe_cp_async_wait<0>();
-}
-
-template <int D>
-__global__ void __launch_bounds__(GT)
-dense_grad_kv_kernel(const GradArgs a) {
-  using L = GradLayout<D>;
-  constexpr int DS = L::DS;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks_ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs_ = ks_ + L::CHUNK;
-  __nv_bfloat16* qp = ks_ + 2 * L::CHUNK;
-  __nv_bfloat16* dop = qp + L::QP;
-  __shared__ GradRow st[16];
-  __shared__ GradTables T;
-
-  const int b = blockIdx.y / a.hq, h = blockIdx.y % a.hq, hk = h / (a.hq / a.hkv);
-  const int k0 = blockIdx.x * GKC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int off = a.skv - a.sq;
-  grad_async_keys<D>(a.k + b * a.ks[0] + hk * a.ks[1], a.ks[2], k0, a.skv, ks_);
-  grad_async_keys<D>(a.v + b * a.vs[0] + hk * a.vs[1], a.vs[2], k0, a.skv, vs_);
-  npe_cp_async_commit();
-
-  // the queries that see a key of this block: position >= k0 (causal) and
-  // < the last key + window (window > 0)
-  const int i_lo = a.causal ? max(0, k0 - off) : 0;
-  const int i_hi = a.window > 0 ? min(a.sq - 1, k0 + GKC - 2 + a.window - off) : a.sq - 1;
-  const int t_lo = (i_lo / 16) * 16;
-  GradQRegs<D> qr;
-  if (t_lo <= i_hi) grad_fetch_q<D>(a, b, h, t_lo, qr, true);
-  grad_tables(T, a);
-  npe_cp_async_wait<0>();
-  const int kw = k0 + warp * 16;
-  float acc_v[NT][4], acc_k[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.f;
-
-  for (int q0 = t_lo; q0 <= i_hi; q0 += 16) {
-    __syncthreads();                       // every warp is done with the last tile
-    grad_put_q<D>(a, qr, qp, dop);
-    if (threadIdx.x < 16) st[threadIdx.x] = GradRow{qr.st.x, qr.st.y, qr.st.z, qr.st.w};
-    __syncthreads();
-    if (q0 + 16 <= i_hi) grad_fetch_q<D>(a, b, h, q0 + 16, qr, true);   // in flight meanwhile
-    if (kw >= a.skv) continue;
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    grad_mma_tn<D>(s, qp, a.q_pieces, ks_ + warp * 16 * DS, lane);
-    grad_mma_tn<D>(dp, dop, 1, vs_ + warp * 16 * DS, lane);
-    // fragment x: key kw + g + 8 ((x >> 1) & 1), query q0 + 8 (x >> 2) + 2 t4 + (x & 1)
-    float sv[8], z[8], ev[8], er[8], sl[8], p[8], ds[8];
-    GradCap8 cap;
-#pragma unroll
-    for (int x = 0; x < 8; ++x) sv[x] = s[x >> 2][x & 3];
-    grad_scores8(sv, cap, a, T);
-#pragma unroll
-    for (int x = 0; x < 8; ++x) z[x] = __fsub_rn(sv[x], st[8 * (x >> 2) + 2 * t4 + (x & 1)].m);
-    grad_exp8(z, ev, er, sl, a, T);
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const int key = kw + g + 8 * ((x >> 1) & 1);
-      const int qi = 8 * (x >> 2) + 2 * t4 + (x & 1);
-      p[x] = ds[x] = 0.f;
-      if (q0 + qi >= a.sq || grad_masked(key, off + q0 + qi, a)) continue;
-      const float dph = __bfloat162float(__float2bfloat16_rn(dp[x >> 2][x & 3]));
-      const float2 pd = grad_pair(z[x], ev[x], er[x], sl[x], dph, cap, x, st[qi], a);
-      p[x] = pd.x;
-      ds[x] = pd.y;
-    }
-    const uint32_t ap[4] = {npe_pack_bf16(p[0], p[1]), npe_pack_bf16(p[2], p[3]),
-                            npe_pack_bf16(p[4], p[5]), npe_pack_bf16(p[6], p[7])};
-    grad_mma_acc<D>(acc_v, ap, dop, lane);
-    uint32_t af[3][4];
-    grad_split_frag(ds, af);
-    for (int pc = 0; pc < a.q_pieces; ++pc)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) grad_mma_acc<D>(acc_k, af[j], qp + pc * 16 * DS, lane);
-  }
-
-  const long long base = (long long)blockIdx.y * a.skv * D;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kw + g + 8 * (e >> 1);
-      if (key >= a.skv) continue;
-      const long long o = base + (long long)key * D + n * 8 + 2 * t4 + (e & 1);
-      a.dv[o] = acc_v[n][e];
-      a.dk[o] = acc_k[n][e];
-    }
-}
-
-template <int D>
-int launch_dense_grad(const GradArgs& a, int batch, cudaStream_t stream) {
-  using L = GradLayout<D>;
-  static size_t granted_q = 0, granted_kv = 0;
-  const size_t q_bytes = L::q_bytes(a.q_pieces);
-  if (int err = allow_smem(dense_grad_q_kernel<D>, q_bytes, granted_q)) return err;
-  if (int err = allow_smem(dense_grad_kv_kernel<D>, L::kv_bytes, granted_kv)) return err;
-  dense_grad_q_kernel<D><<<dim3((a.sq + GQ - 1) / GQ, batch * a.hq), GT, q_bytes, stream>>>(a);
-  if (const cudaError_t err = cudaGetLastError()) return (int)err;
-  dense_grad_kv_kernel<D><<<dim3((a.skv + GKC - 1) / GKC, batch * a.hq), GT, L::kv_bytes,
-                            stream>>>(a);
-  return (int)cudaGetLastError();
+  return a.use_pwl ? launch_dense_wg<D, true>(a, batch, stream)
+                   : launch_dense_wg<D, false>(a, batch, stream);
 }
 
 }  // namespace
@@ -2198,7 +1835,8 @@ extern "C" int npe_attention_dense(
     int batch, int hq, int hkv, int sq, int skv, int d, int kv_len, int q_bf16,
     int out_bf16, int causal, int window, float scale, float softcap, int use_pwl,
     const float* exp_table, int exp_segments, const float* recip_table, int recip_segments,
-    const float* tanh_table, int tanh_segments, float tanh_lo, float tanh_hi, void* stream) {
+    const float* tanh_table, int tanh_segments, float tanh_lo, float tanh_hi, float* stats,
+    void* stream) {
   if (exp_segments < 1 || exp_segments + 1 > NPE_MAX_TABLE_COLS ||
       recip_segments < 1 || recip_segments + 1 > NPE_MAX_TABLE_COLS ||
       hkv < 1 || hq % hkv != 0 || kv_len < sq || kv_len > skv || window < 0 ||
@@ -2206,67 +1844,26 @@ extern "C" int npe_attention_dense(
       (softcap > 0.f && use_pwl &&
        (tanh_table == nullptr || tanh_segments < 1 || tanh_segments + 1 > NPE_MAX_TABLE_COLS)))
     return (int)cudaErrorInvalidValue;
-  // K and V are the bf16 cache, read as 16-byte vectors
-  if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd)))
+  // K and V are the bf16 cache, read as 16-byte vectors, and the output is
+  // written so (the wrapper allocates it)
+  if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd) &&
+        vec_ok(out, osb, osh, oss, osd)))
     return (int)cudaErrorInvalidValue;
   if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
   Args a{q, k, v, out,
          {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
          {osb, osh, oss, osd},
          hq, hkv, sq, kv_len, q_bf16, /*kv_bf16=*/1, out_bf16,
-         causal ? 1 : 0, window, use_pwl, /*block_q=*/sq, /*block_kv=*/DENSE_SEG, scale,
+         causal ? 1 : 0, window, use_pwl, /*block_q=*/sq, /*block_kv=*/WK, scale,
          /*q_pieces=*/q_bf16 ? 1 : Q_PIECES_MAX,
          exp_table, exp_segments, recip_table, recip_segments,
-         softcap, tanh_table, tanh_segments, tanh_lo, tanh_hi};
+         softcap, tanh_table, tanh_segments, tanh_lo, tanh_hi, stats,
+         vec_ok(q, qsb, qsh, qss, qsd) ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32: return launch_dense<32>(a, batch, s);
     case 64: return launch_dense<64>(a, batch, s);
     case 128: return launch_dense<128>(a, batch, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int npe_attention_dense_grad(
-    const void* q, const void* k, const void* v, const void* dout, void* dq, float* dk_part,
-    float* dv_part, float* stats,
-    long long qsb, long long qsh, long long qss, long long qsd,
-    long long ksb, long long ksh, long long kss, long long ksd,
-    long long vsb, long long vsh, long long vss, long long vsd,
-    long long dsb, long long dsh, long long dss, long long dsd,
-    int batch, int hq, int hkv, int sq, int skv, int d, int q_bf16, int causal, int window,
-    float scale, float softcap, int use_pwl,
-    const float* exp_table, const float* exp_slopes, int exp_segments, float exp_lo, float exp_hi,
-    const float* recip_table, const float* recip_slopes, int recip_segments, float recip_lo,
-    float recip_hi, const float* tanh_table, const float* tanh_slopes, int tanh_segments,
-    float tanh_lo, float tanh_hi, void* stream) {
-  const auto bad_table = [](const float* t, const float* s, int segs) {
-    return t == nullptr || s == nullptr || segs < 1 || segs + 1 > NPE_MAX_TABLE_COLS;
-  };
-  if (bad_table(exp_table, exp_slopes, exp_segments) ||
-      bad_table(recip_table, recip_slopes, recip_segments) ||
-      (softcap > 0.f && use_pwl && bad_table(tanh_table, tanh_slopes, tanh_segments)) ||
-      hkv < 1 || hq % hkv != 0 || sq > skv || window < 0 || !(softcap >= 0.f))
-    return (int)cudaErrorInvalidValue;
-  // q, K, V and dO rows are read as 16-byte vectors
-  if (!(vec_ok(k, ksb, ksh, kss, ksd) && vec_ok(v, vsb, vsh, vss, vsd) &&
-        vec_ok(dout, dsb, dsh, dss, dsd) && vec_ok(q, qsb, qsh, qss, qsd)))
-    return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || hq <= 0 || sq <= 0) return 0;
-  GradArgs a{q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-             static_cast<const __nv_bfloat16*>(dout), dq, dk_part, dv_part, stats,
-             {qsb, qsh, qss, qsd}, {ksb, ksh, kss, ksd}, {vsb, vsh, vss, vsd},
-             {dsb, dsh, dss, dsd},
-             hq, hkv, sq, skv, q_bf16, q_bf16 ? 1 : Q_PIECES_MAX, causal ? 1 : 0, window,
-             use_pwl, scale, softcap,
-             exp_table, exp_slopes, exp_segments, exp_lo, exp_hi,
-             recip_table, recip_slopes, recip_segments, recip_lo, recip_hi,
-             tanh_table, tanh_slopes, tanh_segments, tanh_lo, tanh_hi};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch_dense_grad<32>(a, batch, s);
-    case 64: return launch_dense_grad<64>(a, batch, s);
-    case 128: return launch_dense_grad<128>(a, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

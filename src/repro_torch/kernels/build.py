@@ -66,14 +66,16 @@ SIGNATURES = {
     # the dense mode: q, k, v, out, 16 element strides, batch, hq, hkv, sq,
     # skv, d, kv_len, q_bf16, out_bf16, causal, window, scale, softcap,
     # use_pwl, exp_table, exp_segments, recip_table, recip_segments,
-    # tanh_table, tanh_segments, tanh_lo, tanh_hi, stream
+    # tanh_table, tanh_segments, tanh_lo, tanh_hi, row statistics (or null),
+    # stream
     "npe_attention_dense": (P, P, P, P, *(LL,) * 16, *(I,) * 11, F, F, I, P, I, P, I, P, I,
-                            F, F, P),
-    # the dense mode's backward: q, k, v, do, dq, dk partials, dv partials,
-    # stats, 16 element strides (q, k, v, do), batch, hq, hkv, sq, skv, d,
-    # q_bf16, causal, window, scale, softcap, use_pwl, then for exp, recip and
-    # tanh: table, slopes, segments, lo, hi; stream
-    "npe_attention_dense_grad": (P, P, P, P, P, P, P, P, *(LL,) * 16, *(I,) * 9, F, F, I,
+                            F, F, P, P),
+    # the dense mode's backward: q, k, v, do, the forward's row statistics,
+    # dq, dk, dv (bf16), the (m, norm, dS, share) workspace, 16 element
+    # strides (q, k, v, do), batch, hq, hkv, sq, skv, d, q_bf16, causal,
+    # window, scale, softcap, use_pwl, then for exp, recip and tanh: table,
+    # slopes, segments, lo, hi; stream
+    "npe_attention_dense_grad": (P, P, P, P, P, P, P, P, P, *(LL,) * 16, *(I,) * 9, F, F, I,
                                  *(P, P, I, F, F) * 3, P),
     # stream: one empty 256-thread block, the launch floor chip_smoke.py times
     "npe_launch_floor": (P,),

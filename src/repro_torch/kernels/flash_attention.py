@@ -21,12 +21,17 @@ function's window, its causal switch (off: every key below kv_len, the ring
 cache's prefix validity as a key count) and its logit soft cap.
 `dense_attention_plain` is that arithmetic in torch ops.
 
-`dense_attention_grad(q, k, v, do, ...)` is the dense mode's backward over
-the sequence itself (kv_len = Skv): (dq, dk, dv) as jax.vjp of
-`attention_scores` gives them.  It launches the same source's
-`npe_attention_dense_grad` (two kernels, a 16-query tile's statistics and
-dQ, then dK and dV a 64-key block; see the source) for tensors on the card
-and runs `dense_attention_grad_plain`, explicit torch formulas, on the CPU.
+With `with_stats=True` the dense mode also returns each row's statistics
+(B, Hq, Sq, 2) f32: its max m over the visible scores and the norm its
+probabilities were taken with (the PWL reciprocal of the sum, or the sum).
+
+`dense_attention_grad(q, k, v, do, stats=...)` is the dense mode's backward
+over the sequence itself (kv_len = Skv): (dq, dk, dv) as jax.vjp of
+`attention_scores` gives them, from the forward's row statistics.  It
+launches the same source's `npe_attention_dense_grad` (two kernels: a
+64-row tile's statistics and dQ, then dK and dV a 64-key block, the GQA
+group reduced in a cluster; see the source) for tensors on the card and
+runs `dense_attention_grad_plain`, explicit torch formulas, on the CPU.
 
 Layout (B, H, S, D), as in the reference.  The mask is end-aligned, as in
 `ref.attention` and the decode path: of `kv_len` visible keys, query i sits
@@ -236,16 +241,31 @@ def soft_cap(s: torch.Tensor, cap: float, use_pwl: bool, segments: int) -> torch
     return cap * (nvu.nvu_tanh(t, segments) if use_pwl else torch.tanh(t))
 
 
+def row_stats(s: torch.Tensor, mask: torch.Tensor, use_pwl: bool, segments: int) -> torch.Tensor:
+    """(..., 2) f32: each row's max m over the visible scores of s and the
+    norm its probabilities are taken with, as `core/nvu.softmax` computes
+    them: the PWL reciprocal of max(sum of e, 1e-30), e the NVU exp of s - m
+    (PWL), or max(sum of exp(s - m), 1e-30) (exact).  A row that sees no
+    key has m 0."""
+    xs = torch.where(mask, s, -torch.inf)
+    m = xs.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = nvu.nvu_exp(xs - m, segments) if use_pwl else torch.exp(xs - m)
+    total = torch.clamp(torch.where(mask, e, 0.0).sum(dim=-1, keepdim=True), min=1e-30)
+    norm = nvu.nvu_reciprocal(total, segments) if use_pwl else total
+    return torch.cat([m, norm], dim=-1)
+
+
 def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           kv_len: Optional[int] = None, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, scale: Optional[float] = None,
                           use_pwl: bool = True, segments: int = 16,
-                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                          out_dtype: Optional[torch.dtype] = None, with_stats: bool = False):
     """The dense mode's arithmetic in PyTorch, as `attention_scores` computes
     it: f32 scores (q . k) * scale, soft-capped when softcap > 0, the keys
     `dense_mask` hides masked, the NVU softmax (or exact softmax) over all
     visible keys at once, the probabilities cast to v's dtype, then P.V
-    accumulated in f32."""
+    accumulated in f32.  With `with_stats`, (out, `row_stats`)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     kv_len = k.shape[2] if kv_len is None else kv_len
@@ -259,14 +279,15 @@ def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = dense_mask(sq, kv_len, causal, window, q.device)
     p = nvu.softmax(s, use_pwl=use_pwl, segments=segments, where=mask)
     out = torch.matmul(p.to(v.dtype).to(torch.float32), vv.to(torch.float32))
-    return out.to(out_dtype or q.dtype)
+    out = out.to(out_dtype or q.dtype)
+    return (out, row_stats(s, mask, use_pwl, segments)) if with_stats else out
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: Optional[float] = None,
                     use_pwl: bool = True, segments: int = 16,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None, with_stats: bool = False):
     """Attention of q (B, Hq, Sq, D) over the first kv_len keys of bf16 k, v
     (B, Hkv, Skv, D), query i at position kv_len - Sq + i: the counterpart of
     `attention_scores` over a KV cache or over the sequence itself.  Each
@@ -274,8 +295,11 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off, all kv_len) and after its position - `window` (window > 0); scores
     are soft-capped at `softcap` (> 0).  On the card the operands may be
     strided views, as for `flash_attention`, and the result is a (B, Hq, Sq,
-    D) view of (B, Sq, Hq, D) memory.  Each launch counts as one of
-    `flash_attention`'s: it is a mode of the same kernel source."""
+    D) view of (B, Sq, Hq, D) memory.  With `with_stats`, (out, stats): the
+    kernel also writes each row's (m, norm) (`row_stats`), which the
+    backward reads; such a call takes the tensor-core instance at any shape.
+    Each launch counts as one of `flash_attention`'s: it is a mode of the
+    same kernel source."""
     kv_len = _check_operands("dense_attention", q, k, v, kv_len)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -283,7 +307,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0 or not softcap >= 0:
         raise ValueError(f"dense_attention: window {window}, softcap {softcap}")
     kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=softcap, scale=scale,
-              use_pwl=use_pwl, segments=segments, out_dtype=out_dtype)
+              use_pwl=use_pwl, segments=segments, out_dtype=out_dtype, with_stats=with_stats)
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, **kw)
     _check_card("dense_attention", q, k, v)
@@ -295,6 +319,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"dense_attention: head dim {d} not in {HEAD_DIMS}")
     k, v = _vector_rows(k), _vector_rows(v)
     out = torch.empty(b, sq, hq, d, dtype=out_dtype, device=q.device).permute(0, 2, 1, 3)
+    stats = (torch.empty(b, hq, sq, 2, dtype=torch.float32, device=q.device)
+             if with_stats else None)
     et = device_table("exp", segments, q.device)
     rt = device_table("recip", segments, q.device)
     tt = device_table("tanh", segments, q.device)
@@ -307,16 +333,17 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(out_dtype == torch.bfloat16), int(causal), int(window), scale, float(softcap),
         int(use_pwl), et.data_ptr(), et.shape[1] - 1, rt.data_ptr(), rt.shape[1] - 1,
         tt.data_ptr(), tt.shape[1] - 1, float(knots[0]), float(knots[-1]),
-        stream_handle(q))
+        stats.data_ptr() if with_stats else None, stream_handle(q))
     check(err, "dense_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, stats) if with_stats else out
 
 
 def dense_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                do: torch.Tensor, *, causal: bool = True, window: int = 0,
                                softcap: float = 0.0, scale: Optional[float] = None,
-                               use_pwl: bool = True, segments: int = 16):
+                               use_pwl: bool = True, segments: int = 16,
+                               stats: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of `dense_attention_plain(q, k, v, ...)` over all Skv keys
     against do (the output's cotangent), in q's, k's and v's dtypes: what
     jax.vjp of the reference's `attention_scores` gives, as explicit torch
@@ -339,7 +366,10 @@ def dense_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     dtype once (jax's transpose of the f32-accumulating score einsum converts
     its f32 result to the operand's dtype).  Those are every point where
     jax rounds a cotangent (`jax.vjp` of `repro.models.common.
-    attention_scores` on the CPU); everything else is float32."""
+    attention_scores` on the CPU); everything else is float32.  `stats`, the
+    forward's `row_stats` (B, Hq, Sq, 2), gives the PWL softmax's row max and
+    reciprocal in place of their recomputation: with the plain forward's own
+    statistics, the same bits (the exact softmax needs neither)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else d ** -0.5)
@@ -356,7 +386,8 @@ def dense_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     dv = dv.reshape(b, hkv, group, skv, d).sum(2).to(v.dtype)
     dp = torch.matmul(dof, vv.transpose(-1, -2)).to(v.dtype).to(torch.float32)
     if use_pwl:
-        dt = softmax_where_grad_plain(s, dp, mask, segments)
+        row_max, row_inv = (None, None) if stats is None else (stats[..., :1], stats[..., 1:])
+        dt = softmax_where_grad_plain(s, dp, mask, segments, row_max, row_inv)
     else:
         dt = p * dp + p * (-(p * dp).sum(dim=-1, keepdim=True))
     if softcap > 0:
@@ -410,11 +441,14 @@ def dense_attention_grad_gates(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                window: int, softcap: float) -> None:
+                window: int, softcap: float, stats: Optional[torch.Tensor]) -> None:
     """Raise ValueError on what the dense mode's backward does not take."""
     _check_operands("dense_attention_grad", q, k, v, None)
     if do.shape != q.shape:
         raise ValueError(f"dense_attention_grad: do {tuple(do.shape)}, q {tuple(q.shape)}")
+    if stats is not None and (stats.shape != (*q.shape[:3], 2) or stats.dtype != torch.float32):
+        raise ValueError(f"dense_attention_grad: stats {tuple(stats.shape)} {stats.dtype}, "
+                         f"not {(*q.shape[:3], 2)} float32")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"dense_attention_grad: head dim {q.shape[3]} not in {HEAD_DIMS}")
     if window < 0 or not softcap >= 0:
@@ -424,34 +458,40 @@ def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
 def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                          *, causal: bool = True, window: int = 0, softcap: float = 0.0,
                          scale: Optional[float] = None, use_pwl: bool = True,
-                         segments: int = 16):
+                         segments: int = 16, stats: Optional[torch.Tensor] = None):
     """The backward of `dense_attention(q, k, v, ...)` over all Skv keys
     (kv_len = Skv, query i at position Skv - Sq + i) against do, the
     output's cotangent: (dq, dk, dv) in q's, k's and v's dtypes.  Takes q
     (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D) with D in HEAD_DIMS, GQA,
     causal on or off, window >= 0, softcap >= 0 (ValueError otherwise); on
     the card q in f32 or bf16, k, v and do in bf16 (do in v's dtype, as the
-    forward returns it), any strided views.  Each launch counts as one of
+    forward returns it), any strided views, and `stats`, the row statistics
+    that `dense_attention(..., with_stats=True)` returned on the same
+    operands (required: the kernel reads the forward's row max and norm and
+    does not recompute them).  Each launch counts as one of
     `flash_attention_grad`'s."""
-    _check_grad(q, k, v, do, window, softcap)
+    _check_grad(q, k, v, do, window, softcap, stats)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, use_pwl=use_pwl,
               segments=segments)
     if q.device.type == "cpu":
-        return dense_attention_grad_plain(q, k, v, do, **kw)
+        return dense_attention_grad_plain(q, k, v, do, stats=stats, **kw)
     _check_card("dense_attention_grad", q, k, v)
     if do.device != q.device:
         raise ValueError(f"dense_attention_grad: do on {do.device}, q on {q.device}")
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != torch.bfloat16 for t in (k, v, do)):
         raise ValueError(f"dense_attention_grad: q {q.dtype}, k {k.dtype}, v {v.dtype}, "
                          f"do {do.dtype}; the kernel takes f32 or bf16 q and bf16 k, v, do")
+    if stats is None or stats.device != q.device:
+        raise ValueError("dense_attention_grad: the kernel reads the forward's row statistics: "
+                         "pass stats= from dense_attention(..., with_stats=True) on the card")
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     q, k, v, do = _vector_rows(q), _vector_rows(k), _vector_rows(v), _vector_rows(do)
     dev = q.device
     dq = torch.empty(b, hq, sq, d, dtype=q.dtype, device=dev)
-    dk = torch.empty(b, hq, skv, d, dtype=torch.float32, device=dev)
-    dv = torch.empty(b, hq, skv, d, dtype=torch.float32, device=dev)
-    stats = torch.empty(b, hq, sq, 4, dtype=torch.float32, device=dev)
+    dk = torch.empty(b, hkv, skv, d, dtype=torch.bfloat16, device=dev)
+    dv = torch.empty(b, hkv, skv, d, dtype=torch.bfloat16, device=dev)
+    work = torch.empty(b, hq, sq, 4, dtype=torch.float32, device=dev)   # m, norm, dS, share
     tables = []
     for name in ("exp", "recip", "tanh"):
         packed = device_table(name, segments, dev)       # (3, S+1): S with the guard segments
@@ -459,14 +499,11 @@ def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: 
                    packed.shape[1] - 1, *table_ends(name, segments)]
     scale = float(scale if scale is not None else d ** -0.5)
     err = library().npe_attention_dense_grad(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.contiguous().data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
         *q.stride(), *k.stride(), *v.stride(), *do.stride(),
         b, hq, hkv, sq, skv, d, int(q.dtype == torch.bfloat16), int(causal), int(window),
         scale, float(softcap), int(use_pwl), *tables, stream_handle(q))
     check(err, "dense_attention_grad")
     LAUNCHES["flash_attention_grad"] += 1
-    group = hq // hkv
-    dk = dk.view(b, hkv, group, skv, d).sum(2).to(torch.bfloat16)
-    dv = dv.view(b, hkv, group, skv, d).sum(2).to(torch.bfloat16)
     return dq, dk, dv

@@ -176,7 +176,8 @@ def visible_mask(rows: int, n: int, causal_rows: int = 0,
 
 
 def softmax_where_grad_plain(s: torch.Tensor, dy: torch.Tensor, vis: torch.Tensor,
-                             segments: int = 16) -> torch.Tensor:
+                             segments: int = 16, row_max: Optional[torch.Tensor] = None,
+                             row_inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """d/ds (float32) of `core/nvu.nvu_softmax(s, where=vis)` over the last
     axis of float32 scores s against dy, chain rule for chain rule through
     the reference's jnp code: the PWL reciprocal's slope at the mantissa of
@@ -184,10 +185,14 @@ def softmax_where_grad_plain(s: torch.Tensor, dy: torch.Tensor, vis: torch.Tenso
     1e-30; each exp's segment slope, 1/2 where the PWL ties 0 (jnp.maximum)
     or an end of its clip; the row max's term, split evenly among tied
     maxima.  A masked column, and every column of a row with none visible,
-    gets 0."""
+    gets 0.  `row_max` and `row_inv` (keepdim shapes), when given, are the
+    forward's row max and reciprocal of the sum (the forward's statistics:
+    the same values as those computed here from s, so the same bits)."""
     xs = torch.where(vis, s, -torch.inf)
     m = xs.amax(dim=-1, keepdim=True)
     none = m == -torch.inf
+    if row_max is not None:
+        m = torch.where(none, m, row_max)
     z = xs - torch.where(none, 0.0, m)
     et, rt = get_table("exp", segments), get_table("recip", segments)
     lo, hi = table_ends("exp", segments)
@@ -196,7 +201,7 @@ def softmax_where_grad_plain(s: torch.Tensor, dy: torch.Tensor, vis: torch.Tenso
     e = torch.where(vis, torch.clamp(er, min=0.0), 0.0)
     total = e.sum(dim=-1, keepdim=True)
     sc = torch.clamp(total, min=1e-30)
-    inv = nvu.nvu_reciprocal(sc, segments)
+    inv = nvu.nvu_reciprocal(sc, segments) if row_inv is None else row_inv
     dyf = dy.to(torch.float32)
     g_inv = (dyf * e).sum(dim=-1, keepdim=True)
     mant, ex = torch.frexp(sc)

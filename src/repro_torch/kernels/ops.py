@@ -39,24 +39,26 @@ from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_scale_gr
 
 class DenseAttentionFn(torch.autograd.Function):
     """flash attention's dense mode over the sequence itself (kv_len = Skv);
-    backward `dense_attention_grad`."""
+    backward `dense_attention_grad`, from the row statistics the forward
+    wrote."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        ctx.save_for_backward(q, k, v)
+        out, stats = dense_attention_kernel(q, k, v, with_stats=True, **kw)
+        ctx.save_for_backward(q, k, v, stats)
         ctx.kw = kw
-        return dense_attention_kernel(q, k, v, **kw)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, stats = ctx.saved_tensors
         kw = dict(ctx.kw)
         kv_len = kw.pop("kv_len", None)
         kw.pop("out_dtype", None)
         if kv_len not in (None, k.shape[2]):
             raise ValueError(f"dense_attention: no backward over {kv_len} of {k.shape[2]} keys "
                              "(a cache); it takes the sequence's own keys")
-        return (*dense_attention_grad(q, k, v, do, **kw), None)
+        return (*dense_attention_grad(q, k, v, do, stats=stats, **kw), None)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:

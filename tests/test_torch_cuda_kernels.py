@@ -14,6 +14,7 @@ the tiling or the split of K.
 import pytest
 import torch
 
+from repro_torch.core import nvu
 from repro_torch.core.pwl import _FUNCS, get_table
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import LAUNCHES, ops
@@ -475,6 +476,16 @@ DENSE_CASES = [
     (2, 4, 2, 20, 96, 32, 90),          # D=32, ragged
     (8, 32, 2, 1, 256, 128, 256),       # GLM4-9B decode step: 16 rows a kv head, D=128
     (1, 32, 2, 128, 256, 128, 128),     # GLM4-9B 128-token prefill
+    # the tensor-core instances by GQA group (rows a kv head: <= 8 decode
+    # instance, 9-16 and 17-32 the transposed one, more the row-major one)
+    (2, 10, 2, 1, 300, 64, 300),        # group 5, a decode step: 5 rows
+    (2, 10, 2, 3, 300, 64, 300),        # group 5, 3 queries: 15 rows, transposed
+    (2, 24, 2, 1, 1500, 128, 1500),     # group 12 over 1500 keys: 12 rows, transposed
+    (2, 24, 1, 1, 700, 32, 700),        # group 24, D=32: 24 rows, transposed
+    (2, 32, 2, 2, 600, 64, 600),        # group 16, 2 queries: 32 rows, transposed
+    (1, 10, 2, 40, 1200, 64, 1200),     # group 5, 40 queries: 200 rows, row-major
+    (2, 24, 2, 160, 160, 128, 160),     # group 12 at a training-like prefill
+    (1, 32, 2, 64, 1100, 128, 1100),    # group 16 past 1024 visible keys
 ]
 
 
@@ -571,6 +582,58 @@ def test_dense_attention_never_reads_outside_the_window(dev, sq, kv_len, window)
     lo = kv_len - sq - window + 1
     k[:, :, :lo], v[:, :, :lo] = float("nan"), float("nan")
     assert torch.equal(fa.dense_attention(q, k, v, **kw), want)
+
+
+@pytest.mark.parametrize("case", [(2, 12, 12, 40, 300, 64), (2, 24, 2, 1, 1500, 128),
+                                  (2, 8, 2, 1, 400, 64), (1, 32, 2, 64, 1100, 128)])
+@pytest.mark.parametrize("use_pwl", [True, False])
+def test_dense_attention_stats_and_repeat_bits(dev, case, use_pwl):
+    """The row statistics the forward writes when asked (as the train step
+    asks) are within 1e-4 of the plain version's `row_stats` (the PWL norm
+    also within the NVU reciprocal's jump at a power of two, where the two
+    sums, added in other orders, may straddle one); the output with them is
+    the output without them (a call with <= 8 rows a kv head then takes the
+    tensor-core instance: within the dense gate), and two launches on the
+    same operands give the same bits."""
+    b, hq, hkv, sq, skv, d = case
+    q, k, v = _flash_inputs(dev, b, hq, hkv, sq, skv, d, torch.bfloat16, torch.bfloat16, seed=26)
+    kw = dict(use_pwl=use_pwl, out_dtype=torch.bfloat16)
+    out, stats = fa.dense_attention(q, k, v, with_stats=True, **kw)
+    again, stats2 = fa.dense_attention(q, k, v, with_stats=True, **kw)
+    assert torch.equal(out, again) and torch.equal(stats, stats2)
+    if (hq // hkv) * sq > 8:
+        assert torch.equal(out, fa.dense_attention(q, k, v, **kw))
+    _dense_close(q, k, v, kw, out)
+    _, want = fa.dense_attention_plain(q, k, v, with_stats=True, **kw)
+    assert stats.shape == (b, hq, sq, 2)
+    one = torch.tensor([1.0])
+    jump = float((nvu.nvu_reciprocal(torch.nextafter(one, torch.tensor([0.0])))
+                  - nvu.nvu_reciprocal(one)).abs() / nvu.nvu_reciprocal(one)) if use_pwl else 0.0
+    gate = torch.stack([1e-4 * want[..., 0].abs().clamp(min=1.0),
+                        (1e-4 + jump) * want[..., 1].abs()], -1).to(stats.device)
+    assert bool(((stats - want.to(stats.device)).abs() <= gate).all())
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,instance", [
+    (8, 2, 1, 300, "flash_dense_decode_kernel"), (8, 1, 1, 300, "flash_dense_decode_kernel"),
+    (12, 1, 1, 300, "flash_dense_wgt_kernel"), (16, 2, 4, 300, "flash_dense_wgt_kernel"),
+    (8, 2, 40, 300, "flash_dense_wgt_kernel"), (8, 2, 1100, 1100, "flash_dense_wg_kernel")])
+def test_dense_attention_instance_by_rows(dev, hq, hkv, sq, skv, instance):
+    """A call with 8 or fewer rows a kv head (a GQA group's heads times its
+    queries) launches the decode instance; 9 to 32, or more whose 64-row
+    tiles would not fill two waves of the SMs, the transposed tensor-core
+    one; more the row-major one."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _flash_inputs(dev, 2, hq, hkv, sq, skv, 64, torch.bfloat16, torch.bfloat16, seed=27)
+    fa.dense_attention(q, k, v)
+    for _ in range(3):        # a trace may lose its events: take it again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fa.dense_attention(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "flash_dense" in e.key]
+        if names:
+            break
+    assert len(names) == 1 and instance + "<" in names[0], names
 
 
 def test_dense_attention_default_arguments_keep_their_bits(dev):

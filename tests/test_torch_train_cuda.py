@@ -224,6 +224,16 @@ ATTN_CASES = {
                                                                        pwl=False),
     "tied-maxima": dict(zero_rows=True), "past-exp-clamp": dict(qscale=30.0),
     "odd-lengths": dict(sq=37, skv=53, window=20),
+    # GQA groups 1, 2, 5, 12 and 16 at a decode step (one query over a
+    # sequence), a prefill and past 1024 visible keys, with a window and a cap
+    "group-1-decode": dict(hq=4, hkv=4, sq=1, skv=200),
+    "group-5-decode": dict(hq=10, hkv=2, sq=1, skv=300),
+    "group-12-decode": dict(hq=12, hkv=1, sq=1, skv=700),
+    "group-16-decode": dict(hq=32, hkv=2, sq=1, skv=256),
+    "group-5-prefill": dict(hq=10, hkv=2, sq=40, skv=40),
+    "group-12-window": dict(hq=12, hkv=1, sq=160, skv=160, window=64),
+    "group-16-cap": dict(hq=16, hkv=1, sq=48, skv=48, cap=50.0, qscale=8.0),
+    "past-1024-keys": dict(hq=4, hkv=2, sq=64, skv=1100),
 }
 # chip_smoke.py's rows: (B, Hq, Hkv, Sq, Skv, D), causal, window, cap
 ATTN_MODEL_SHAPES = {
@@ -237,8 +247,15 @@ ATTN_MODEL_SHAPES = {
 
 
 def _attn_check(dev, ops_in, kw):
+    """The backward kernel, from the forward kernel's row statistics, within
+    `dense_attention_grad_gates` of the plain backward (which recomputes
+    its own); a second launch on the same operands gives the same bits."""
     q, k, v, do = ops_in
-    got = _counted("flash_attention_grad", lambda: fa.dense_attention_grad(q, k, v, do, **kw))
+    _, stats = fa.dense_attention(q, k, v, with_stats=True, **kw)
+    got = _counted("flash_attention_grad",
+                   lambda: fa.dense_attention_grad(q, k, v, do, stats=stats, **kw))
+    again = fa.dense_attention_grad(q, k, v, do, stats=stats, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = fa.dense_attention_grad_plain(q, k, v, do, **kw)
     gates = fa.dense_attention_grad_gates(q, k, v, do, want, **kw)
     for a, b, t, gate in zip(got, want, (q, k, v), gates):
@@ -294,3 +311,5 @@ def test_dense_attention_grad_refuses_on_the_card(dev):
         fa.dense_attention_grad(q, k, v, do.float())
     with pytest.raises(ValueError, match="head dim"):
         fa.dense_attention_grad(q[..., :16], k[..., :16], v[..., :16], do[..., :16])
+    with pytest.raises(ValueError, match="row statistics"):
+        fa.dense_attention_grad(q, k, v, do)
