@@ -729,7 +729,8 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
 # The dense mode's rows that its tensor-core instance and its backward run,
 # device ms before their redesign (PERF.md section 6: this script's [3] on
 # the H100 80GB HBM3 at 700 W, the backward rows at the parent tree of the
-# redesign, the forward rows at the trees that added them)
+# redesign, the forward rows at the trees that added them, the decode
+# instance's and the softmax backward's at the parent tree of theirs)
 PREVIOUS_MS = {
     "dense prefill (1, 12, 128, 64) kv 128/256 pwl": 0.0070,
     "dense prefill (1, 12, 128, 64) kv 128/256": 0.0077,
@@ -748,6 +749,27 @@ PREVIOUS_MS = {
     "grad Gemma3 (1, 32 over 16, 2048, 128) causal window 1024 pwl": 6.0590,
     "grad Gemma3 (1, 32 over 16, 2048, 128) causal window 1024 cap 50 pwl": 7.7935,
     "grad Whisper cross (8, 8, 448, 64) kv 1500 causal off pwl": 3.6949,
+    # the decode instance (one block a (batch, kv head)) and the softmax
+    # backward (a warp a row, the walks) at the parent tree of their redesign
+    "dense decode (8, 12, 1, 64) kv 256/256 pwl": 0.0063,
+    "dense decode (8, 12, 1, 64) kv 256/256": 0.0060,
+    "dense decode (8, 12, 1, 64) kv 1024/1024 pwl": 0.0140,
+    "dense decode (8, 12, 1, 64) kv 1024/1024": 0.0136,
+    "dense decode (8, 12, 1, 64) kv 2048/2048 pwl": 0.0321,
+    "dense decode (8, 12, 1, 64) kv 2048/2048": 0.0314,
+    "dense decode (8, 12, 1, 64) kv 16384/16384 pwl": 0.4656,
+    "dense decode (8, 12, 1, 64) kv 16384/16384": 0.4514,
+    "ring decode (8, 32 over 16, 1, 128) kv 1024/1024 causal off pwl": 0.1307,
+    "ring decode (8, 32 over 16, 1, 128) kv 1024/1024 causal off": 0.1286,
+    "ring decode (8, 32 over 16, 1, 128) kv 300/1024 causal off pwl": 0.0416,
+    "ring decode (8, 32 over 16, 1, 128) kv 300/1024 causal off": 0.0400,
+    "soft-capped decode (8, 32 over 16, 1, 128) kv 1024/1024 cap 50 pwl": 0.2837,
+    "soft-capped decode (8, 32 over 16, 1, 128) kv 1024/1024 cap 50": 0.2183,
+    "ring decode (8, 25 over 5, 1, 64) kv 32/32 causal off pwl": 0.0130,
+    "ring decode (8, 25 over 5, 1, 64) kv 32/32 causal off": 0.0119,
+    "cross decode (8, 8, 1, 64) kv 1500/1500 causal off pwl": 0.0188,
+    "cross decode (8, 8, 1, 64) kv 1500/1500 causal off": 0.0181,
+    "(12288, 128) scale 0.125 dy bf16": 0.0300,
 }
 
 
@@ -957,6 +979,12 @@ def pwl_walk_ops(name: str) -> int:
     return 2 * (get_table(name, 16).num_segments - 1) + 2
 
 
+# the softmax backward's rows: (rows, n, scale, dy dtype): the attention
+# softmax of BERT-base 8 x 128 and Granite's router softmax (4096 tokens of a
+# 4 x 1024 train step over 32 experts)
+SOFTMAX_GRAD_ROWS = [(12288, 128, 0.125, "bf16"), (4096, 32, 1.0, "f32")]
+
+
 def grad_kernel_rows(dev, g, row):
     """The training path's backward passes at BERT-base 8 x 128: the GELU's
     derivative (1024, 3072), the attention softmax's (12288, 128, scale
@@ -978,21 +1006,29 @@ def grad_kernel_rows(dev, g, row):
         yardstick_fn=lambda: torch.ops.aten.gelu_backward(dy, x),
         yardstick_name="aten.gelu_backward")
 
-    s = torch.randn(12288, 128, generator=g, device=dev) * 3
-    ds = torch.randn(12288, 128, generator=g, device=dev).to(torch.bfloat16)
-    p_exact = torch.softmax(s * 0.125, dim=-1)
-    ds_f32 = ds.float()
-    # the forward's exp and sum recomputed (walks of the exp table's values
-    # and slopes), the reciprocal's slope a row, some twenty more a score
-    sm_ops = s.numel() * (3 * 17 + 2 + pwl_walk_ops("exp") + 20) + s.shape[0] * (
-        pwl_ops("recip") + pwl_walk_ops("recip") + 20)
-    row("nvu_softmax_grad", "(12288, 128) scale 0.125 dy bf16", torch.float32,
-        lambda: sm_mod.nvu_softmax_grad(s, ds, scale=0.125),
-        lambda: sm_mod.nvu_softmax_grad_plain(s, ds, scale=0.125),
-        s.numel() * (4 + 2 + 4), [(sm_ops, F32_OPS_PER_S)],
-        check_fn=grad_check(lambda: sm_mod.nvu_softmax_grad_plain(s, ds, scale=0.125)),
-        yardstick_fn=lambda: torch._softmax_backward_data(ds_f32, p_exact, -1, torch.float32),
-        yardstick_name="torch._softmax_backward_data")
+    for rows_, n_, scale_, dy_ in SOFTMAX_GRAD_ROWS:
+        dt_ = torch.bfloat16 if dy_ == "bf16" else torch.float32
+        s = torch.randn(rows_, n_, generator=g, device=dev) * 3
+        ds = torch.randn(rows_, n_, generator=g, device=dev).to(dt_)
+        p_exact = torch.softmax(s * scale_, dim=-1)
+        ds_f32 = ds.float()
+        # the forward's exp and sum recomputed (one search of the exp table a
+        # score, its value and slope), the reciprocal and its slope a row,
+        # some twenty more a score
+        sm_ops = s.numel() * (pwl_prefix_ops("exp") + 2 + 20) + s.shape[0] * (
+            2 * pwl_prefix_ops("recip") + 20)
+        kw_ = dict(scale=scale_) if scale_ != 1.0 else {}
+        row("nvu_softmax_grad",
+            f"({rows_}, {n_})" + (f" scale {scale_:g}" if scale_ != 1.0 else "")
+            + (" dy bf16" if dt_ == torch.bfloat16 else " dy f32"),
+            torch.float32,
+            lambda: sm_mod.nvu_softmax_grad(s, ds, **kw_),
+            lambda: sm_mod.nvu_softmax_grad_plain(s, ds, **kw_),
+            s.numel() * (4 + ds.element_size() + 4), [(sm_ops, F32_OPS_PER_S)],
+            check_fn=grad_check(lambda: sm_mod.nvu_softmax_grad_plain(s, ds, **kw_)),
+            yardstick_fn=lambda: torch._softmax_backward_data(ds_f32, p_exact, -1,
+                                                              torch.float32),
+            yardstick_name="torch._softmax_backward_data", cell=None if n_ == 128 else "granite")
 
     xn = (torch.randn(1024, 768, generator=g, device=dev) * 3 + 0.7).to(torch.bfloat16)
     dyn = torch.randn(1024, 768, generator=g, device=dev).to(torch.bfloat16)
@@ -1259,6 +1295,16 @@ def heads(hq: int, hkv: int) -> str:
     return str(hq) if hq == hkv else f"{hq} over {hkv}"
 
 
+def say_split(b, hq, hkv, sq, kv_len, d, window=0):
+    """Print how the dense mode's decode instance splits a row's cache, as
+    its launch computes it on this card, for a row it takes."""
+    cs = fa_mod.dense_decode_cluster(b, hq, hkv, sq, kv_len, window, d)
+    if cs:
+        rows = hq // hkv * sq
+        say(f"    decode instance: {min(r for r in (1, 2, 4, 8) if r >= rows)} rows, "
+            f"a cluster of {cs} blocks a (batch, kv head)")
+
+
 def dense_rows(dev, g, row):
     """The flash kernel's dense mode (the decode path's attention) at a decode
     step over 256, 1024 and 2048 keys (one pass) and 16384 keys (two
@@ -1277,6 +1323,7 @@ def dense_rows(dev, g, row):
         nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
         mask = fa_mod.dense_mask(sq, kv_len, True, 0, dev)
         kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        say_split(b, hq, hkv, sq, kv_len, d)
         for use_pwl in (True, False):
             kw = dict(kv_len=kv_len, use_pwl=use_pwl, out_dtype=torch.bfloat16)
             lib = None
@@ -1301,8 +1348,9 @@ def dense_rows(dev, g, row):
 # valid and with 300 before the wrap (causality off over kv_len keys), its
 # windowed 2048-token prefill, a soft-capped step (the cap no config sets),
 # and StarCoder2-3B's 12:1 ring of 4096 rows; then Hymba-1.5B's 5:1 step over a
-# 32-row ring, Whisper-base's cross step over the 1500 encoder rows (causality
-# off) and its causal encoder over 1500 frames
+# 32-row ring, Granite's 2:1 step over 1024 keys, Whisper-base's cross step
+# over the 1500 encoder rows (causality off) and its causal encoder over 1500
+# frames
 MASK_ROWS = [
     ("ring decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", False, 0, 0.0),
     ("ring decode", 8, 32, 16, 1, 1024, 300, 128, "gemma3", False, 0, 0.0),
@@ -1310,6 +1358,7 @@ MASK_ROWS = [
     ("soft-capped decode", 8, 32, 16, 1, 1024, 1024, 128, "gemma3", True, 0, 50.0),
     ("ring decode", 8, 24, 2, 1, 4096, 4096, 128, "starcoder2", False, 0, 0.0),
     ("ring decode", 8, 25, 5, 1, 32, 32, 64, "hymba", False, 0, 0.0),
+    ("decode", 8, 16, 8, 1, 1024, 1024, 64, "granite", True, 0, 0.0),
     ("cross decode", 8, 8, 8, 1, 1500, 1500, 64, "whisper", False, 0, 0.0),
     ("encoder", 8, 8, 8, 1500, 1500, 1500, 64, "whisper", True, 0, 0.0),
     # the train step's forward (and its remat) at [16]'s shapes, with the row
@@ -1341,6 +1390,8 @@ def mask_rows(dev, row):
         nbytes = 2 * (q.numel() + 2 * b * hkv * kv_len * d + q.numel())
         mask = fa_mod.dense_mask(sq, kv_len, causal, window, dev)
         kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+        if name != "training forward":
+            say_split(b, hq, hkv, sq, kv_len, d, window)
         for use_pwl in (True, False):
             kw = dict(kv_len=kv_len, causal=causal, window=window, softcap=cap,
                       use_pwl=use_pwl, out_dtype=torch.bfloat16)
@@ -4627,8 +4678,8 @@ def main() -> int:
                else "HMMA/IMMA not available")
         say(f"    {names[fn][:58]:58s} {regs:3d} regs {smem:5d} B  spills {st}/{ld}  {mma}")
     rebuilt = ("pwl_stream_kernel", "nvu_layernorm_warp_kernel", "nvu_softmax_kernel",
-               "flash_dense_decode_kernel", "flash_dense_wg_kernel", "flash_dense_wgt_kernel",
-               "dense_grad_dq_kernel", "dense_grad_dkv_kernel")
+               "nvu_softmax_grad_kernel", "flash_dense_split_kernel", "flash_dense_wg_kernel",
+               "flash_dense_wgt_kernel", "dense_grad_dq_kernel", "dense_grad_dkv_kernel")
     new = {fn: ptx[fn] for fn in ptx if any(k in fn for k in rebuilt)}
     spilled = [names[fn] for fn, (_, _, st, ld) in new.items() if st or ld]
     say(f"    {len(new)} instances of {' / '.join(rebuilt)}, "
@@ -4792,6 +4843,11 @@ def serve_phases(dev, card, results, phase) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             library=r["library"], yardstick=r["yardstick"], yardstick_ms=r["yardstick_ms"],
+            rows=[dict(shape=f"{x['shape']} {x['dtype']}", ms=x["ms"], plain_ms=x["plain_ms"],
+                       bound_ms=x["bound_ms"], bound_by=x["bound_by"],
+                       library_ms=x["library_ms"], yardstick_ms=x["yardstick_ms"],
+                       max_abs_err=x["max_abs_err"], cell=x["cell"])
+                  for x in rows if x["kernel"] == name],
             **{f"launches_train_{arch}": results["dec_train_launches"][arch][name]
                for arch in DEC_TRAIN}))
     # the dense mode's backward, at StarCoder2's shape; launches from [16](a)'s

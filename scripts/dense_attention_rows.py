@@ -1,13 +1,20 @@
-"""The dense mode's forward and backward at the shapes of chip_smoke.py [3],
-on the card, for one or more checkouts of the repository side by side.
+"""The dense mode's forward and backward, and the NVU softmax's backward, at
+the shapes of chip_smoke.py [3], on the card, for one or more checkouts of
+the repository side by side.
 
-    python3 scripts/dense_attention_rows.py [--part forward|backward] [TREE ...]
+    python3 scripts/dense_attention_rows.py [--part PART] [--out DIR] [TREE ...]
 
-Each TREE (default: this checkout) is a directory holding a `src/` of the
-port, such as a `git archive` of another commit unpacked into an ignored
-directory.  The shapes are this checkout's chip_smoke.py tables (DENSE_ROWS
-and MASK_ROWS for the forward, ATTN_GRAD_ROWS for the backward), read from
-its source, so that every tree is timed at the same rows.  For each tree in
+PART: forward, backward, both (the default), decode (the forward's rows
+that the decode instance takes: at most 8 rows a kv head) or softmax_grad
+(`nvu_softmax_grad`).  Each TREE (default: this checkout) is a directory
+holding a `src/` of the port, such as a `git archive` of another commit
+unpacked into an ignored directory.  The shapes are this checkout's
+chip_smoke.py tables (DENSE_ROWS and MASK_ROWS for the forward,
+ATTN_GRAD_ROWS for the backward, SOFTMAX_GRAD_ROWS for the softmax's), read
+from its source, so that every tree is timed at the same rows.  The softmax
+backward's results of each tree are saved under DIR (default
+chiprun_out/rows) and held to the first tree's with torch.equal (exit 1 if
+any differs).  For each tree in
 turn (each in a process of its own, building its own kernels), it prints
 the device ms a call of `dense_attention` (PWL and exact) and of
 `dense_attention_grad` (from the forward's row statistics where the tree's
@@ -24,7 +31,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-TABLES = ("DENSE_ROWS", "MASK_ROWS", "ATTN_GRAD_ROWS")
+TABLES = ("DENSE_ROWS", "MASK_ROWS", "ATTN_GRAD_ROWS", "SOFTMAX_GRAD_ROWS")
+DECODE_ROWS = 8     # rows a kv head the decode instance takes
 
 
 def tables() -> dict:
@@ -36,14 +44,16 @@ def tables() -> dict:
             and node.targets[0].id in TABLES}
 
 
-def rows(tree: Path, part: str, t: dict) -> None:
+def rows(tree: Path, part: str, t: dict, out: Path) -> None:
     """The rows of one tree, in this process, timed by that tree's
-    chip_smoke.py (which puts the tree's own src/ first on the path)."""
+    chip_smoke.py (which puts the tree's own src/ first on the path); the
+    softmax backward's results saved to `out`."""
     sys.path[:0] = [str(tree / "src"), str(tree)]
     import torch
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import _kernel_times, measure
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nvu_softmax as sm
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -59,8 +69,11 @@ def rows(tree: Path, part: str, t: dict) -> None:
                for name, b, hq, hkv, sq, skv, kv_len, d, _ in t["DENSE_ROWS"]]
     forward += [(name, b, hq, hkv, sq, skv, kv_len, d, causal, window, cap)
                 for name, b, hq, hkv, sq, skv, kv_len, d, _, causal, window, cap in t["MASK_ROWS"]]
+    if part == "decode":
+        forward = [r for r in forward if r[0] != "training forward"
+                   and (r[2] // r[3]) * r[4] <= DECODE_ROWS]
     for name, b, hq, hkv, sq, skv, kv_len, d, causal, window, cap in (
-            forward if part != "backward" else []):
+            forward if part in ("forward", "both", "decode") else []):
         q, k, v = operand(b, sq, hq, d), operand(b, skv, hkv, d), operand(b, skv, hkv, d)
         shape = f"{name} ({b}, {hq}/{hkv}, {sq}, {d}) kv {kv_len}/{skv}"
         for pwl in (True, False):
@@ -70,7 +83,7 @@ def rows(tree: Path, part: str, t: dict) -> None:
             print(f"  forward  {shape:44s} {'pwl  ' if pwl else 'exact'} {ms:.4f} ms "
                   f"(events {ev:.4f})", flush=True)
     for name, b, hq, hkv, sq, skv, d, causal, window, cap, pwl, _ in (
-            t["ATTN_GRAD_ROWS"] if part != "forward" else []):
+            t["ATTN_GRAD_ROWS"] if part in ("backward", "both") else []):
         q, k, v, do = (operand(b, sq, hq, d), operand(b, skv, hkv, d), operand(b, skv, hkv, d),
                        operand(b, sq, hq, d))
         kw = dict(causal=causal, window=window, softcap=cap, use_pwl=pwl)
@@ -88,20 +101,47 @@ def rows(tree: Path, part: str, t: dict) -> None:
         shape = f"{name} ({b}, {hq}/{hkv}, {sq}, {d}) kv {skv} w {window} cap {cap:g}"
         print(f"  backward {shape:44s} {'pwl  ' if pwl else 'exact'} {ms:.4f} ms "
               f"(events {ev:.4f}; {split})", flush=True)
+    results = {}
+    for n_rows, n, scale, dy_dtype in (t["SOFTMAX_GRAD_ROWS"] if part == "softmax_grad" else []):
+        x = torch.randn(n_rows, n, generator=g, device=dev) * 3
+        dy = torch.randn(n_rows, n, generator=g, device=dev).to(
+            torch.bfloat16 if dy_dtype == "bf16" else torch.float32)
+        results[f"{n_rows}x{n}"] = sm.nvu_softmax_grad(x, dy, scale=scale)
+        ms, ev = measure(lambda: sm.nvu_softmax_grad(x, dy, scale=scale))
+        print(f"  softmax backward ({n_rows}, {n}) scale {scale:g} dy {dy_dtype:4s} {ms:.4f} ms "
+              f"(events {ev:.4f})", flush=True)
+    if results:
+        torch.save({k: v.cpu() for k, v in results.items()}, out)
 
 
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--one"]:
-        rows(Path(args[1]).resolve(), args[2], json.loads(args[3]))
+        rows(Path(args[1]).resolve(), args[2], json.loads(args[3]), Path(args[4]))
         return 0
-    part = "both"
-    if args[:1] == ["--part"]:
-        part, args = args[1], args[2:]
+    part, out = "both", ROOT / "chiprun_out" / "rows"
+    while args[:1] in (["--part"], ["--out"]):
+        if args[0] == "--part":
+            part = args[1]
+        else:
+            out = Path(args[1]).resolve()
+        args = args[2:]
+    out.mkdir(parents=True, exist_ok=True)
     t = json.dumps(tables())
-    for tree in [Path(a).resolve() for a in args] or [ROOT]:
-        if subprocess.run([sys.executable, __file__, "--one", str(tree), part, t]).returncode:
+    saved = []
+    for i, tree in enumerate([Path(a).resolve() for a in args] or [ROOT]):
+        saved.append(out / f"softmax_grad_{i}.pt")
+        if subprocess.run([sys.executable, __file__, "--one", str(tree), part, t,
+                           str(saved[-1])]).returncode:
             return 1
+    if part == "softmax_grad":
+        import torch
+        first = torch.load(saved[0])
+        for i, path in enumerate(saved[1:], 1):
+            same = {k: torch.equal(v, first[k]) for k, v in torch.load(path).items()}
+            print(f"softmax backward of tree {i} equal to tree 0's: {same}", flush=True)
+            if not all(same.values()):
+                return 1
     return 0
 
 

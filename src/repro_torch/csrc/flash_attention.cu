@@ -70,11 +70,19 @@
 // so the three stages are part of the function: m must be known before any
 // e, and the sum before any p.  Two instances, chosen by shape:
 // * at most 8 query rows a kv head (a decode step of a small GQA group):
-//   `flash_dense_decode_kernel`, a block of 8 warps a (batch, kv head),
-//   16-byte loads of the cache, keys split across threads, f32 products on
-//   the CUDA cores, partial accumulators summed at the end; a pass keeps
-//   the scores of 8192 keys of one row or 1024 of 8 rows in shared memory,
-//   past that it makes three passes over the keys (max, sum, P.V).
+//   `flash_dense_split_kernel`, instances for 1, 2, 4 and 8 rows.  A decode
+//   step reads each cache row once for a few queries, so it is bound by the
+//   cache's bytes, and one block a (batch, kv head) streams at one SM's
+//   rate.  So a thread-block cluster of up to 8 blocks takes a (batch, kv
+//   head), each block a contiguous range of its keys, enough blocks to fill
+//   the card.  The PWL exp does not rescale, so the blocks cannot combine
+//   partial softmaxes as flash-decoding does: the three stages stay, and
+//   between them the cluster exchanges each row's max, then its sum,
+//   through distributed shared memory in rank order; at the end the blocks'
+//   P.V partials are summed in rank order.  One launch, no atomics, the
+//   same bits every launch.  K and V come through a cp.async ring; the
+//   scores are products on the tensor cores (keys on M, rows on N), kept in
+//   shared memory, so K is read once and V once while a block's scores fit.
 // * more rows, or any call that asks for the row statistics (the train
 //   step's forward): `flash_dense_wg_kernel`, one warpgroup a block on a
 //   64-row wgmma tile.  A tile's rows are (q head, query) pairs of one
@@ -115,6 +123,10 @@
 // a windowed prefill tile reads about window + its queries' keys, not all
 // before it.  The row max is taken over visible keys only (masked scores
 // are NEG_BIG), since the PWL exp does not rescale.
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
 #include "flash_tiles.cuh"
 
 namespace {
@@ -142,6 +154,8 @@ struct Args {
   // the dense mode's row statistics (B, Hq, Sq, 2): m and the norm, or null
   float* stats;
   int q_vec;                              // q's rows 16-byte aligned and contiguous
+  // the dense mode's decode instance: blocks a cluster, keys a segment's scores
+  int split, seg;
 };
 
 __device__ __forceinline__ void store(const Args& a, long long o, float y) {
@@ -858,8 +872,6 @@ flash_mma_kernel(const Args a) {
 // the dense mode: one softmax over every visible key (attention_scores)
 // ---------------------------------------------------------------------------
 
-constexpr int DENSE_SCORES = 8192;       // scores a decode block keeps in shared memory (32 KB)
-
 // exp of N values z = s - m: the NVU's (npe_softmax_exp_n) or expf.
 template <int N>
 __device__ __forceinline__ void dense_exp_n(float (&z)[N], const Args& a,
@@ -920,215 +932,400 @@ __device__ __forceinline__ float dense_p(float e, float norm, const Args& a) {
   return __bfloat162float(__float2bfloat16_rn(p));
 }
 
-template <int D, int ROWS>
-__global__ void __launch_bounds__(DEC_THREADS, 1)
-flash_dense_decode_kernel(const Args a) {
-  constexpr int LPK = D / 8;               // lanes a key row, 8 bf16 a lane
-  constexpr int KPI = DEC_THREADS / LPK;   // keys a pass of the block
-  constexpr int U = ROWS > 1 ? 2 : (D == 32 ? 4 : 8);  // 16-byte loads in flight a thread
-  constexpr int CH = KPI * U;              // keys a chunk
-  constexpr int SEG = DENSE_SCORES / ROWS; // keys a pass keeps
-  extern __shared__ float smem[];          // ROWS x SEG: scores, e, p; at the end the partials
-  __shared__ float red[ROWS][DEC_WARPS];
+// ---------------------------------------------------------------------------
+// the dense mode's decode instance: a (batch, kv head) split across a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int SPL_THREADS = 128;                 // four warps
+constexpr int SPL_WARPS = SPL_THREADS / 32;
+constexpr int SPL_CK = 16 * SPL_WARPS;           // keys a staged chunk, 16 a warp
+constexpr int SPL_RING = 4;                      // stages of the K/V ring
+constexpr int SPL_SCORES = 8192;                 // scores (rows x keys) a block keeps at once
+constexpr int SPL_MAX_CLUSTER = 8;               // the portable cluster size
+
+// A staged K or V row: D bf16 and 16 bytes of padding, so that the eight
+// rows one ldmatrix reads at one column fall in eight distinct bank groups.
+template <int D>
+__host__ __device__ constexpr int spl_row_bytes() { return 2 * D + 16; }
+template <int D>
+__host__ __device__ constexpr int spl_stage_bytes() { return SPL_CK * spl_row_bytes<D>(); }
+
+// Dynamic shared memory of a block: the ring, then a segment's f32 scores
+// (RI x seg) and its bf16 probabilities (RI rows of seg + 8, so that the
+// eight rows of a B fragment fall in distinct banks).  The P.V partials of
+// the warps and the block's sum reuse the ring at the end.
+template <int D, int RI>
+size_t spl_smem(int seg) {
+  return (size_t)SPL_RING * spl_stage_bytes<D>() + (size_t)RI * seg * 4 +
+         (size_t)RI * (seg + 8) * 2;
+}
+
+// At most 8 rows a kv head (RI of them: the rows rounded up to 1, 2, 4 or
+// 8), no statistics.  The CS blocks of a cluster take one (batch, kv head)
+// (blockIdx.y), block `rank` a contiguous range of the visible keys in whole
+// SPL_CK-key chunks.  A block's chunks, K's and then V's, stream through one
+// SPL_RING-stage cp.async ring (three chunks in flight) from the kernel's
+// first instruction, so that V's first chunks arrive while the scores are
+// reduced.  The scores are computed once on the tensor cores (mma m16n8k16:
+// 16 keys of a warp on M, the rows on N = 8, q's bf16 pieces as B fragments
+// from shared memory) and kept in shared memory; a score is owned by one
+// thread, which applies the scale, the soft cap and the mask once.  The
+// softmax is the reference's function in three stages, each finished by an
+// exchange across the cluster: the rows' max; e = exp(s - m) and the rows'
+// sum; p^ = bf16(e * norm), then P.V on the tensor cores (V^T by
+// ldmatrix.trans on M, p^ on N), the warps' partials summed in warp order.
+// Each exchange writes a block's values into every block's shared memory
+// (its slot, the block's rank), then one cluster barrier, then each block
+// reads its own slots in rank order: the same sums in every block, no remote
+// read, no atomics.  The output's rows are shared out, rank c summing its
+// share of every block's partial.  A block whose keys' scores do not fit
+// SPL_SCORES takes them in segments: K is read again in the second stage and
+// the third, which recompute the segment's scores.
+template <int D, int RI>
+__global__ void __launch_bounds__(SPL_THREADS, 3)
+flash_dense_split_kernel(const Args a) {
+  namespace cg = cooperative_groups;
+  constexpr int RB = spl_row_bytes<D>();
+  constexpr int QB = D + 8;                      // a staged q row, in bf16 (distinct banks)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;
+  float* sc = reinterpret_cast<float*>(smem_raw + SPL_RING * spl_stage_bytes<D>());
+  __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(sc + RI * a.seg);
+  const int pst = a.seg + 8;                     // p's row stride, in values
+  __shared__ __align__(16) __nv_bfloat16 qsm[Q_PIECES_MAX][8][QB];   // q's pieces, 8 rows
   __shared__ NpePrefixTable etab, rtab, ttab;
+  __shared__ float red[RI][SPL_WARPS];
+  __shared__ float xmax[SPL_MAX_CLUSTER][RI], xsum[SPL_MAX_CLUSTER][RI];   // a slot a block
+  __shared__ float xout[RI * D + SPL_MAX_CLUSTER];                        // the output's share
+  __shared__ float mrow[RI], nrow[RI];           // the cluster's max and norm
   const NpePrefixFetch efetch(a.exp_table, a.exp_segs), rfetch(a.recip_table, a.recip_segs);
 
-  const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
-  const int group = a.hq / a.hkv;
-  const int nrows = group * a.sq;          // row r: q head hk*group + r / sq, query r % sq
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = tid % LPK, slot = tid / LPK;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] +
-                            hk * a.ks[1] + sub * 8;
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] +
-                            hk * a.vs[1] + sub * 8;
-
-  int pos[ROWS];                           // -1: a padding row, every key masked
-  float qv[ROWS][8], acc[ROWS][8];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int i = r < nrows ? r % a.sq : 0, h = hk * group + (r < nrows ? r / a.sq : 0);
-    pos[r] = r < nrows ? a.kv_len - a.sq + i : -1;
-    const long long qb = b * a.qs[0] + h * a.qs[1] + i * a.qs[2];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      qv[r][c] = r < nrows ? load(a.q, qb + (sub * 8 + c) * a.qs[3], a.q_bf16) : 0.f;
-      acc[r][c] = 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = a.split, rank = (int)cluster.block_rank();
+  if (cs > 1) npe_cluster_arrive_relaxed();      // this block runs (waited before the first push)
+  // the cluster's barrier; a cluster of one block needs only the block's
+  auto cluster_sync = [&]() {
+    if (cs > 1) {
+      npe_cluster_arrive();
+      npe_cluster_wait();
+    } else {
+      __syncthreads();
     }
+  };
+  const int b = blockIdx.y / a.hkv, hk = blockIdx.y % a.hkv;
+  const int group = a.hq / a.hkv;
+  const int nrows = group * a.sq;                // row r: q head hk*group + r / sq, query r % sq
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+
+  // this block's keys: whole chunks of the visible range kv_lo..kv_len-1,
+  // nch chunks in segments of sch
+  const int kv_lo = dense_kv_lo(a.kv_len - a.sq, a);
+  const int chunks = (a.kv_len - kv_lo + SPL_CK - 1) / SPL_CK;
+  const int s_lo = min(a.kv_len, kv_lo + chunks * rank / cs * SPL_CK);
+  const int s_hi = min(a.kv_len, kv_lo + chunks * (rank + 1) / cs * SPL_CK);
+  const int nch = (s_hi - s_lo + SPL_CK - 1) / SPL_CK, sch = a.seg / SPL_CK;
+  const int nseg = max(1, (nch + sch - 1) / sch);
+  // the chunks in the order they are used: one segment, K then V; else K
+  // (stage 1), K (stage 2), then each segment's K and V (stage 3)
+  const int njobs = nseg == 1 ? 2 * nch : 4 * nch;
+  auto job = [&](int i, bool& is_v) {
+    if (nseg == 1) {
+      is_v = i >= nch;
+      return is_v ? i - nch : i;
+    }
+    if (i < 2 * nch) {
+      is_v = false;
+      return i % nch;
+    }
+    const int j = i - 2 * nch, s = j / (2 * sch), r = j - s * 2 * sch;
+    const int cnt = min(sch, nch - s * sch);
+    is_v = r >= cnt;
+    return s * sch + (is_v ? r - cnt : r);
+  };
+  // cp.async of job i's chunk into its stage, zeros at and past s_hi; then
+  // its group (empty past the last job)
+  auto fetch = [&](int i) {
+    if (i < njobs) {
+      bool is_v;
+      const int k0 = s_lo + job(i, is_v) * SPL_CK;
+      const __nv_bfloat16* src = is_v ? vp : kp;
+      const long long stride = is_v ? a.vs[2] : a.ks[2];
+      unsigned char* dst = ring + (i % SPL_RING) * spl_stage_bytes<D>();
+#pragma unroll
+      for (int j = 0; j < SPL_CK * (D / 8) / SPL_THREADS; ++j) {
+        const int x = tid + j * SPL_THREADS, r = x / (D / 8), c = x % (D / 8);
+        const bool ok = k0 + r < s_hi;
+        npe_cp_async16(dst + r * RB + c * 16,
+                       ok ? src + (long long)(k0 + r) * stride + c * 8 : src, ok ? 16 : 0);
+      }
+    }
+    npe_cp_async_commit();
+  };
+  int cursor = 0;
+  // the next job's stage, once it has arrived and every thread is done with
+  // the stage the next fetch refills
+  auto next = [&]() {
+    npe_cp_async_wait<SPL_RING - 2>();
+    __syncthreads();
+    fetch(cursor + SPL_RING - 1);
+    return ring + (cursor++ % SPL_RING) * spl_stage_bytes<D>();
+  };
+  // q's values, loaded ahead of the ring's first chunks, which they would
+  // otherwise queue behind
+  constexpr int QN = 8 * D / SPL_THREADS;
+  float qv[QN];
+#pragma unroll
+  for (int j = 0; j < QN; ++j) {
+    const int x = tid + j * SPL_THREADS, r = x / D, d = x % D;
+    const bool real = r < RI && r < nrows;
+    const int i = real ? r % a.sq : 0, h = hk * group + (real ? r / a.sq : 0);
+    qv[j] = real ? load(a.q, b * a.qs[0] + h * a.qs[1] + i * a.qs[2] + d * a.qs[3], a.q_bf16)
+                 : 0.f;
   }
-  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);
+#pragma unroll
+  for (int i = 0; i < SPL_RING - 1; ++i) fetch(i);   // in flight during the set-up
+
+  // positions: pos[r] of each row (-1: a padding row), prow[e] of the rows
+  // 2 t4 + e whose scores this thread owns
+  int pos[RI], prow[2];
+#pragma unroll
+  for (int r = 0; r < RI; ++r) pos[r] = r < nrows ? a.kv_len - a.sq + r % a.sq : -1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 2 * t4 + e;
+    prow[e] = r < nrows ? a.kv_len - a.sq + r % a.sq : -1;
+  }
+  // q's bf16 pieces (npe_split3; one for bf16 q), 8 rows, zeros past the
+  // rows
+#pragma unroll
+  for (int j = 0; j < QN; ++j) {
+    const int x = tid + j * SPL_THREADS;
+    float p[3];
+    npe_split3(qv[j], p);
+#pragma unroll
+    for (int pc = 0; pc < Q_PIECES_MAX; ++pc) qsm[pc][x / D][x % D] = __float2bfloat16_rn(p[pc]);
+  }
+  npe_build_prefix_tables(etab, efetch, a.exp_segs, rtab, rfetch, a.recip_segs);   // syncs
   dense_cap_table(ttab, a);
   const int top = npe_prefix_top(a.exp_segs), rtop = npe_prefix_top(a.recip_segs);
   const int ttop = npe_prefix_top(a.tanh_segs);
-  // the keys some row sees: kv_lo.. past the first row's window, up to kv_len
-  const int kv_lo = dense_kv_lo(a.kv_len - a.sq, a);
-  const int nseg = (a.kv_len - kv_lo + SEG - 1) / SEG;
 
-  auto load_chunk = [&](uint4 (&w)[U], const __nv_bfloat16* base, long long stride, int s0,
-                        int t0, int nk) {
+  // the scores of the chunk at key k0 (stage st): (q . k) * scale, capped,
+  // NEG_BIG where masked; into sc (keys from seg0) when `keep`; each
+  // thread's max of its two rows into mx
+  auto scores = [&](const unsigned char* st, int k0, int seg0, bool keep, float (&mx)[2]) {
+    const unsigned char* kt = st + 16 * warp * RB;
+    const uint32_t* qw = reinterpret_cast<const uint32_t*>(&qsm[0][g][0]) + t4;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u * KPI + slot;
-      w[u] = t < nk ? __ldg(reinterpret_cast<const uint4*>(base + (long long)(s0 + t) * stride))
-                    : make_uint4(0, 0, 0, 0);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t af[4];
+      npe_ldsm_x4(af, kt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RB +
+                          (ks * 16 + 8 * (lane >> 4)) * 2);
+      npe_mma_bf16(c, af, qw[ks * 8], qw[ks * 8 + 4]);
+      if (a.q_pieces > 1) {
+#pragma unroll
+        for (int pc = 1; pc < Q_PIECES_MAX; ++pc)
+          npe_mma_bf16(c, af, qw[pc * 4 * QB + ks * 8], qw[pc * 4 * QB + ks * 8 + 4]);
+      }
     }
-  };
-  // the scores (q . k) * scale of keys s0..s0+nk-1, masked at NEG_BIG, into
-  // smem; each thread's max into mx
-  auto scores = [&](int s0, int nk, float (&mx)[ROWS]) {
-    uint4 w[U];
-    for (int t0 = 0; t0 < nk; t0 += CH) {
-      load_chunk(w, kp, a.ks[2], s0, t0, nk);
+    float s[4];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int t = t0 + u * KPI + slot;
-        float kf[8];
-        unpack8(w[u], kf);
+    for (int e = 0; e < 4; ++e) s[e] = __fmul_rn(c[e], a.scale);
+    dense_cap_n<4>(s, a, ttab, ttop);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          float dot = 0.f;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) dot = fmaf(qv[r][c], kf[c], dot);
-#pragma unroll
-          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-          if (t < nk) {
-            float s[1] = {__fmul_rn(dot, a.scale)};
-            dense_cap_n<1>(s, a, ttab, ttop);
-            s[0] = key_masked(s0 + t, pos[r], a) ? NEG_BIG : s[0];
-            if (sub == 0) smem[r * SEG + t] = s[0];
-            mx[r] = fmaxf(mx[r], s[0]);
-          }
-        }
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 16 * warp + g + 8 * (e >> 1), r = 2 * t4 + (e & 1);
+      if (r < RI && key < s_hi) {
+        const float v = key_masked(key, prow[e & 1], a) ? NEG_BIG : s[e];
+        if (keep) sc[r * a.seg + key - seg0] = v;
+        mx[e & 1] = fmaxf(mx[e & 1], v);
       }
     }
   };
-  // the block's max (or sum, in the order of the warps) of each row
-  auto block_reduce = [&](float (&v)[ROWS], bool is_max) {
+  // keys 0..nk-1 of sc (from key s0), scores to e in place, each row's sum
+  // into part
+  auto exps = [&](int s0, int nk, const float (&m)[RI], float (&part)[RI]) {
+    for (int t = tid; t < nk; t += SPL_THREADS) {
+      float z[RI];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float x = is_max ? npe_warp_max(v[r]) : npe_warp_sum(v[r]);
-      if (lane == 0) red[r][warp] = x;
+      for (int r = 0; r < RI; ++r) z[r] = __fsub_rn(sc[r * a.seg + t], m[r]);
+      dense_exp_n<RI>(z, a, etab, top);
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        z[r] = key_masked(s0 + t, pos[r], a) ? 0.f : z[r];
+        sc[r * a.seg + t] = z[r];
+        part[r] = __fadd_rn(part[r], z[r]);
+      }
+    }
+  };
+  // e of keys 0..nk-1 of sc to p^ = bf16(e * norm) in pb, zeros up to the
+  // chunk's end (its V rows are zeros, and 0 * 0 must not meet a NaN)
+  auto probs = [&](int nk, const float (&norm)[RI]) {
+    const int nk_up = (nk + SPL_CK - 1) / SPL_CK * SPL_CK;
+    for (int t = tid; t < nk_up; t += SPL_THREADS)
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+        pb[r * pst + t] =
+            __float2bfloat16_rn(t < nk ? dense_p(sc[r * a.seg + t], norm[r], a) : 0.f);
+  };
+  // out^T (D x rows) += V^T . P^T over the chunk at key offset off of the
+  // segment (stage st): a warp its 16 keys, V^T by ldmatrix.trans, p^ from
+  // pb (rows past RI zero)
+  float acc[D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  auto pv = [&](const unsigned char* st, int off) {
+    const int kc = off + 16 * warp;
+    uint32_t b0 = 0u, b1 = 0u;
+    if (g < RI) {
+      b0 = *reinterpret_cast<const uint32_t*>(pb + g * pst + kc + 2 * t4);
+      b1 = *reinterpret_cast<const uint32_t*>(pb + g * pst + kc + 8 + 2 * t4);
+    }
+    const unsigned char* vt = st + (16 * warp + (lane & 7) + 8 * (lane >> 4)) * RB +
+                              16 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      uint32_t af[4];
+      npe_ldsm_x4_trans(af, vt + mt * 32);
+      npe_mma_bf16(acc[mt], af, b0, b1);
+    }
+  };
+
+  // each row's max (or sum) over the block in warp order, written into
+  // every block's slot `rank` of x; after the cluster's barrier, the slots
+  // combined in rank order into out[].  v: for the max, the thread's rows
+  // 2 t4 and 2 t4 + 1 (the scores it owns); for the sum, all RI rows.
+  auto exchange = [&](const float* v, bool is_max, float (*x)[RI], float* out) {
+    if (is_max) {
+      float w[2] = {v[0], v[1]};
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) w[e] = fmaxf(w[e], __shfl_xor_sync(0xffffffffu, w[e], o));
+      if (g == 0)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (2 * t4 + e < RI) red[2 * t4 + e][warp] = w[e];
+    } else {
+      // a transposed butterfly: at each of the first log2(RI) steps a lane
+      // keeps half its rows and adds its partner's copy of them, then the
+      // usual butterfly over the lanes that share a row; lane l ends with
+      // the sum of row l >> (5 - log2(RI))
+      constexpr int L = RI == 1 ? 0 : RI == 2 ? 1 : RI == 4 ? 2 : 3;
+      float w[RI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) w[r] = v[r];
+#pragma unroll
+      for (int step = 0, n = RI; step < L; ++step, n >>= 1) {
+        const int o = 16 >> step;
+        const bool upper = lane & o;
+#pragma unroll
+        for (int j = 0; j < n / 2; ++j) {
+          const float keep = upper ? w[n / 2 + j] : w[j], give = upper ? w[j] : w[n / 2 + j];
+          w[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, give, o));
+        }
+      }
+#pragma unroll
+      for (int o = 16 >> L; o > 0; o >>= 1)
+        w[0] = __fadd_rn(w[0], __shfl_xor_sync(0xffffffffu, w[0], o));
+      if ((lane & ((32 >> L) - 1)) == 0) red[lane >> (5 - L)][warp] = w[0];
     }
     __syncthreads();
+    if (tid < RI * cs) {
+      const int r = tid % RI;
+      float y = red[r][0];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float x = red[r][0];
-#pragma unroll
-      for (int j = 1; j < DEC_WARPS; ++j) x = is_max ? fmaxf(x, red[r][j]) : __fadd_rn(x, red[r][j]);
-      v[r] = x;
+      for (int j = 1; j < SPL_WARPS; ++j)
+        y = is_max ? fmaxf(y, red[r][j]) : __fadd_rn(y, red[r][j]);
+      *cluster.map_shared_rank(&x[rank][r], tid / RI) = y;
     }
-    __syncthreads();                       // red is free again
+    cluster_sync();                              // every block's slot is in
+    if (tid < RI) {
+      float y = x[0][tid];
+      for (int c = 1; c < cs; ++c) y = is_max ? fmaxf(y, x[c][tid]) : __fadd_rn(y, x[c][tid]);
+      out[tid] = y;
+    }
+    __syncthreads();
   };
 
-  float m[ROWS], norm[ROWS], part[ROWS];
-  // keys s0..s0+nk-1 of smem, in place: scores to e (summed into part),
-  // scores to p, or (from_e) e to p
-  auto softmax = [&](int s0, int nk, bool to_p, bool from_e) {
-    for (int t = tid; t < nk; t += DEC_THREADS) {
-      float z[ROWS];
+  // stage 1: the max over every visible key
+  float mx[2] = {NEG_BIG, NEG_BIG};
+  for (int c = 0; c < nch; ++c) scores(next(), s_lo + c * SPL_CK, s_lo, nseg == 1, mx);
+  if (cs > 1) npe_cluster_wait();                // every block runs: slots may be written
+  exchange(mx, true, xmax, mrow);
+  float m[RI], part[RI], norm[RI];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) z[r] = smem[r * SEG + t];
-      if (!from_e) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) z[r] = __fsub_rn(z[r], m[r]);
-        dense_exp_n<ROWS>(z, a, etab, top);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) z[r] = key_masked(s0 + t, pos[r], a) ? 0.f : z[r];
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (to_p) {
-          smem[r * SEG + t] = dense_p(z[r], norm[r], a);
-        } else {
-          smem[r * SEG + t] = z[r];
-          part[r] = __fadd_rn(part[r], z[r]);
-        }
-      }
-    }
-  };
-
-  // pass 1: the max over every visible key
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) m[r] = NEG_BIG;
-  for (int seg = 0; seg < nseg; ++seg)
-    scores(kv_lo + seg * SEG, min(SEG, a.kv_len - kv_lo - seg * SEG), m);
-  block_reduce(m, true);                   // also: one segment's scores are in smem
-  // pass 2: the sum with the max fixed
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) part[r] = 0.f;
+  for (int r = 0; r < RI; ++r) {
+    m[r] = mrow[r];
+    part[r] = 0.f;
+  }
+  // stage 2: the sum with the max fixed
   for (int seg = 0; seg < nseg; ++seg) {
-    const int s0 = kv_lo + seg * SEG, nk = min(SEG, a.kv_len - s0);
+    const int s0 = s_lo + seg * a.seg, nk = min(a.seg, s_hi - s0);
     if (nseg > 1) {
-      float unused[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) unused[r] = NEG_BIG;
-      __syncthreads();                     // the last segment's readers are done
-      scores(s0, nk, unused);
+      float unused[2] = {NEG_BIG, NEG_BIG};
+      for (int c = 0; c < (nk + SPL_CK - 1) / SPL_CK; ++c)
+        scores(next(), s0 + c * SPL_CK, s0, true, unused);
       __syncthreads();
     }
-    softmax(s0, nk, false, false);
+    exps(s0, nk, m, part);
+    __syncthreads();
   }
-  block_reduce(part, false);
+  exchange(part, false, xsum, nrow);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) norm[r] = dense_norm(part[r], a, rtab, rtop);
-  // pass 3: P.V with the normalized, rounded p
+  for (int r = 0; r < RI; ++r) norm[r] = dense_norm(nrow[r], a, rtab, rtop);
+  // stage 3: P.V with the normalized, rounded p
   for (int seg = 0; seg < nseg; ++seg) {
-    const int s0 = kv_lo + seg * SEG, nk = min(SEG, a.kv_len - s0);
-    uint4 w[U];
+    const int s0 = s_lo + seg * a.seg, nk = min(a.seg, s_hi - s0);
+    const int n = (nk + SPL_CK - 1) / SPL_CK;
     if (nseg > 1) {
-      float unused[ROWS];
+      float unused[2] = {NEG_BIG, NEG_BIG}, zero[RI];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) unused[r] = NEG_BIG;
+      for (int r = 0; r < RI; ++r) zero[r] = 0.f;
+      for (int c = 0; c < n; ++c) scores(next(), s0 + c * SPL_CK, s0, true, unused);
       __syncthreads();
-      scores(s0, nk, unused);
+      exps(s0, nk, m, zero);
       __syncthreads();
     }
-    load_chunk(w, vp, a.vs[2], s0, 0, nk);   // V of the first chunk, in flight over the softmax
-    softmax(s0, nk, true, nseg == 1);
-    __syncthreads();                       // p is in smem
-    for (int t0 = 0; t0 < nk; t0 += CH) {
-      if (t0 > 0) load_chunk(w, vp, a.vs[2], s0, t0, nk);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int t = t0 + u * KPI + slot;
-        if (t >= nk) continue;
-        float vf[8];
-        unpack8(w[u], vf);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r >= nrows) continue;
-          const float p = smem[r * SEG + t];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(p, vf[c], acc[r][c]);
-        }
-      }
-    }
+    probs(nk, norm);
+    for (int c = 0; c < n; ++c) pv(next(), c * SPL_CK);   // next() syncs: p^ is in pb
   }
+  npe_cp_async_wait<0>();
+  __syncthreads();                               // the ring is free
 
-  // sum the partial accumulators: over the lanes of a warp that share `sub`,
-  // then across warps in smem; p was normalized, so the sum is the output
+  // the output: the warps' partials (in the ring) summed in warp order; of
+  // each rank's share of the rows' values, this block's sum written into
+  // that rank's slot `rank`; after the barrier, rank c sums its share's
+  // slots in rank order
+  float* wpart = reinterpret_cast<float*>(ring);            // [warp][row][d]
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r)
+  for (int mt = 0; mt < D / 16; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-#pragma unroll
-      for (int o = LPK; o < 32; o <<= 1)
-        acc[r][c] = __fadd_rn(acc[r][c], __shfl_xor_sync(0xffffffffu, acc[r][c], o));
-  __syncthreads();                         // smem's p is read
-  if (lane < LPK) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) smem[(warp * ROWS + r) * D + sub * 8 + c] = acc[r][c];
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int r = 2 * t4 + (e & 1), d = mt * 16 + g + 8 * (e >> 1);
+      if (r < RI) wpart[(warp * RI + r) * D + d] = acc[mt][e];
+    }
   __syncthreads();
-  for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
-    const int r = idx / D, c = idx % D;
-    float s = smem[r * D + c];
+  const int total = min(nrows, RI) * D, per = (total + cs - 1) / cs;
+  for (int idx = tid; idx < total; idx += SPL_THREADS) {
+    float y = wpart[idx];
 #pragma unroll
-    for (int j = 1; j < DEC_WARPS; ++j) s = __fadd_rn(s, smem[(j * ROWS + r) * D + c]);
-    const int i = r % a.sq, h = hk * group + r / a.sq;
-    store(a, b * a.os[0] + h * a.os[1] + i * a.os[2] + c * a.os[3], s);
+    for (int j = 1; j < SPL_WARPS; ++j) y = __fadd_rn(y, wpart[j * RI * D + idx]);
+    const int owner = idx / per;
+    *cluster.map_shared_rank(&xout[rank * per + idx - owner * per], owner) = y;
+  }
+  cluster_sync();                                // every block's share is in; none is read again
+  for (int j = tid; j < per && rank * per + j < total; j += SPL_THREADS) {
+    float y = xout[j];
+    for (int c = 1; c < cs; ++c) y = __fadd_rn(y, xout[c * per + j]);
+    const int idx = rank * per + j, r = idx / D, d = idx % D, i = r % a.sq;
+    const int h = hk * group + r / a.sq;
+    store(a, b * a.os[0] + h * a.os[1] + i * a.os[2] + d * a.os[3], y);
   }
 }
 
@@ -1767,21 +1964,102 @@ int launch_dense_wg(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// At most 8 rows a kv head and no statistics asked: the decode instance;
-// up to 32, the transposed tensor-core instance on one tile; more, whose
-// 64-row tiles would not fill two waves of the SMs, the transposed one in
-// 16-row tiles; else the row-major one.
+// Clusters of c blocks of the decode instance that the card holds at once
+// with `seg` keys a block's scores, by the occupancy calculator (a cluster's
+// blocks share a GPC, so this is not the SMs times the blocks an SM holds
+// over c), once for each (c, seg).
+template <int D, int RI>
+int spl_clusters(int c, int seg) {
+  static int known[SPL_MAX_CLUSTER + 1][SPL_SCORES / SPL_CK + 1] = {};
+  int& n = known[c][seg / SPL_CK];
+  if (n == 0) {
+    static size_t granted = 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(SPL_THREADS);
+    cfg.dynamicSmemBytes = spl_smem<D, RI>(seg);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (allow_smem(flash_dense_split_kernel<D, RI>, spl_smem<D, RI>(SPL_SCORES / RI), granted) ||
+        cudaOccupancyMaxActiveClusters(&n, flash_dense_split_kernel<D, RI>, &cfg) != cudaSuccess ||
+        n < 1)
+      n = 1;
+  }
+  return n;
+}
+
+// The decode instance's split of a call: the largest cluster (at most
+// SPL_MAX_CLUSTER blocks, at least four chunks a block) of which the card
+// holds one for each (batch, kv head) at once, one block a (batch, kv
+// head) if none, since a block's
+// fixed work (its set-up, three exchanges) is paid once a wave; but a cache
+// that would leave a block more than SPL_LONG chunks takes the largest
+// cluster, whose shorter streams balance the SMs over several waves.  `seg`:
+// the keys of a block's largest slice, at most what SPL_SCORES holds of RI
+// rows.
+constexpr int SPL_LONG = 16;
+template <int D, int RI>
+void spl_split(Args& a, int batch) {
+  const int kv_lo = a.window > 0 ? max(0, a.kv_len - a.sq - a.window + 1) : 0;
+  const int chunks = (a.kv_len - kv_lo + SPL_CK - 1) / SPL_CK;
+  const long long heads = (long long)batch * a.hkv;
+  const int most = max(1, min(SPL_MAX_CLUSTER, chunks / 4));
+  a.split = 1;
+  for (int c = most; c > 1; --c) {
+    const int seg = min((chunks + c - 1) / c * SPL_CK, SPL_SCORES / RI);
+    if (heads <= spl_clusters<D, RI>(c, seg)) {
+      a.split = c;
+      break;
+    }
+  }
+  if ((chunks + a.split - 1) / a.split > SPL_LONG) a.split = most;
+  a.seg = min((chunks + a.split - 1) / a.split * SPL_CK, SPL_SCORES / RI);
+}
+
+// One cluster launch of the decode instance with RI rows.
+template <int D, int RI>
+int launch_dense_split(Args a, int batch, cudaStream_t stream) {
+  spl_split<D, RI>(a, batch);
+  const size_t smem = spl_smem<D, RI>(a.seg);
+  static size_t granted = 0;   // the most any call takes, as spl_clusters asks
+  if (int err = allow_smem(flash_dense_split_kernel<D, RI>, spl_smem<D, RI>(SPL_SCORES / RI),
+                           granted))
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.split, batch * a.hkv);
+  cfg.blockDim = dim3(SPL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_dense_split_kernel<D, RI>, a))
+    return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// At most 8 rows a kv head and no statistics asked: the decode instance,
+// its rows rounded up to 1, 2, 4 or 8; up to 32, the transposed
+// tensor-core instance on one tile; more, whose 64-row tiles would not fill
+// two waves of the SMs, the transposed one in 16-row tiles; else the
+// row-major one.
 template <int D>
 int launch_dense(const Args& a, int batch, cudaStream_t stream) {
   const int rows = (a.hq / a.hkv) * a.sq;
   if (rows <= DEC_ROWS && a.stats == nullptr) {
-    const int rmax = rows == 1 ? 1 : DEC_ROWS;
-    const size_t smem = sizeof(float) * max((size_t)DENSE_SCORES, (size_t)DEC_WARPS * rmax * D);
-    if (rows == 1)
-      flash_dense_decode_kernel<D, 1><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
-    else
-      flash_dense_decode_kernel<D, DEC_ROWS><<<batch * a.hkv, DEC_THREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
+    if (rows == 1) return launch_dense_split<D, 1>(a, batch, stream);
+    if (rows == 2) return launch_dense_split<D, 2>(a, batch, stream);
+    if (rows <= 4) return launch_dense_split<D, 4>(a, batch, stream);
+    return launch_dense_split<D, 8>(a, batch, stream);
   }
   return a.use_pwl ? launch_dense_wg<D, true>(a, batch, stream)
                    : launch_dense_wg<D, false>(a, batch, stream);
@@ -1865,5 +2143,32 @@ extern "C" int npe_attention_dense(
     case 64: return launch_dense<64>(a, batch, s);
     case 128: return launch_dense<128>(a, batch, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The blocks a cluster of the dense mode's decode instance would take a
+// (batch, kv head) for a call of npe_attention_dense with these shapes (1
+// to 8; the launch's own rule, for reports), or 0 for a call that takes a
+// tensor-core instance or that the mode refuses.
+extern "C" int npe_attention_dense_split(int batch, int hq, int hkv, int sq, int kv_len,
+                                         int window, int d) {
+  if (batch < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || kv_len < sq || window < 0) return 0;
+  const int rows = (hq / hkv) * sq;
+  if (rows > DEC_ROWS) return 0;
+  Args a = {};
+  a.hq = hq, a.hkv = hkv, a.sq = sq, a.kv_len = kv_len, a.window = window;
+  auto split = [&](auto d_tag) {
+    constexpr int D = decltype(d_tag)::value;
+    if (rows == 1) spl_split<D, 1>(a, batch);
+    else if (rows == 2) spl_split<D, 2>(a, batch);
+    else if (rows <= 4) spl_split<D, 4>(a, batch);
+    else spl_split<D, 8>(a, batch);
+    return a.split;
+  };
+  switch (d) {
+    case 32: return split(std::integral_constant<int, 32>());
+    case 64: return split(std::integral_constant<int, 64>());
+    case 128: return split(std::integral_constant<int, 128>());
+    default: return 0;
   }
 }

@@ -229,6 +229,22 @@ __device__ __forceinline__ void npe_tma_load4(void* dst, const void* map, uint64
       : "memory");
 }
 
+// The two halves of a thread-block cluster's barrier, which every thread of
+// every block of the cluster runs, split so that work can lie between them:
+// arrive (release: the thread's writes, to distributed shared memory too,
+// are seen by every thread past the wait) and wait (acquire).  The relaxed
+// arrival orders nothing: it says only that the block is running, which a
+// block must know of another before it touches that block's shared memory.
+__device__ __forceinline__ void npe_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void npe_cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void npe_cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void npe_fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

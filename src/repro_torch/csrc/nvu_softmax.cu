@@ -189,15 +189,20 @@ int launch_n(const float* x, void* y, int rows, int n, int causal_rows, const in
 // its clip; the term through the row max, split evenly among tied maxima
 // and not cancelled (the PWL exp's slopes are not the exp).  Masked columns
 // (causal or limit) get 0, and a row with no visible column is all 0.
-// Design: written to be right.  A warp a row, lane l holding columns
-// l + 32j (NPL a lane), the forward recomputed from x (the value of each
-// exp by the delta walk, the same bits as the forward's search), the four
-// tables (exp and recip, values and slopes) in shared memory, and five
-// warp reductions (max, tie count, sum, sum of dy * e, the max's share).
-constexpr int GRAD_WARPS = 4;
-
-template <typename TD, int NPL>
-__global__ void __launch_bounds__(GRAD_WARPS * 32)
+// Design: the forward's.  Blocks of 256 threads loop over their rows (the
+// grid is the blocks the card holds at once, or fewer), each staging the
+// exp and recip tables once in prefix form, with their segments' slopes.  A
+// warp takes R rows together, lane l holding columns l + 32j of each (NPL a
+// lane), x and dy loaded once into registers.  One search a score gives the
+// exp's value and its slope at the same segment (npe_pwl_prefix_slope_n:
+// the walk's value and npe_pwl_slope's slope bit for bit); lane i takes row
+// i's reciprocal and its slope, handed on by shuffles.  Order of addition: lane-ascending j,
+// then the npe_warp_sum butterfly, for the sum, the tie count, sum dy * e
+// and the max's share, so dx is bit for bit that of the first backward
+// kernel (a warp a row, the walks).
+// Bound on this card: bytes (x and dy read once, dx written once).
+template <typename TD, int NPL, int R>
+__global__ void __launch_bounds__(THREADS)
 nvu_softmax_grad_kernel(const float* __restrict__ x, const TD* __restrict__ dy,
                         float* __restrict__ dx, int rows, int n, int causal_rows,
                         const int* __restrict__ limit, int limit_rows, float scale,
@@ -206,95 +211,172 @@ nvu_softmax_grad_kernel(const float* __restrict__ x, const TD* __restrict__ dy,
                         const float* __restrict__ recip_table,
                         const float* __restrict__ recip_slopes, int recip_segs, float recip_lo,
                         float recip_hi) {
-  __shared__ float etab[3 * NPE_MAX_TABLE_COLS], eslope[2 * NPE_MAX_TABLE_COLS];
-  __shared__ float rtab[3 * NPE_MAX_TABLE_COLS], rslope[2 * NPE_MAX_TABLE_COLS];
-  npe_load_table(etab, exp_table, exp_segs + 1);
-  npe_load_slope_table(eslope, exp_slopes, exp_segs + 1);
-  npe_load_table(rtab, recip_table, recip_segs + 1);
-  npe_load_slope_table(rslope, recip_slopes, recip_segs + 1);
-  __syncthreads();
+  __shared__ NpePrefixTable etab, rtab;
+  __shared__ float eslope[NPE_MAX_TABLE_COLS], rslope[NPE_MAX_TABLE_COLS];
+  const NpePrefixFetch efetch(exp_table, exp_segs), rfetch(recip_table, recip_segs);
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * GRAD_WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const long long base = (long long)row * n;
-  int visible = n;                        // columns c < visible take part
-  if (causal_rows) visible = min(n, row % causal_rows + (n - causal_rows) + 1);
-  if (limit != nullptr) visible = min(n, max(limit[row / limit_rows], 0));
+  const int step = gridDim.x * WARPS * R;
+  int r0 = (blockIdx.x * WARPS + (threadIdx.x >> 5)) * R;
+  constexpr int V = R * NPL;
+
+  // x and dy of rows r0..r0+R-1 as loaded (a row past the last reads the last)
+  float z[V], g[V];
+  auto load = [&]() {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const size_t base = (size_t)min(r0 + i, rows - 1) * n;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const int c = lane + 32 * j;
+        z[i * NPL + j] = c < n ? x[base + c] : 0.f;
+        g[i * NPL + j] = c < n ? npe_to_f32(dy[base + c]) : 0.f;
+      }
+    }
+  };
+  load();                                          // in flight during the build
+  // the slope tables' row 1: the reference's S slopes
+  if ((int)threadIdx.x < exp_segs) eslope[threadIdx.x] = exp_slopes[exp_segs + 1 + threadIdx.x];
+  if ((int)threadIdx.x < recip_segs)
+    rslope[threadIdx.x] = recip_slopes[recip_segs + 1 + threadIdx.x];
+  npe_build_prefix_tables(etab, efetch, exp_segs, rtab, rfetch, recip_segs);
+  const int etop = npe_prefix_top(exp_segs), rtop = npe_prefix_top(recip_segs);
+
   const float neg_inf = __int_as_float(0xff800000);
-  float z[NPL], er[NPL];
-  float m = neg_inf;
+  while (r0 < rows) {
+    int vis[R];                                    // columns c < vis[i] take part
+    float m[R];
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    z[j] = c < visible ? __fmul_rn(x[base + c], scale) : neg_inf;
-    m = fmaxf(m, z[j]);
-  }
-  m = npe_warp_max(m);
-  if (m == neg_inf) {                   // nothing visible: a row of zeros
-    for (int c = lane; c < n; c += 32) dx[base + c] = 0.f;
-    return;
-  }
-  float ties = 0.f, sum = 0.f;
+    for (int i = 0; i < R; ++i) {
+      const int row = min(r0 + i, rows - 1);
+      vis[i] = n;
+      if (causal_rows) vis[i] = min(n, row % causal_rows + (n - causal_rows) + 1);
+      if (limit != nullptr) vis[i] = min(n, max(limit[row / limit_rows], 0));
+      m[i] = neg_inf;
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    er[j] = 0.f;
-    if (lane + 32 * j < visible) {
-      ties += z[j] == m ? 1.f : 0.f;
-      z[j] = __fsub_rn(z[j], m);
-      er[j] = npe_pwl(fminf(fmaxf(z[j], exp_lo), exp_hi), etab, exp_segs);
-      sum = __fadd_rn(sum, fmaxf(er[j], 0.f));
+      for (int j = 0; j < NPL; ++j) {
+        float& t = z[i * NPL + j];
+        t = lane + 32 * j < vis[i] ? __fmul_rn(t, scale) : neg_inf;
+        m[i] = fmaxf(m[i], t);
+      }
+      m[i] = npe_warp_max(m[i]);
     }
-  }
-  ties = npe_warp_sum(ties);
-  sum = npe_warp_sum(sum);
-  const float s = fmaxf(sum, 1e-30f);
-  const float inv = npe_recip_via_pwl(s, rtab, recip_segs);
-  float g_inv = 0.f;
+    // the tied maxima, z - m, and e (er) of each visible column with its
+    // slope, one search a score
+    float er[V], sl[V], ties[R];
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < visible)
-      g_inv = __fadd_rn(g_inv, __fmul_rn(npe_to_f32(dy[base + c]), fmaxf(er[j], 0.f)));
-  }
-  g_inv = npe_warp_sum(g_inv);
-  // s = mant * 2^e with mant in [0.5, 1): 1/s = pwl(mant) * 2^-e
-  const int bits = __float_as_int(s);
-  const int e = ((bits >> 23) & 0xff) - 126;
-  const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
-  float g_s = ldexpf(g_inv, -e);
-  g_s = __fmul_rn(g_s, npe_pwl_slope(fminf(fmaxf(mant, recip_lo), recip_hi), rslope, recip_segs));
-  g_s = __fmul_rn(g_s, npe_clip_factor(mant, recip_lo, recip_hi));
-  g_s = __fmul_rn(ldexpf(g_s, -e), npe_max_factor(sum, 1e-30f));
-  float g_m = 0.f;
+    for (int i = 0; i < R; ++i) {
+      ties[i] = 0.f;
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < visible) {
-      const float g_e = __fadd_rn(__fmul_rn(npe_to_f32(dy[base + c]), inv), g_s);
-      float g = __fmul_rn(g_e, npe_max_factor(er[j], 0.f));
-      g = __fmul_rn(g, npe_pwl_slope(fminf(fmaxf(z[j], exp_lo), exp_hi), eslope, exp_segs));
-      g = __fmul_rn(g, npe_clip_factor(z[j], exp_lo, exp_hi));
-      er[j] = g;                          // from here on d/dz
-      g_m = __fadd_rn(g_m, g);
+      for (int j = 0; j < NPL; ++j) {
+        const int v = i * NPL + j;
+        if (lane + 32 * j < vis[i]) {
+          ties[i] += z[v] == m[i] ? 1.f : 0.f;
+          z[v] = __fsub_rn(z[v], m[i]);
+        }
+        er[v] = fminf(fmaxf(z[v], exp_lo), exp_hi);
+      }
     }
-  }
-  const float share = __fdiv_rn(-npe_warp_sum(g_m), ties);
+    npe_pwl_prefix_slope_n<V>(er, sl, etab, eslope, etop);
+    // each row's sum and sum of dy * e; lane i takes row i's reciprocal and
+    // the recip's slope at its mantissa
+    float sum[R], g_inv[R], mine = 0.f;
 #pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c < n)
-      dx[base + c] =
-          c < visible ? __fmul_rn(z[j] == 0.f ? __fadd_rn(er[j], share) : er[j], scale) : 0.f;
+    for (int i = 0; i < R; ++i) {
+      sum[i] = 0.f, g_inv[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const int v = i * NPL + j;
+        if (lane + 32 * j < vis[i]) {
+          sum[i] = __fadd_rn(sum[i], fmaxf(er[v], 0.f));
+        } else {
+          er[v] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const int v = i * NPL + j;
+        if (lane + 32 * j < vis[i])
+          g_inv[i] = __fadd_rn(g_inv[i], __fmul_rn(g[v], fmaxf(er[v], 0.f)));
+      }
+      ties[i] = npe_warp_sum(ties[i]);
+      sum[i] = npe_warp_sum(sum[i]);
+      g_inv[i] = npe_warp_sum(g_inv[i]);
+      mine = lane % R == i ? sum[i] : mine;
+    }
+    const float s_mine = fmaxf(mine, 1e-30f);
+    const float inv_mine = npe_recip_via_prefix(s_mine, rtab, rtop);
+    // s = mant * 2^e with mant in [0.5, 1): 1/s = pwl(mant) * 2^-e
+    float mc[1] = {fminf(fmaxf(__int_as_float((__float_as_int(s_mine) & 0x007fffff) | (126 << 23)),
+                               recip_lo), recip_hi)};
+    float rsl_mine[1];
+    npe_pwl_prefix_slope_n<1>(mc, rsl_mine, rtab, rslope, rtop);
+    float share[R], inv[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      inv[i] = __shfl_sync(0xffffffffu, inv_mine, i);
+      const float rsl = __shfl_sync(0xffffffffu, rsl_mine[0], i);
+      const float s = fmaxf(sum[i], 1e-30f);
+      const int bits = __float_as_int(s);
+      const int e = ((bits >> 23) & 0xff) - 126;
+      const float mant = __int_as_float((bits & 0x007fffff) | (126 << 23));
+      float g_s = ldexpf(g_inv[i], -e);
+      g_s = __fmul_rn(g_s, rsl);
+      g_s = __fmul_rn(g_s, npe_clip_factor(mant, recip_lo, recip_hi));
+      g_s = __fmul_rn(ldexpf(g_s, -e), npe_max_factor(sum[i], 1e-30f));
+      float g_m = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const int v = i * NPL + j;
+        if (lane + 32 * j < vis[i]) {
+          const float g_e = __fadd_rn(__fmul_rn(g[v], inv[i]), g_s);
+          float d = __fmul_rn(g_e, npe_max_factor(er[v], 0.f));
+          d = __fmul_rn(d, sl[v]);
+          d = __fmul_rn(d, npe_clip_factor(z[v], exp_lo, exp_hi));
+          er[v] = d;                               // from here on d/dz
+          g_m = __fadd_rn(g_m, d);
+        }
+      }
+      share[i] = __fdiv_rn(-npe_warp_sum(g_m), ties[i]);
+    }
+    // dx, then the next rows' loads; a row with no visible column (or whose
+    // max is -inf) is all 0
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + i;
+      if (row >= rows) break;
+      float* dxr = dx + (size_t)row * n;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const int c = lane + 32 * j, v = i * NPL + j;
+        if (c < n)
+          dxr[c] = c < vis[i] && m[i] != neg_inf
+                       ? __fmul_rn(z[v] == 0.f ? __fadd_rn(er[v], share[i]) : er[v], scale)
+                       : 0.f;
+      }
+    }
+    r0 += step;
+    if (r0 < rows) load();
   }
 }
 
-template <typename TD, int NPL>
+// Blocks for `rows`: enough for every warp to take R rows once, at most the
+// blocks the card holds at once (the rest by the loop).
+template <typename TD, int NPL, int R>
 int launch_grad(const float* x, const void* dy, float* dx, int rows, int n, int causal_rows,
                 const int* limit, int limit_rows, float scale, const float* et,
                 const float* es, int esegs, float elo, float ehi, const float* rt,
                 const float* rs, int rsegs, float rlo, float rhi, cudaStream_t stream) {
-  const int blocks = (rows + GRAD_WARPS - 1) / GRAD_WARPS;
-  nvu_softmax_grad_kernel<TD, NPL><<<blocks, GRAD_WARPS * 32, 0, stream>>>(
+  static int resident = 0;
+  if (resident == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &resident, nvu_softmax_grad_kernel<TD, NPL, R>, THREADS, 0) != cudaSuccess ||
+        resident < 1)
+      resident = 1;
+  }
+  const long long need = ((long long)rows + WARPS * R - 1) / (WARPS * R);
+  const long long cap = (long long)npe_sm_count() * resident;
+  const int blocks = (int)(need < cap ? need : cap);
+  nvu_softmax_grad_kernel<TD, NPL, R><<<blocks, THREADS, 0, stream>>>(
       x, static_cast<const TD*>(dy), dx, rows, n, causal_rows, limit, limit_rows, scale, et, es,
       esegs, elo, ehi, rt, rs, rsegs, rlo, rhi);
   return (int)cudaGetLastError();
@@ -303,15 +385,21 @@ int launch_grad(const float* x, const void* dy, float* dx, int rows, int n, int 
 #define NPE_SOFTMAX_GRAD_ARGS \
   x, dy, dx, rows, n, causal_rows, limit, limit_rows, scale, et, es, esegs, elo, ehi, rt, rs, \
       rsegs, rlo, rhi, s
+// R rows a warp: R * NPL values in flight a lane, at most 8 up to 256
+// columns.  Each value holds x, dy, e and the slope in registers, so the
+// forward's 16 would leave one block an SM; rows of up to 32 columns keep
+// two rows a warp, so that a few thousand rows still fill the card.
 template <typename TD>
 int launch_grad_n(const float* x, const void* dy, float* dx, int rows, int n, int causal_rows,
                   const int* limit, int limit_rows, float scale, const float* et,
                   const float* es, int esegs, float elo, float ehi, const float* rt,
                   const float* rs, int rsegs, float rlo, float rhi, cudaStream_t s) {
-  if (n <= 128) return launch_grad<TD, 4>(NPE_SOFTMAX_GRAD_ARGS);
-  if (n <= 256) return launch_grad<TD, 8>(NPE_SOFTMAX_GRAD_ARGS);
-  if (n <= 512) return launch_grad<TD, 16>(NPE_SOFTMAX_GRAD_ARGS);
-  return launch_grad<TD, 32>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 32) return launch_grad<TD, 1, 2>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 64) return launch_grad<TD, 2, 2>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 128) return launch_grad<TD, 4, 2>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 256) return launch_grad<TD, 8, 1>(NPE_SOFTMAX_GRAD_ARGS);
+  if (n <= 512) return launch_grad<TD, 16, 1>(NPE_SOFTMAX_GRAD_ARGS);
+  return launch_grad<TD, 32, 1>(NPE_SOFTMAX_GRAD_ARGS);
 }
 #undef NPE_SOFTMAX_GRAD_ARGS
 

@@ -156,16 +156,15 @@ __device__ __forceinline__ int npe_prefix_top(int segs) {
   return segs > 1 ? 1 << (31 - __clz(segs - 1)) : 0;
 }
 
-// npe_pwl on N values at once, in place, from a prefix table.  seg(x) is
-// found by binary lifting over the ascending knots: the first two steps read
-// knots every thread shares (kept in registers), the rest one knot each.
-// Offsets are kept in bytes, so each step is an add, a load, a compare and
-// a select; the two prefixes of a segment are one 8-byte load.
+// The segment of each of N values in a prefix table: k = 4 * seg, seg the
+// count of interior knots <= x, found by binary lifting over the ascending
+// knots: the first two steps read knots every thread shares (kept in
+// registers), the rest one knot each.  Offsets are kept in bytes, so each
+// step is an add, a load, a compare and a select.
 template <int N>
-__device__ __forceinline__ void npe_pwl_prefix_n(float (&v)[N], const NpePrefixTable& t,
-                                                 int top) {
+__device__ __forceinline__ void npe_prefix_seg_n(const float (&v)[N], int (&k)[N],
+                                                 const NpePrefixTable& t, int top) {
   const char* kb = reinterpret_cast<const char*>(t.knot);
-  int k[N];   // 4 * seg
 #pragma unroll
   for (int j = 0; j < N; ++j) k[j] = 0;
   if (top > 0) {
@@ -187,10 +186,39 @@ __device__ __forceinline__ void npe_pwl_prefix_n(float (&v)[N], const NpePrefixT
       }
     }
   }
+}
+
+// npe_pwl on N values at once, in place, from a prefix table: the segment
+// by npe_prefix_seg_n, then its two prefixes, one 8-byte load.
+template <int N>
+__device__ __forceinline__ void npe_pwl_prefix_n(float (&v)[N], const NpePrefixTable& t,
+                                                 int top) {
+  int k[N];
+  npe_prefix_seg_n<N>(v, k, t, top);
   const char* sb = reinterpret_cast<const char*>(t.si);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const float2 p = *reinterpret_cast<const float2*>(sb + 2 * k[j]);
+    v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
+  }
+}
+
+// npe_pwl_prefix_n that also gives each value's derivative from the same
+// search: d[j] = slope[seg], `slope` the reference table's S slopes (row 1
+// of a slope table, below).  The walk's rule and the search count the same
+// knots, so the pair is npe_pwl and npe_pwl_slope bit for bit.
+template <int N>
+__device__ __forceinline__ void npe_pwl_prefix_slope_n(float (&v)[N], float (&d)[N],
+                                                       const NpePrefixTable& t,
+                                                       const float* slope, int top) {
+  int k[N];
+  npe_prefix_seg_n<N>(v, k, t, top);
+  const char* sb = reinterpret_cast<const char*>(t.si);
+  const char* db = reinterpret_cast<const char*>(slope);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 p = *reinterpret_cast<const float2*>(sb + 2 * k[j]);
+    d[j] = *reinterpret_cast<const float*>(db + k[j]);
     v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
   }
 }

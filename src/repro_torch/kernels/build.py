@@ -70,6 +70,9 @@ SIGNATURES = {
     # stream
     "npe_attention_dense": (P, P, P, P, *(LL,) * 16, *(I,) * 11, F, F, I, P, I, P, I, P, I,
                             F, F, P, P),
+    # the decode instance's cluster size for batch, hq, hkv, sq, kv_len,
+    # window, d (0: another instance)
+    "npe_attention_dense_split": (I,) * 7,
     # the dense mode's backward: q, k, v, do, the forward's row statistics,
     # dq, dk, dv (bf16), the (m, norm, dS, share) workspace, 16 element
     # strides (q, k, v, do), batch, hq, hkv, sq, skv, d, q_bf16, causal,

@@ -21,6 +21,13 @@ function's window, its causal switch (off: every key below kv_len, the ring
 cache's prefix validity as a key count) and its logit soft cap.
 `dense_attention_plain` is that arithmetic in torch ops.
 
+A call with at most 8 rows a kv head (a GQA group's heads times its
+queries) and no statistics takes the decode instance, which splits a
+(batch, kv head)'s keys across the blocks of a thread-block cluster and
+combines the blocks' row max, row sum and P.V partials in rank order;
+`dense_decode_split` is its launch rule, `dense_decode_cluster` the cluster
+a launch takes on the card.
+
 With `with_stats=True` the dense mode also returns each row's statistics
 (B, Hq, Sq, 2) f32: its max m over the visible scores and the norm its
 probabilities were taken with (the PWL reciprocal of the sum, or the sum).
@@ -59,6 +66,49 @@ NEG_BIG = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)     # template instances of the kernel
 MAX_BLOCK_KV = 1024           # one block's scores live in shared memory
+# the dense mode's decode instance (csrc/flash_attention.cu, spl_split)
+DECODE_ROWS = 8               # rows a kv head it takes
+SPLIT_CHUNK = 64              # keys a staged chunk: a block takes whole chunks
+SPLIT_MAX_CLUSTER = 8         # blocks a cluster at most
+SPLIT_LONG = 16               # chunks a block past which the largest cluster is taken
+
+
+def dense_decode_split(batch: int, hq: int, hkv: int, sq: int, kv_len: int, window: int = 0,
+                       sms: int = 132, resident: int = 4):
+    """The launch rule of the dense mode's decode instance, for a card of
+    `sms` SMs that holds `resident` of its blocks a SM at once: (its rows,
+    1, 2, 4 or 8; the blocks of a (batch, kv head)'s cluster; [(first key,
+    end) of each block's keys in rank order]), or None for a call of more
+    than DECODE_ROWS rows a kv head.  The visible keys (from the first row's
+    window on) are cut into SPLIT_CHUNK-key chunks and the chunks shared out
+    evenly; the cluster is the largest, at most SPLIT_MAX_CLUSTER blocks and
+    at least four chunks a block, whose blocks the card holds at once, unless
+    that leaves a block more than SPLIT_LONG chunks: then the largest.  The
+    card holds about sms * resident / c clusters of c blocks at once; on the
+    card the count is the occupancy calculator's for the compiled instance
+    at the call's shared memory (a cluster's blocks share a GPC), and
+    `dense_decode_cluster` reads the split the launch takes."""
+    rows = hq // hkv * sq
+    if rows > DECODE_ROWS:
+        return None
+    instance = 1 if rows == 1 else 2 if rows == 2 else 4 if rows <= 4 else 8
+    kv_lo = max(0, kv_len - sq - window + 1) if window > 0 else 0
+    chunks = -(-(kv_len - kv_lo) // SPLIT_CHUNK)
+    most = max(1, min(SPLIT_MAX_CLUSTER, chunks // 4))
+    cs = next((c for c in range(most, 1, -1) if batch * hkv * c <= sms * resident), 1)
+    if -(-chunks // cs) > SPLIT_LONG:
+        cs = most
+    slices = [(min(kv_len, kv_lo + chunks * r // cs * SPLIT_CHUNK),
+               min(kv_len, kv_lo + chunks * (r + 1) // cs * SPLIT_CHUNK)) for r in range(cs)]
+    return instance, cs, slices
+
+
+def dense_decode_cluster(batch: int, hq: int, hkv: int, sq: int, kv_len: int, window: int,
+                         d: int) -> int:
+    """On the card: the blocks a cluster of the decode instance takes a
+    (batch, kv head) for such a `dense_attention` call, as its launch
+    computes them (0: the call takes a tensor-core instance)."""
+    return library().npe_attention_dense_split(batch, hq, hkv, sq, kv_len, window, d)
 
 
 def block_runs(q_lo: int, q_hi: int, kv_start: int, block_kv: int, kv_len: int,

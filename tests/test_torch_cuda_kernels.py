@@ -278,6 +278,40 @@ def test_nvu_softmax_scale_and_cast_fold_bit_for_bit(dev):
     assert torch.equal(got, sm.nvu_softmax(x * 0.125).to(torch.bfloat16))
 
 
+GRAD_RTOL = 2e-5   # chip_smoke.py's backward gate: of the plain result's largest value
+
+
+@pytest.mark.parametrize("n", [32, 128, 1024])
+@pytest.mark.parametrize("mask", ["none", "causal", "limit"])
+@pytest.mark.parametrize("dy_dtype", [torch.float32, torch.bfloat16])
+def test_nvu_softmax_grad_instances(dev, n, mask, dy_dtype):
+    """The softmax backward's instances (one column a lane at n = 32, four
+    at 128, 32 at 1024) with tied maxima, a whole row tied, causal and limit
+    masks (a row with no visible column), dy f32 and bf16: within
+    GRAD_RTOL of the largest value of `nvu_softmax_grad_plain`, and the same
+    bits from a second launch."""
+    rows = 4096 if n == 32 else 600
+    g = _gen(dev, 29)
+    x = torch.randn(rows, n, generator=g, device=dev) * 3
+    x[0, 3] = x[0, 7] = x[0].max() + 1
+    x[1] = 2.5
+    dy = torch.randn(rows, n, generator=g, device=dev).to(dy_dtype)
+    kw = dict(scale=0.125)
+    if mask == "causal":
+        kw["causal_rows"] = n
+    elif mask == "limit":
+        limit = torch.randint(0, n + 1, (rows,), generator=g, device=dev, dtype=torch.int32)
+        limit[5] = 0
+        kw["limit"] = limit
+    before = LAUNCHES["nvu_softmax_grad"]
+    got = sm.nvu_softmax_grad(x, dy, **kw)
+    _launched("nvu_softmax_grad", before)
+    assert torch.equal(sm.nvu_softmax_grad(x, dy, **kw), got)
+    want = sm.nvu_softmax_grad_plain(x, dy, **kw)
+    err = (got - want).abs()
+    assert bool((err <= GRAD_RTOL * float(want.abs().max())).all()), float(err.max())
+
+
 @pytest.mark.parametrize("rows,cols,rms", [(16, 768, False), (100, 512, False),
                                            (64, 1024, True), (3, 256, True),
                                            (1024, 768, False)])
@@ -615,14 +649,19 @@ def test_dense_attention_stats_and_repeat_bits(dev, case, use_pwl):
 
 
 @pytest.mark.parametrize("hq,hkv,sq,skv,instance", [
-    (8, 2, 1, 300, "flash_dense_decode_kernel"), (8, 1, 1, 300, "flash_dense_decode_kernel"),
-    (12, 1, 1, 300, "flash_dense_wgt_kernel"), (16, 2, 4, 300, "flash_dense_wgt_kernel"),
-    (8, 2, 40, 300, "flash_dense_wgt_kernel"), (8, 2, 1100, 1100, "flash_dense_wg_kernel")])
+    (8, 8, 1, 300, "flash_dense_split_kernel<64, 1>"),
+    (8, 4, 1, 300, "flash_dense_split_kernel<64, 2>"),
+    (8, 2, 1, 300, "flash_dense_split_kernel<64, 4>"),
+    (10, 2, 1, 300, "flash_dense_split_kernel<64, 8>"),    # 5 rows
+    (8, 1, 1, 300, "flash_dense_split_kernel<64, 8>"),
+    (12, 1, 1, 300, "flash_dense_wgt_kernel<"), (16, 2, 4, 300, "flash_dense_wgt_kernel<"),
+    (8, 2, 40, 300, "flash_dense_wgt_kernel<"), (8, 2, 1100, 1100, "flash_dense_wg_kernel<")])
 def test_dense_attention_instance_by_rows(dev, hq, hkv, sq, skv, instance):
     """A call with 8 or fewer rows a kv head (a GQA group's heads times its
-    queries) launches the decode instance; 9 to 32, or more whose 64-row
-    tiles would not fill two waves of the SMs, the transposed tensor-core
-    one; more the row-major one."""
+    queries) launches the decode instance for its rows rounded up to 1, 2,
+    4 or 8; 9 to 32, or more whose 64-row tiles would not fill two waves of
+    the SMs, the transposed tensor-core one; more the row-major one.  Each
+    call is one `flash_dense` kernel."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v = _flash_inputs(dev, 2, hq, hkv, sq, skv, 64, torch.bfloat16, torch.bfloat16, seed=27)
     fa.dense_attention(q, k, v)
@@ -630,10 +669,55 @@ def test_dense_attention_instance_by_rows(dev, hq, hkv, sq, skv, instance):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fa.dense_attention(q, k, v)
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if "flash_dense" in e.key]
+        names = [(e.key, e.count) for e in prof.key_averages() if "flash_dense" in e.key]
         if names:
             break
-    assert len(names) == 1 and instance + "<" in names[0], names
+    assert len(names) == 1 and names[0][1] == 1 and instance in names[0][0], names
+
+
+# the decode instance's split across a cluster (fa.dense_decode_split):
+# (b, hq, hkv, sq, skv, d, kv_len, causal, window)
+SPLIT_CASES = [
+    (8, 12, 12, 1, 16384, 64, 16384, True, 0),    # BERT's longest row: 8 blocks a head
+    (1, 12, 12, 1, 16384, 64, 16384, True, 0),    # 8 blocks a head, one wave
+    (1, 8, 1, 1, 16384, 64, 16384, True, 0),      # 8 rows over 2048 keys a block: two segments
+    (8, 8, 8, 1, 1500, 64, 1500, False, 0),       # Whisper's cross step
+    (8, 16, 8, 1, 1024, 64, 1000, True, 0),       # Granite's 2:1 group, kv_len past a chunk
+    (4, 32, 16, 1, 1024, 128, 700, False, 0),     # a ring's invalid rows at and past kv_len
+    (2, 4, 2, 1, 3000, 64, 2999, True, 700),      # a window that starts inside a block's keys
+    (2, 8, 2, 1, 3000, 64, 2999, True, 0),        # 4 rows
+    (2, 10, 2, 1, 3000, 32, 2999, True, 0),       # 5 rows (the 8-row instance), D = 32
+    (2, 4, 2, 2, 3000, 128, 2999, True, 0),       # two queries of a 2:1 group: 4 rows
+    (2, 2, 1, 1, 3000, 128, 2999, True, 0),       # 2 rows, D = 128
+    (8, 25, 5, 1, 32, 64, 32, False, 0),          # Hymba's 5:1 ring step: one block
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("use_pwl", [True, False])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_dense_attention_split(dev, case, use_pwl, q_dtype):
+    """The decode instance over a cache split across a cluster's blocks:
+    held to the plain version by the dense gate, the same bits from a
+    second launch, and the same bits with NaN in every cache row that no
+    row sees (past kv_len, below the first row's window), which it never
+    reads."""
+    b, hq, hkv, sq, skv, d, kv_len, causal, window = case
+    assert fa.dense_decode_split(b, hq, hkv, sq, kv_len, window) is not None
+    q, k, v = _flash_inputs(dev, b, hq, hkv, sq, skv, d, q_dtype, torch.bfloat16, seed=28)
+    kw = dict(kv_len=kv_len, causal=causal, window=window, use_pwl=use_pwl,
+              out_dtype=torch.bfloat16)
+    before = LAUNCHES["flash_attention"]
+    got = fa.dense_attention(q, k, v, **kw)
+    _launched("flash_attention", before)
+    assert torch.equal(fa.dense_attention(q, k, v, **kw), got)
+    _dense_close(q, k, v, kw, got)
+    lo = max(0, kv_len - sq - window + 1) if window > 0 else 0
+    k2, v2 = k.clone(), v.clone()
+    for t in (k2, v2):
+        t[:, :, kv_len:] = float("nan")
+        t[:, :, :lo] = float("nan")
+    assert torch.equal(fa.dense_attention(q, k2, v2, **kw), got)
 
 
 def test_dense_attention_default_arguments_keep_their_bits(dev):

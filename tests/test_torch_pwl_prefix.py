@@ -161,3 +161,29 @@ def test_torch_walk_computes_the_function(name):
     got = pwl_eval_walk(x, torch.from_numpy(packed))
     want = pwl_eval_plain(x[None], get_table(name, 16))[0]
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def walk_slope(x, stab):
+    """npe_pwl_slope: the slope table's row 1 at the count of interior knots
+    (its row 0, the packed table's knots) that x reaches, one compare a knot."""
+    s = stab.shape[1] - 1
+    seg = np.zeros(x.shape, np.int64)
+    for i in range(1, s):
+        seg += x >= stab[0, i]
+    return stab[1, seg]
+
+
+@pytest.mark.parametrize("name", ["exp", "recip"])
+def test_prefix_search_slope_is_the_walk_slope(name):
+    """npe_pwl_prefix_slope_n (the softmax backward's) reads the slope at the
+    segment its search finds: the slope npe_pwl_slope's walk gives, bit for
+    bit, for the exp and recip tables, with the value beside it the walk's."""
+    from repro_torch.kernels.pwl_eval import slope_table
+    packed = _packed(name)
+    stab = slope_table(name, 16, torch.device("cpu")).numpy()
+    assert _same_bits(stab[0], packed[0])          # both search the packed table's knots
+    x = sweep(packed, seed=5)
+    with np.errstate(invalid="ignore", over="ignore"):
+        k = seg_by_lifting(x, packed)
+        assert _same_bits(stab[1][k], walk_slope(x, stab))
+        assert _same_bits(prefix_eval(x, packed), walk(x, packed))
