@@ -42,10 +42,13 @@
    backward passes at BERT-base 8 x 128 against their plain backward
    passes: `pwl_eval`'s derivative mode (the GELU's, (1024, 3072) bf16, bit
    for bit), `nvu_softmax`'s backward kernel ((12288, 128), scale 0.125, dy
-   bf16) and `nvu_layernorm`'s ((1024, 768) bf16, dx and dgamma), within 2e-5
-   of their result's largest value, each beside torch's own backward of
-   F.gelu, torch.softmax and F.layer_norm (the same bytes, not the same
-   function), and the MMU's scale path (one more `quant_matmul` launch
+   bf16) and `nvu_layernorm`'s ((1024, 768) bf16, dx, dgamma and dbeta),
+   within 2e-5 of their result's largest value, and the first and last at
+   the decoders' shapes too (`PWL_GRAD_ROWS`: StarCoder2-3B's GELU (4096,
+   12288), Granite's expert SiLU (40960, 512); `LN_GRAD_ROWS`: StarCoder2's
+   LayerNorm (4096, 3072), Granite's RMSNorm (4096, 1024)), each beside
+   torch's own backward of F.gelu, F.silu, torch.softmax and F.layer_norm
+   (the same bytes, not the same function), and the MMU's scale path (one more `quant_matmul` launch
    with unit scales for the int32 product, then torch reductions) at every
    product of a layer and the head, beside `torch._int_mm`; and the
    backward of flash attention's dense mode (`dense_attention_grad`, bf16,
@@ -770,6 +773,16 @@ PREVIOUS_MS = {
     "cross decode (8, 8, 1, 64) kv 1500/1500 causal off pwl": 0.0188,
     "cross decode (8, 8, 1, 64) kv 1500/1500 causal off": 0.0181,
     "(12288, 128) scale 0.125 dy bf16": 0.0300,
+    # the layernorm backward and pwl_eval's derivative mode (their first
+    # kernels) at the parent tree of their redesign, by
+    # scripts/dense_attention_rows.py --part nvu_grad; keyed by kernel too,
+    # since the forward rows share these shapes
+    ("pwl_eval_grad", "(1024, 3072) gelu"): 0.0159,
+    ("pwl_eval_grad", "(4096, 12288) gelu"): 0.2548,
+    ("pwl_eval_grad", "(40960, 512) silu"): 0.1081,
+    ("nvu_layernorm_grad", "(1024, 768)"): 0.0256,
+    ("nvu_layernorm_grad", "(4096, 3072)"): 0.2062,
+    ("nvu_layernorm_grad", "(4096, 1024) rms"): 0.0358,
 }
 
 
@@ -822,9 +835,10 @@ def kernel_row(rows, floor_ms, kernel, shape, dtype, kernel_fn, plain_fn, bytes_
         extra += f"  [a copy of the same bytes {r['copy_ms']:.4f}]"
     if shape.startswith("(8,"):
         extra += f"  over the launch floor {r['ms'] - floor_ms:+.4f}"
-    if shape in PREVIOUS_MS:
-        r["previous_ms"] = PREVIOUS_MS[shape]
-        extra += f"  [before the redesign: {PREVIOUS_MS[shape]:.4f}]"
+    prev = PREVIOUS_MS.get((kernel, shape), PREVIOUS_MS.get(shape))
+    if prev is not None:
+        r["previous_ms"] = prev
+        extra += f"  [before the redesign: {prev:.4f}]"
     say(f"  {kernel:13s} {shape:28s} {r['dtype']:8s} err {err:.2e} "
         f"(atol {atol:g}, rtol {rtol:.3g}) {'ok' if ok else 'FAIL'}{extra}  "
         f"kernel {r['ms']:.4f} ms (events {ev:.4f})  plain {r['plain_ms']:.4f} "
@@ -983,28 +997,41 @@ def pwl_walk_ops(name: str) -> int:
 # softmax of BERT-base 8 x 128 and Granite's router softmax (4096 tokens of a
 # 4 x 1024 train step over 32 experts)
 SOFTMAX_GRAD_ROWS = [(12288, 128, 0.125, "bf16"), (4096, 32, 1.0, "f32")]
+# pwl_eval's derivative mode, bf16: (table, rows, n, cell): BERT-base's GELU
+# (8 x 128 tokens, d_ff 3072), StarCoder2-3B's (a 4 x 1024 train step, d_ff
+# 12288) and Granite's expert SiLU (32 experts x 4 sequences x 320 slots,
+# the capacity int(1024 * 8 / 32 * 1.25), of d_ff 512)
+PWL_GRAD_ROWS = [("gelu", 1024, 3072, None), ("gelu", 4096, 12288, "starcoder2"),
+                 ("silu", 40960, 512, "granite")]
+# the layernorm backward, bf16: (rows, n, eps, rms_only, cell): BERT-base's
+# LayerNorm, StarCoder2-3B's (with beta) and Granite's RMSNorm, 4 x 1024 tokens
+LN_GRAD_ROWS = [(1024, 768, 1e-12, False, None), (4096, 3072, 1e-5, False, "starcoder2"),
+                (4096, 1024, 1e-6, True, "granite")]
 
 
 def grad_kernel_rows(dev, g, row):
     """The training path's backward passes at BERT-base 8 x 128: the GELU's
     derivative (1024, 3072), the attention softmax's (12288, 128, scale
     0.125, dy bf16), the LayerNorm's (1024, 768) and the MMU's scale path at
-    every product of a layer and the head.  Beside each a yardstick of the
-    same bytes, torch's own backward of F.gelu, torch.softmax and
-    F.layer_norm (exact math, not the same function), and for the MMU
-    torch._int_mm (the int8 product alone)."""
-    x = (torch.randn(1024, 3072, generator=g, device=dev) * 4).to(torch.bfloat16)
-    dy = torch.randn(1024, 3072, generator=g, device=dev).to(torch.bfloat16)
-    gelu = get_table("gelu", 16)
-    row("pwl_eval_grad", "(1024, 3072) gelu", torch.bfloat16,
-        lambda: pe_mod.pwl_eval_grad(x, dy, "gelu"),
-        lambda: pe_mod.pwl_eval_grad_plain(x, dy, gelu),
-        3 * x.numel() * 2, [(x.numel() * pwl_walk_ops("gelu"), F32_OPS_PER_S)],
-        check_fn=lambda got: (float((got.float() - pe_mod.pwl_eval_grad_plain(
-            x, dy, gelu).float()).abs().max()),
-            torch.equal(got, pe_mod.pwl_eval_grad_plain(x, dy, gelu))),
-        yardstick_fn=lambda: torch.ops.aten.gelu_backward(dy, x),
-        yardstick_name="aten.gelu_backward")
+    every product of a layer and the head; and at the decoders' shapes
+    (`PWL_GRAD_ROWS`, `SOFTMAX_GRAD_ROWS`, `LN_GRAD_ROWS`).  Beside each a
+    yardstick of the same bytes, torch's own backward of F.gelu, F.silu,
+    torch.softmax and F.layer_norm (exact math, not the same function), and
+    for the MMU torch._int_mm (the int8 product alone)."""
+    for name, m, n, cell in PWL_GRAD_ROWS:
+        x = (torch.randn(m, n, generator=g, device=dev) * 4).to(torch.bfloat16)
+        dy = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        table = get_table(name, 16)
+        yard = torch.ops.aten.gelu_backward if name == "gelu" else torch.ops.aten.silu_backward
+        row("pwl_eval_grad", f"({m}, {n}) {name}", torch.bfloat16,
+            lambda: pe_mod.pwl_eval_grad(x, dy, name),
+            lambda: pe_mod.pwl_eval_grad_plain(x, dy, table),
+            3 * x.numel() * 2, [(x.numel() * pwl_prefix_ops(name), F32_OPS_PER_S)],
+            check_fn=lambda got: (float((got.float() - pe_mod.pwl_eval_grad_plain(
+                x, dy, table).float()).abs().max()),
+                torch.equal(got, pe_mod.pwl_eval_grad_plain(x, dy, table))),
+            yardstick_fn=lambda: yard(dy, x), yardstick_name=f"aten.{name}_backward",
+            cell=cell, plain_reps=20 if cell is None else 3)
 
     for rows_, n_, scale_, dy_ in SOFTMAX_GRAD_ROWS:
         dt_ = torch.bfloat16 if dy_ == "bf16" else torch.float32
@@ -1030,22 +1057,26 @@ def grad_kernel_rows(dev, g, row):
                                                               torch.float32),
             yardstick_name="torch._softmax_backward_data", cell=None if n_ == 128 else "granite")
 
-    xn = (torch.randn(1024, 768, generator=g, device=dev) * 3 + 0.7).to(torch.bfloat16)
-    dyn = torch.randn(1024, 768, generator=g, device=dev).to(torch.bfloat16)
-    gam = 1 + 0.1 * torch.randn(768, generator=g, device=dev)
-    gam_t, bet_t = gam.to(torch.bfloat16), torch.zeros(768, dtype=torch.bfloat16, device=dev)
-    _, mean, rstd = torch.ops.aten.native_layer_norm(xn, [768], gam_t, bet_t, 1e-12)
-    row("nvu_layernorm_grad", "(1024, 768)", torch.bfloat16,
-        lambda: ln_mod.nvu_layernorm_grad(xn, dyn, gam, 1e-12),
-        lambda: ln_mod.nvu_layernorm_grad_plain(xn, dyn, gam, 1e-12),
-        xn.numel() * 3 * 2 + 3 * 768 * 4,
-        [(xn.numel() * 30 + xn.shape[0] * (pwl_ops("rsqrt") + pwl_walk_ops("rsqrt") + 20),
-          F32_OPS_PER_S)],
-        check_fn=grad_check(lambda: ln_mod.nvu_layernorm_grad_plain(xn, dyn, gam, 1e-12),
-                            bf16=True),
-        yardstick_fn=lambda: torch.ops.aten.native_layer_norm_backward(
-            dyn, xn, [768], mean, rstd, gam_t, bet_t, [True, True, True]),
-        yardstick_name="aten.native_layer_norm_backward")
+    for m, n, eps, rms, cell in LN_GRAD_ROWS:
+        xn = (torch.randn(m, n, generator=g, device=dev) * 3 + 0.7).to(torch.bfloat16)
+        dyn = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        gam = 1 + 0.1 * torch.randn(n, generator=g, device=dev)
+        gam_t, bet_t = gam.to(torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16, device=dev)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(xn, [n], gam_t, bet_t, eps)
+        kw = dict(eps=eps, rms_only=rms)
+        row("nvu_layernorm_grad", f"({m}, {n})" + (" rms" if rms else ""), torch.bfloat16,
+            lambda: ln_mod.nvu_layernorm_grad(xn, dyn, gam, **kw),
+            lambda: ln_mod.nvu_layernorm_grad_plain(xn, dyn, gam, **kw),
+            # x, dy and dx; gamma, dgamma and (with beta) dbeta
+            xn.numel() * 3 * 2 + (2 if rms else 3) * n * 4,
+            [(xn.numel() * 30 + xn.shape[0] * (pwl_ops("rsqrt") + pwl_walk_ops("rsqrt") + 20),
+              F32_OPS_PER_S)],
+            check_fn=grad_check(lambda: ln_mod.nvu_layernorm_grad_plain(xn, dyn, gam, **kw),
+                                bf16=True),
+            yardstick_fn=lambda: torch.ops.aten.native_layer_norm_backward(
+                dyn, xn, [n], mean, rstd, gam_t, bet_t, [True, True, not rms]),
+            yardstick_name="aten.native_layer_norm_backward", cell=cell,
+            plain_reps=20 if cell is None else 5)
 
     for m, k, n in [(1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                     (1024, 768, 30720)]:
@@ -3878,6 +3909,7 @@ class GradAudit:
 
     def __init__(self):
         self.stats = {k: [0, 0.0, True] for k in self.NAMES}
+        self.shapes = {k: set() for k in self.NAMES}   # (rows, n) of each launch's x
         self.saved = {}
 
     def _wrap(self, attr, plain, bf16):
@@ -3885,6 +3917,7 @@ class GradAudit:
 
         def fn(*args, **kw):
             got = kernel(*args, **kw)
+            self.shapes[attr].add(tuple(args[0].shape))
             err, ok = grad_check(lambda: plain(*args, **kw), bf16=bf16(args))(got)
             st = self.stats[attr]
             st[0] += 1
@@ -4382,6 +4415,14 @@ def dec_train_launches(arch, trainer):
              "flash_attention_grad": bwd.stats["dense_attention_grad"][0]}
     say(f"  launches of one NPE-8 train step: {counts} (expected {all_want}); forward, each "
         f"layer's twice (remat): {fwd_n}; backward: {bwd_n}")
+    # the shapes [3]'s decoder rows of the two NVU backward kernels take
+    cell = next(c for c, a in TRAINED_CELLS.items() if a == arch)
+    rows3 = {"pwl_eval_grad": {(m, n) for _, m, n, c in PWL_GRAD_ROWS if c == cell},
+             "nvu_layernorm_grad": {(m, n) for m, n, _, _, c in LN_GRAD_ROWS if c == cell}}
+    for name, want in rows3.items():
+        seen = sorted(bwd.shapes[name])
+        say(f"  {name} shapes of the step: {seen}; [3]'s {cell} rows {sorted(want)} "
+            + ("among them" if want <= set(seen) else "NOT AMONG THEM"))
     say("  every launch vs its plain version on its operands: " + ", ".join(
         f"{k} {n} max-abs {e:.2e} {'ok' if ok else 'FAIL'}"
         for k, (n, e, ok) in list(fwd.stats.items()) + list(bwd.stats.items()) if n))

@@ -5,16 +5,20 @@ the repository side by side.
     python3 scripts/dense_attention_rows.py [--part PART] [--out DIR] [TREE ...]
 
 PART: forward, backward, both (the default), decode (the forward's rows
-that the decode instance takes: at most 8 rows a kv head) or softmax_grad
-(`nvu_softmax_grad`).  Each TREE (default: this checkout) is a directory
+that the decode instance takes: at most 8 rows a kv head), softmax_grad
+(`nvu_softmax_grad`) or nvu_grad (`pwl_eval_grad` and
+`nvu_layernorm_grad`).  Each TREE (default: this checkout) is a directory
 holding a `src/` of the port, such as a `git archive` of another commit
 unpacked into an ignored directory.  The shapes are this checkout's
 chip_smoke.py tables (DENSE_ROWS and MASK_ROWS for the forward,
-ATTN_GRAD_ROWS for the backward, SOFTMAX_GRAD_ROWS for the softmax's), read
-from its source, so that every tree is timed at the same rows.  The softmax
-backward's results of each tree are saved under DIR (default
+ATTN_GRAD_ROWS for the backward, SOFTMAX_GRAD_ROWS for the softmax's,
+PWL_GRAD_ROWS and LN_GRAD_ROWS for nvu_grad), read from its source, so
+that every tree is timed at the same rows.  The results of the
+backward kernels of each tree are saved under DIR (default
 chiprun_out/rows) and held to the first tree's with torch.equal (exit 1 if
-any differs).  For each tree in
+any differs), the layernorm backward's (dx, dgamma, dbeta) within
+chip_smoke.py's `grad_check` gate in place of torch.equal; nvu_grad's
+files are removed once compared.  For each tree in
 turn (each in a process of its own, building its own kernels), it prints
 the device ms a call of `dense_attention` (PWL and exact) and of
 `dense_attention_grad` (from the forward's row statistics where the tree's
@@ -31,8 +35,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-TABLES = ("DENSE_ROWS", "MASK_ROWS", "ATTN_GRAD_ROWS", "SOFTMAX_GRAD_ROWS")
+TABLES = ("DENSE_ROWS", "MASK_ROWS", "ATTN_GRAD_ROWS", "SOFTMAX_GRAD_ROWS",
+          "PWL_GRAD_ROWS", "LN_GRAD_ROWS")
 DECODE_ROWS = 8     # rows a kv head the decode instance takes
+GRAD_RTOL, BF16_RTOL = 2e-5, 2.0 ** -7   # chip_smoke.py's grad_check gate
 
 
 def tables() -> dict:
@@ -53,7 +59,9 @@ def rows(tree: Path, part: str, t: dict, out: Path) -> None:
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import _kernel_times, measure
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nvu_layernorm as ln
     from repro_torch.kernels import nvu_softmax as sm
+    from repro_torch.kernels import pwl_eval as pe
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -110,6 +118,23 @@ def rows(tree: Path, part: str, t: dict, out: Path) -> None:
         ms, ev = measure(lambda: sm.nvu_softmax_grad(x, dy, scale=scale))
         print(f"  softmax backward ({n_rows}, {n}) scale {scale:g} dy {dy_dtype:4s} {ms:.4f} ms "
               f"(events {ev:.4f})", flush=True)
+    for name, m, n, _ in (t["PWL_GRAD_ROWS"] if part == "nvu_grad" else []):
+        x = (torch.randn(m, n, generator=g, device=dev) * 4).to(torch.bfloat16)
+        dy = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        results[f"pwl {name} {m}x{n}"] = pe.pwl_eval_grad(x, dy, name)
+        ms, ev = measure(lambda: pe.pwl_eval_grad(x, dy, name))
+        print(f"  pwl_eval_grad ({m}, {n}) {name:4s} {ms:.4f} ms (events {ev:.4f})", flush=True)
+    for m, n, eps, rms, _ in (t["LN_GRAD_ROWS"] if part == "nvu_grad" else []):
+        x = (torch.randn(m, n, generator=g, device=dev) * 3 + 0.7).to(torch.bfloat16)
+        dy = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+        gam = 1 + 0.1 * torch.randn(n, generator=g, device=dev)
+        got = ln.nvu_layernorm_grad(x, dy, gam, eps=eps, rms_only=rms)
+        for k, v in zip(("dx", "dgamma", "dbeta"), got):
+            if v is not None:
+                results[f"ln {m}x{n} {k}"] = v
+        ms, ev = measure(lambda: ln.nvu_layernorm_grad(x, dy, gam, eps=eps, rms_only=rms))
+        print(f"  nvu_layernorm_grad ({m}, {n}){' rms' if rms else '    '} {ms:.4f} ms "
+              f"(events {ev:.4f})", flush=True)
     if results:
         torch.save({k: v.cpu() for k, v in results.items()}, out)
 
@@ -130,19 +155,36 @@ def main() -> int:
     t = json.dumps(tables())
     saved = []
     for i, tree in enumerate([Path(a).resolve() for a in args] or [ROOT]):
-        saved.append(out / f"softmax_grad_{i}.pt")
+        saved.append(out / f"{part}_{i}.pt")
         if subprocess.run([sys.executable, __file__, "--one", str(tree), part, t,
                            str(saved[-1])]).returncode:
             return 1
-    if part == "softmax_grad":
+    if part in ("softmax_grad", "nvu_grad"):
         import torch
         first = torch.load(saved[0])
+        bad = False
         for i, path in enumerate(saved[1:], 1):
-            same = {k: torch.equal(v, first[k]) for k, v in torch.load(path).items()}
-            print(f"softmax backward of tree {i} equal to tree 0's: {same}", flush=True)
-            if not all(same.values()):
-                return 1
+            same = {k: held(k, v, first[k]) for k, v in torch.load(path).items()}
+            print(f"results of tree {i} against tree 0's (torch.equal; the layernorm's within "
+                  f"grad_check's gate): {same}", flush=True)
+            bad = bad or not all(same.values())
+        if part == "nvu_grad":
+            for path in saved:
+                path.unlink()
+        if bad:
+            return 1
     return 0
+
+
+def held(key: str, got, want) -> bool:
+    """torch.equal, or for the layernorm backward chip_smoke.py's
+    grad_check gate: GRAD_RTOL of the largest value, plus one bf16 rounding
+    of each value of a bf16 dx."""
+    if not key.startswith("ln "):
+        return bool(got.equal(want))
+    g, w = got.float(), want.float()
+    gate = GRAD_RTOL * float(w.abs().max()) + (BF16_RTOL * w.abs() if key.endswith("dx") else 0.0)
+    return bool(((g - w).abs() <= gate).all())
 
 
 if __name__ == "__main__":

@@ -156,24 +156,25 @@ __device__ __forceinline__ int npe_prefix_top(int segs) {
   return segs > 1 ? 1 << (31 - __clz(segs - 1)) : 0;
 }
 
-// The segment of each of N values in a prefix table: k = 4 * seg, seg the
-// count of interior knots <= x, found by binary lifting over the ascending
-// knots: the first two steps read knots every thread shares (kept in
-// registers), the rest one knot each.  Offsets are kept in bytes, so each
-// step is an add, a load, a compare and a select.
+// The segment of each of N values over NPE_PREFIX_KNOTS knot slots in
+// shared memory (a prefix table's `knot` row: [1..S-1] the interior knots,
+// the rest NaN): k = 4 * seg, seg the count of interior knots <= x, found by
+// binary lifting over the ascending knots: the first two steps read knots
+// every thread shares (kept in registers), the rest one knot each.  Offsets
+// are kept in bytes, so each step is an add, a load, a compare and a select.
 template <int N>
-__device__ __forceinline__ void npe_prefix_seg_n(const float (&v)[N], int (&k)[N],
-                                                 const NpePrefixTable& t, int top) {
-  const char* kb = reinterpret_cast<const char*>(t.knot);
+__device__ __forceinline__ void npe_knot_seg_n(const float (&v)[N], int (&k)[N],
+                                               const float* knot, int top) {
+  const char* kb = reinterpret_cast<const char*>(knot);
 #pragma unroll
   for (int j = 0; j < N; ++j) k[j] = 0;
   if (top > 0) {
-    const float k_top = t.knot[top];
+    const float k_top = knot[top];
 #pragma unroll
     for (int j = 0; j < N; ++j) k[j] = v[j] >= k_top ? 4 * top : 0;
     int step = top >> 1;
     if (step > 0) {
-      const float k_lo = t.knot[step], k_hi = t.knot[top + step];
+      const float k_lo = knot[step], k_hi = knot[top + step];
 #pragma unroll
       for (int j = 0; j < N; ++j)
         k[j] = v[j] >= (k[j] ? k_hi : k_lo) ? k[j] + 4 * step : k[j];
@@ -186,6 +187,13 @@ __device__ __forceinline__ void npe_prefix_seg_n(const float (&v)[N], int (&k)[N
       }
     }
   }
+}
+
+// The same search over a prefix table's knots.
+template <int N>
+__device__ __forceinline__ void npe_prefix_seg_n(const float (&v)[N], int (&k)[N],
+                                                 const NpePrefixTable& t, int top) {
+  npe_knot_seg_n<N>(v, k, t.knot, top);
 }
 
 // npe_pwl on N values at once, in place, from a prefix table: the segment
@@ -221,6 +229,21 @@ __device__ __forceinline__ void npe_pwl_prefix_slope_n(float (&v)[N], float (&d)
     d[j] = *reinterpret_cast<const float*>(db + k[j]);
     v[j] = __fadd_rn(__fmul_rn(p.x, v[j]), p.y);
   }
+}
+
+// The slope of each of N values' segments alone, by the same search:
+// d[j] = slope[seg], `knot` as npe_knot_seg_n takes it and `slope` the
+// reference table's S slopes (row 1 of a slope table, below).  The search
+// counts the knots the walk's rule counts, so d[j] is npe_pwl_slope's value
+// bit for bit.
+template <int N>
+__device__ __forceinline__ void npe_pwl_slope_n(const float (&v)[N], float (&d)[N],
+                                                const float* knot, const float* slope, int top) {
+  int k[N];
+  npe_knot_seg_n<N>(v, k, knot, top);
+  const char* db = reinterpret_cast<const char*>(slope);
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j] = *reinterpret_cast<const float*>(db + k[j]);
 }
 
 // --- the NVU softmax's pieces ---------------------------------------------

@@ -19,6 +19,9 @@
 // or take one.  A second instance, for an x or y whose address is
 // not 16-byte aligned or whose length is not a multiple of 8 elements,
 // moves the same units with scalar, masked accesses.
+#include <initializer_list>
+#include <type_traits>
+
 #include "pwl.cuh"
 
 namespace {
@@ -107,14 +110,16 @@ pwl_stream_kernel(const TI* __restrict__ x, TO* __restrict__ y, long long n,
   }
 }
 
-template <typename TI, typename TO, bool VEC>
-int launch(const void* x, void* y, long long n, const float* table, int segs,
-           cudaStream_t stream) {
-  constexpr int E = 16 / sizeof(TI);
-  static int resident = 0;   // blocks of this instance an SM holds at once
+// Launches a stream kernel over n values, E a unit: a unit a thread, in
+// whole waves of the SMs, capped at the blocks of the kernel an SM holds at
+// once (the rest by its grid-stride loop).  `resident` keeps that cap, asked
+// of the runtime on the instance's first launch.
+template <int E, typename... P, typename... A>
+int launch_stream(void (*kernel)(P...), int& resident, long long n, cudaStream_t stream,
+                  A... args) {
   if (resident == 0) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &resident, pwl_stream_kernel<TI, TO, VEC>, THREADS, 0) != cudaSuccess ||
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, THREADS, 0) !=
+            cudaSuccess ||
         resident < 1)
       resident = 1;
   }
@@ -125,56 +130,109 @@ int launch(const void* x, void* y, long long n, const float* table, int segs,
     blocks = (blocks + sms - 1) / sms * sms;                // whole waves
     if (blocks > sms * resident) blocks = sms * resident;   // the rest by the loop
   }
-  pwl_stream_kernel<TI, TO, VEC><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const TI*>(x), static_cast<TO*>(y), n, table, segs);
+  kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
+// launch(std::true_type) where every operand is 16-byte aligned and n a
+// multiple of 8 (the vector instance), else launch(std::false_type).
+template <class Launch>
+int aligned_or_not(long long n, std::initializer_list<const void*> operands, Launch launch) {
+  bool vec = n % 8 == 0;
+  for (const void* p : operands) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return vec ? launch(std::true_type{}) : launch(std::false_type{});
+}
+
 template <typename TI, typename TO>
-int launch_aligned_or_not(const void* x, void* y, long long n, const float* table,
-                          int segs, cudaStream_t s) {
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0 && n % 8 == 0;
-  return vec ? launch<TI, TO, true>(x, y, n, table, segs, s)
-             : launch<TI, TO, false>(x, y, n, table, segs, s);
+int launch(const void* x, void* y, long long n, const float* table, int segs, cudaStream_t s) {
+  return aligned_or_not(n, {x, y}, [&](auto vec) {
+    static int resident = 0;   // one for each instance: the body is a template
+    return launch_stream<16 / sizeof(TI)>(pwl_stream_kernel<TI, TO, decltype(vec)::value>,
+                                          resident, n, s, static_cast<const TI*>(x),
+                                          static_cast<TO*>(y), n, table, segs);
+  });
 }
 
 // The derivative mode: dx = dy * slope(seg(x)) (a table used clamped: the
 // slope at clip(x, lo, hi), times 1/2 at an end and 0 past it), in f32, as
-// jax.grad of `slope[seg] * x + icept[seg]` gives it, rounded to T.  A
-// thread an element over a grid-stride loop; the slope table in shared
-// memory.  Written to be right: it moves 3 elements a value, as the
-// forward's stream does 2, but with scalar accesses.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pwl_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                long long n, const float* __restrict__ stable, int segs, int clamped, float lo,
-                float hi) {
-  __shared__ float tab[2 * NPE_MAX_TABLE_COLS];
-  npe_load_slope_table(tab, stable, segs + 1);
-  __syncthreads();
+// jax.grad of `slope[seg] * x + icept[seg]` gives it, rounded to T: the
+// same three roundings on the same slope as the plain version, so dx is its
+// result bit for bit.
+// Bound on this card: bytes (x and dy read once, dx written once).
+// Design: the forward's stream.  Each thread takes one 16-byte vector of x
+// and one of dy per step of the grid-stride loop while the loads of its
+// next pair are in flight.  It reads its piece of the slope table first,
+// then starts its first two pairs of loads, then the block writes the knots
+// (NaN-padded, as a prefix table's) and the S slopes to shared memory while
+// they are in flight.  Each value's slope is then gathered at the segment
+// that a binary search over the knots finds (npe_pwl_slope_n), the count of
+// knots the walk's rule counts.  The grid is the forward's: a vector a
+// thread in whole waves of the SMs, capped at the blocks resident at once.
+// The scalar instance (VEC = false) serves an x, dy or dx that is not
+// 16-byte aligned or a length that is not a multiple of 8.
+constexpr int GRAD_MIN_BLOCKS = 4;   // two pairs of vectors in flight: 64 registers a thread
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, GRAD_MIN_BLOCKS)
+pwl_grad_stream_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                       long long n, const float* __restrict__ stable, int segs, int clamped,
+                       float lo, float hi) {
+  using U = Unit<T, VEC>;
+  constexpr int E = U::E;
+  __shared__ float knot[NPE_PREFIX_KNOTS];
+  __shared__ float slope[NPE_MAX_TABLE_COLS];
+  const long long units = (n + E - 1) / E;
   const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-    float v = npe_to_f32(x[i]);
-    float f = 1.f;
+  long long u = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const int t = threadIdx.x;
+  const float kn = t >= 1 && t < segs ? __ldg(stable + t) : __int_as_float(0x7fffffff);
+  const float sl = t < segs ? __ldg(stable + segs + 1 + t) : 0.f;
+  U cx, cd, nx, nd;
+  cx.load(x, u, n);                                 // in flight ...
+  cd.load(dy, u, n);
+  nx.load(x, u + stride, n);
+  nd.load(dy, u + stride, n);
+  if (t < NPE_PREFIX_KNOTS) knot[t] = kn;           // ... during this
+  if (t < NPE_MAX_TABLE_COLS) slope[t] = sl;
+  __syncthreads();
+  const int top = npe_prefix_top(segs);
+  for (;;) {
+    float v[E], g[E], d[E], f[E];
+    cx.to_f32(v);
+    cd.to_f32(g);
     if (clamped) {
-      f = npe_clip_factor(v, lo, hi);
-      v = fminf(fmaxf(v, lo), hi);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        f[e] = npe_clip_factor(v[e], lo, hi);
+        v[e] = fminf(fmaxf(v[e], lo), hi);
+      }
     }
-    dx[i] = npe_from_f32<T>(__fmul_rn(__fmul_rn(npe_to_f32(dy[i]), npe_pwl_slope(v, tab, segs)), f));
+    npe_pwl_slope_n<E>(v, d, knot, slope, top);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      d[e] = __fmul_rn(g[e], d[e]);
+      if (clamped) d[e] = __fmul_rn(d[e], f[e]);
+    }
+    store_unit<T, VEC, E>(dx, u, n, d);
+    u += stride;
+    if (u >= units) break;
+    cx = nx;
+    cd = nd;
+    nx.load(x, u + stride, n);
+    nd.load(dy, u + stride, n);
   }
 }
 
 template <typename T>
 int launch_grad(const void* x, const void* dy, void* dx, long long n, const float* stable,
-                int segs, int clamped, float lo, float hi, cudaStream_t stream) {
-  long long blocks = (n + THREADS - 1) / THREADS;
-  const long long cap = (long long)npe_sm_count() * 8;
-  if (blocks > cap) blocks = cap;
-  pwl_grad_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), n, stable,
-      segs, clamped, lo, hi);
-  return (int)cudaGetLastError();
+                int segs, int clamped, float lo, float hi, cudaStream_t s) {
+  return aligned_or_not(n, {x, dy, dx}, [&](auto vec) {
+    static int resident = 0;
+    return launch_stream<16 / sizeof(T)>(pwl_grad_stream_kernel<T, decltype(vec)::value>,
+                                         resident, n, s, static_cast<const T*>(x),
+                                         static_cast<const T*>(dy), static_cast<T*>(dx), n,
+                                         stable, segs, clamped, lo, hi);
+  });
 }
 
 }  // namespace
@@ -197,8 +255,8 @@ extern "C" int npe_pwl_eval(const void* x, void* y, long long n, int x_bf16,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  if (x_bf16 && y_bf16) return launch_aligned_or_not<bf16, bf16>(x, y, n, table, segments, s);
-  if (x_bf16) return launch_aligned_or_not<bf16, float>(x, y, n, table, segments, s);
-  if (y_bf16) return launch_aligned_or_not<float, bf16>(x, y, n, table, segments, s);
-  return launch_aligned_or_not<float, float>(x, y, n, table, segments, s);
+  if (x_bf16 && y_bf16) return launch<bf16, bf16>(x, y, n, table, segments, s);
+  if (x_bf16) return launch<bf16, float>(x, y, n, table, segments, s);
+  if (y_bf16) return launch<float, bf16>(x, y, n, table, segments, s);
+  return launch<float, float>(x, y, n, table, segments, s);
 }

@@ -49,9 +49,12 @@ SIGNATURES = {
     # exp_table, exp_slopes, exp_segments, exp_lo, exp_hi, recip_table,
     # recip_slopes, recip_segments, recip_lo, recip_hi, stream
     "npe_nvu_softmax_grad": (P, P, P, I, I, I, P, I, F, I, P, P, I, F, F, P, P, I, F, F, P),
-    # x, dy, gamma, dx, dgamma_rows, rows, n, bf16, eps, rms_only, table,
-    # slopes, segments, lo, hi, stream
-    "npe_nvu_layernorm_grad": (P, P, P, P, P, I, I, I, F, I, P, P, I, F, F, P),
+    # x, dy, gamma, dx, rows, n, bf16, rms_only, segments -> the blocks of
+    # the backward's grid (the rows of its column sums), or minus an error
+    "npe_nvu_layernorm_grad_blocks": (P, P, P, P, I, I, I, I, I),
+    # x, dy, gamma, dx, dgamma, dbeta, parts, parts_blocks, rows, n, bf16,
+    # eps, rms_only, table, slopes, segments, lo, hi, stream
+    "npe_nvu_layernorm_grad": (P, P, P, P, P, P, P, I, I, I, I, F, I, P, P, I, F, F, P),
     # x, y, rows, n, causal_rows, limit, limit_rows, scale, y_bf16, exp_table,
     # exp_segments, recip_table, recip_segments, stream
     "npe_nvu_softmax": (P, P, I, I, I, P, I, F, I, P, I, P, I, P),

@@ -6,9 +6,9 @@ the card and runs `nvu_layernorm_plain` for one on the CPU.
 `nvu_layernorm_grad(x, dy, gamma, ...)` is the backward of the training
 path, (dx, dgamma, dbeta) as jax.grad of the reference's
 `core/nvu.nvu_layernorm` (or `nvu_rmsnorm`) gives them: the same source's
-backward kernel on the card (dx and each row's part of dgamma, summed over
-the rows by torch), `nvu_layernorm_grad_plain`, explicit torch formulas, on
-the CPU.
+backward kernels on the card (the row pass: dx and each block's column
+sums; then their reduction to dgamma and dbeta in a fixed order), and
+`nvu_layernorm_grad_plain`, explicit torch formulas, on the CPU.
 """
 from __future__ import annotations
 
@@ -130,13 +130,25 @@ def nvu_layernorm_grad(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
     if g.device != x.device:
         raise ValueError(f"nvu_layernorm_grad: operands on {x.device} and {g.device}")
     dx = torch.empty_like(x)
-    parts = torch.empty(rows, n, dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(n, dtype=torch.float32, device=x.device)
+    dbeta = None if rms_only else torch.empty(n, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dgamma.zero_(), None if rms_only else dbeta.zero_()
+    lib = library()
     tab, stab = device_table("rsqrt", segments, x.device), slope_table("rsqrt", segments, x.device)
-    err = library().npe_nvu_layernorm_grad(
-        x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), parts.data_ptr(), rows, n,
-        int(x.dtype == torch.bfloat16), eps, int(rms_only), tab.data_ptr(), stab.data_ptr(),
-        tab.shape[1] - 1, *table_ends("rsqrt", segments), stream_handle(x))
+    bf16 = int(x.dtype == torch.bfloat16)
+    blocks = lib.npe_nvu_layernorm_grad_blocks(x.data_ptr(), dy.data_ptr(), g.data_ptr(),
+                                               dx.data_ptr(), rows, n, bf16, int(rms_only),
+                                               tab.shape[1] - 1)
+    check(max(0, -blocks), "nvu_layernorm_grad")
+    # each block's column sums: (rms_only ? 1 : 2) * n floats
+    parts = torch.empty(blocks * (1 if rms_only else 2) * n, dtype=torch.float32,
+                        device=x.device)
+    err = lib.npe_nvu_layernorm_grad(
+        x.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+        None if dbeta is None else dbeta.data_ptr(), parts.data_ptr(), blocks, rows, n, bf16,
+        eps, int(rms_only), tab.data_ptr(), stab.data_ptr(), tab.shape[1] - 1,
+        *table_ends("rsqrt", segments), stream_handle(x))
     check(err, "nvu_layernorm_grad")
     LAUNCHES["nvu_layernorm_grad"] += 1
-    dbeta = None if rms_only else dy.to(torch.float32).sum(dim=0)
-    return dx, parts.sum(dim=0), dbeta
+    return dx, dgamma, dbeta

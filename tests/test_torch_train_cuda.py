@@ -93,6 +93,42 @@ def test_pwl_eval_grad_bit_for_bit(dev, name, clamped, dtype, shape):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("name,shape", [("gelu", (4096, 12288)), ("silu", (40960, 512))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clamped", [False, True])
+def test_pwl_eval_grad_model_shapes(dev, name, shape, dtype, clamped):
+    """StarCoder2-3B's GELU and Granite's expert SiLU of a 4 x 1024 train
+    step (chip_smoke.py's PWL_GRAD_ROWS), bit for bit."""
+    g = _gen(dev, 10)
+    x = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    got = _counted("pwl_eval_grad", lambda: pe.pwl_eval_grad(x, dy, name, clamped=clamped))
+    assert torch.equal(got, pe.pwl_eval_grad_plain(x, dy, get_table(name, 16), clamped))
+
+
+def _offset(t):
+    """A contiguous copy of t one element into its storage: not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
+@pytest.mark.parametrize("skew", ["x", "dy", "both"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pwl_eval_grad_unaligned(dev, skew, dtype):
+    """An x or dy that is not 16-byte aligned takes the scalar instance,
+    bit for bit."""
+    g = _gen(dev, 11)
+    x = (torch.randn(96, 520, generator=g, device=dev) * 4).to(dtype)
+    dy = torch.randn(96, 520, generator=g, device=dev).to(dtype)
+    if skew in ("x", "both"):
+        x = _offset(x)
+    if skew in ("dy", "both"):
+        dy = _offset(dy)
+    for clamped in (False, True):
+        got = _counted("pwl_eval_grad", lambda: pe.pwl_eval_grad(x, dy, "exp", clamped=clamped))
+        assert torch.equal(got, pe.pwl_eval_grad_plain(x, dy, get_table("exp", 16), clamped))
+
+
 def _scores(dev, rows, n, seed=1):
     x = torch.randn(rows, n, generator=_gen(dev, seed), device=dev) * 3
     x[0, 3] = x[0, 7] = x[0].max() + 1          # tied maxima
@@ -131,7 +167,13 @@ def _norm_rows(dev, rows, n, dtype):
     return x.to(dtype)
 
 
-@pytest.mark.parametrize("rows,n", [(1024, 768), (8, 768), (64, 4096), (5, 100)])
+# rows of 768 and 4096 (f32: past the warp instance's 2048 columns), 3072
+# (bf16: the warp instance's widest class; f32: the block instance) and
+# 8192 + 64 (the block instance reading the row again from global memory);
+# (4096, 3072) and (4096, 1024), StarCoder2-3B's LayerNorm and Granite's
+# RMSNorm of a 4 x 1024 train step; 100 columns (not 16-byte rows)
+@pytest.mark.parametrize("rows,n", [(1024, 768), (8, 768), (64, 4096), (5, 100), (48, 3072),
+                                    (33, 8256), (4096, 3072), (4096, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rms_only", [False, True])
 def test_nvu_layernorm_grad(dev, rows, n, dtype, rms_only):
@@ -148,6 +190,23 @@ def test_nvu_layernorm_grad(dev, rows, n, dtype, rms_only):
     assert (db is None) == rms_only
     if not rms_only:
         _close(db, wb)
+
+
+@pytest.mark.parametrize("rows,n,dtype", [(1024, 768, torch.bfloat16),
+                                          (4096, 3072, torch.bfloat16),
+                                          (300, 3072, torch.float32),
+                                          (33, 8256, torch.float32)])
+@pytest.mark.parametrize("rms_only", [False, True])
+def test_nvu_layernorm_grad_same_bits(dev, rows, n, dtype, rms_only):
+    """dgamma and dbeta are summed over the rows in a fixed order: two
+    launches give the same bits (each instance)."""
+    x = _norm_rows(dev, rows, n, dtype)
+    dy = torch.randn(rows, n, generator=_gen(dev, 12), device=dev).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(n, generator=_gen(dev, 13), device=dev)
+    first = ln.nvu_layernorm_grad(x, dy, gamma, 1e-5, 16, rms_only)
+    second = ln.nvu_layernorm_grad(x, dy, gamma, 1e-5, 16, rms_only)
+    for a, b in zip(first, second):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
 
 
 @pytest.mark.parametrize("m,k,n", [(1024, 768, 768), (1024, 3072, 768), (1024, 768, 30720),

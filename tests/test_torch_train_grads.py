@@ -187,10 +187,12 @@ def _norm_rows(seed, n=16):
     return x
 
 
+# 16 columns, and the trained widths: BERT-base's 768, Granite's 1024 and
+# StarCoder2-3B's 3072
+@pytest.mark.parametrize("n", [16, 768, 1024, 3072])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rms", [False, True])
-def test_layernorm_grad(dtype, rms):
-    n = 16
+def test_layernorm_grad(dtype, rms, n):
     x = _norm_rows(20, n)
     if rms:
         x[2] -= 3.0
